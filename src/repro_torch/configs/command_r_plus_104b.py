@@ -1,0 +1,21 @@
+"""command-r-plus-104b — GQA, no-bias [hf:CohereForAI/c4ai-command-r-v01; unverified].
+
+64L d_model=12288 96H (GQA kv=8) d_ff=33792 vocab=256000.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    n_layers=64,
+    d_model=12_288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=33_792,
+    vocab_size=256_000,
+    head_dim=128,
+    qkv_bias=False,
+    parallel_block=True,   # Cohere parallel attention+FFN residual
+    rope_theta=75_000_000.0,
+    source="hf:CohereForAI/c4ai-command-r-v01; unverified",
+)
