@@ -72,9 +72,7 @@ def paged_decode_step(params, cfg: ModelConfig, run: RunConfig,
     hd = cfg.resolved_head_dim
     blocks = params["blocks"]
     for li in range(cfg.n_layers):
-        p = {k: (v[li] if not isinstance(v, dict) else
-                 {kk: vv[li] for kk, vv in v.items()})
-             for k, v in blocks.items()}
+        p = lm_lib._layer(blocks, li)
         pa = p["attn"]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q = (h @ pa["wq"].to(dt).reshape(cfg.d_model, -1)

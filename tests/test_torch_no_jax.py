@@ -10,8 +10,10 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_heterogeneous_torch.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+              + [ROOT / "chip_smoke.py",
+                 ROOT / "examples" / "serve_heterogeneous_torch.py"])
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s)"
     r"|.*import_module\(\s*['\"](jax|repro)[.'\"])", re.M)
@@ -34,6 +36,7 @@ def test_every_port_module_imports_with_jax_blocked():
             "assert not bad, bad\n")
     mods = _modules()
     assert "repro_torch.serving.paged_lm" in mods
+    assert "repro_torch.kernels.flash_attention.ops" in mods
     r = subprocess.run([sys.executable, "-c", code, *mods], cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                        capture_output=True, text=True, timeout=120)
