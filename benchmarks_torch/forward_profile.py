@@ -1,17 +1,23 @@
 """Where one full-width forward and loss spends its time on the GPU.
 
-  python3 benchmarks_torch/forward_profile.py
+  python3 benchmarks_torch/forward_profile.py [--model qwen1.5-4b|xlstm-125m]
 
-Qwen1.5-4B at full width and depth (random bf16 weights from a seed), one
-batch of B=2 sequences of S=4096 tokens scored by
-``get_model(cfg).train_loss`` with ``RunConfig(compute_dtype="bfloat16",
-use_pallas=True)``: the forward that chip_smoke.py's forward phase runs,
-attention through the flash-attention kernel. It times forwards with the
-host clock (each ending in a synchronize), then traces one with
-torch.profiler and sums device time by kernel. The device's idle share is
-1 - (device busy time / untraced host time). Prints one JSON line, with
-the card's name and power limit.
+At full width and depth, with random weights from a seed, one batch scored
+by ``get_model(cfg).train_loss`` with bf16 compute: the forwards that
+chip_smoke.py runs.
+
+* ``qwen1.5-4b`` (the default): bf16 weights, B=2 sequences of S=4096
+  tokens, ``use_pallas=True``, so attention runs the flash-attention kernel;
+* ``xlstm-125m``: float32 weights, B=8 sequences of S=2048 tokens; the
+  mLSTM layers run the model's own chunk scan and the sLSTM layers a loop
+  over time steps.
+
+It times forwards with the host clock (each ending in a synchronize), then
+traces one with torch.profiler and sums device time by kernel. The device's
+idle share is 1 - (device busy time / untraced host time). Prints one JSON
+line, with the card's name and power limit.
 """
+import argparse
 import json
 import os
 import statistics
@@ -29,7 +35,9 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.models.registry import get_model
 
-B, S = 2, 4096
+# model -> (batch, sequence length, weight dtype, RunConfig overrides)
+MODELS = {"qwen1.5-4b": (2, 4096, torch.bfloat16, {"use_pallas": True}),
+          "xlstm-125m": (8, 2048, torch.float32, {})}
 TIMED = 3
 
 
@@ -37,6 +45,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if "flash_attention" in low:
         return "flash_attention"
+    if "mlstm_scan" in low:
+        return "mlstm_scan"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "matmul"
     if any(s in low for s in ("index", "scatter", "gather")):
@@ -55,16 +65,20 @@ def _busy_us(intervals):
     return busy
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="qwen1.5-4b", choices=sorted(MODELS))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("forward_profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen1.5-4b")
+    B, S, wdtype, knobs = MODELS[args.model]
+    cfg = get_config(args.model)
     bundle = get_model(cfg)
-    run = RunConfig(compute_dtype="bfloat16", use_pallas=True)
+    run = RunConfig(compute_dtype="bfloat16", **knobs)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = bundle.init(gen, torch.bfloat16)
+    params = bundle.init(gen, wdtype)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                          device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -100,7 +114,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "card": smi.stdout.strip().splitlines()[0],
-        "batch": B, "seq": S,
+        "model": args.model, "batch": B, "seq": S,
         "host_forward_ms": [1e3 * t for t in host],
         "host_forward_ms_median": host_ms,
         "device_busy_ms": busy_ms,

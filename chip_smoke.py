@@ -30,6 +30,22 @@ Phases (any failure exits non-zero):
              per layer per forward, K2 at the first and last layer is held
              against the plain version, and the logits and loss against a
              forward with the plain attention.
+6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
+             K3 at the reference bench's sweeps against their plain
+             versions, timed beside their bounds. It is K3's main path: the
+             xLSTM model keeps its own chunk scan, as the reference does.
+7. xlstm   — xLSTM-125m at full width and depth (random float32 weights
+             from a seed, bf16 compute): ``get_model(cfg).train_loss`` at
+             B=8, S=2048 timed; the loss finite and near ln(vocab); K3 on
+             layer 1's own q, k, v and gates against the layer's chunk
+             scan; ``prefill`` of S-1 tokens and 8 greedy ``decode_step``s,
+             the first held against the forward's last position.
+
+The kernel phase also holds K3 (mLSTM scan) against its plain version: the
+tests/test_kernels.py sweep in f32 (also against another chunk) and bf16,
+the kernel bench's widths, strided views, and the xLSTM-125m layer shape
+(B=8, H=4, S=2048, dh=384) at chunk 256 and 128, timed. The small phase
+also runs a reduced 5-layer xLSTM on the card against the CPU.
 
 It prints a JSON ``kernels`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout.
@@ -37,6 +53,7 @@ its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout.
 import gc
 import importlib.util
 import json
+import math
 import os
 import re
 import statistics
@@ -47,25 +64,29 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np
 import torch
 
+from benchmarks_torch import kernel_bench
+from benchmarks_torch.kernel_bench import time_ms as _time_ms
 from repro_torch.configs.base import RunConfig, reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.models import lm
-from repro_torch.models.common import softmax_xent
+from repro_torch.models import lm, xlstm
+from repro_torch.models.common import rms_norm, softmax_xent
 from repro_torch.models.registry import get_model
+from repro_torch.roofline.analysis import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
+                                           bound_ms)
 from repro_torch.serving import paged_lm
 from repro_torch.serving.engine import generate_requests
 from repro_torch.serving.types import default_clients
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # bf16 dense tensor cores
 F32_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_kernels.py
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)
 
@@ -85,6 +106,17 @@ FLASH_SWEEP = [                  # tests/test_kernels.py:21-28
     (2, 6, 1, 64, 128, 128, True, 0, 0.0),      # MQA
     (1, 4, 4, 192, 192, 16, True, 128, 30.0),   # window + softcap
 ]
+MLSTM_SWEEP = [                  # tests/test_kernels.py:97-100
+    # B, H, S, dh, chunk
+    (2, 2, 64, 16, 16),
+    (1, 4, 128, 32, 32),
+    (1, 1, 96, 8, 96),           # single chunk
+    (2, 1, 64, 16, 8),           # many small chunks
+]
+XLSTM_B, XLSTM_S = 8, 2048       # 16,384 scored tokens per call
+XLSTM_TIMED = 3                  # timed forwards, after one warm-up
+XLSTM_DECODE = 8                 # greedy decode steps after the prefill
+XLSTM_CHUNK = 256                # models/xlstm.mlstm_chunk_scan's chunk
 
 
 def _example():
@@ -94,23 +126,6 @@ def _example():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def _time_ms(fn, repeats):
-    """Median milliseconds of ``fn()`` over ``repeats`` runs, each between
-    two CUDA events, after two warm-up runs."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def _assert_close(name, got, want, tol, *, rtol_of_max=False):
@@ -127,13 +142,21 @@ def _assert_close(name, got, want, tol, *, rtol_of_max=False):
 
 
 def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
 
 
 def _leaves(tree):
-    for v in tree.values():
-        yield from _leaves(v) if isinstance(v, dict) else (v,)
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -220,14 +243,12 @@ def phase_kernels():
                + 2 * q.numel() * elt             # q in, out
                + 4 * (B + int(((ln + page - 1) // page).sum())))
     n_flops = 4 * keys * H * d                   # q.k and p.v
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    bound, by = bound_ms(n_bytes, n_flops, F32_FLOPS_PER_S)
     rec = {"name": "paged_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/paged_attention.cu",
            "replaces": "src/repro/kernels/paged_attention/kernel.py:67",
            "launches": None, "max_abs_err": err_a, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": library_ms}
     print(f"[kernels] paged_attention serving shape B={B} H={H} d={d} "
           f"page={page} slots={n_slots} keys={keys}: {ms:.4f} ms, bound "
@@ -293,14 +314,12 @@ def phase_flash_kernels():
     elt = x[0].element_size()
     n_bytes = 4 * B * H * S * d * elt             # q, k, v in; out
     n_flops = 4 * B * H * d * S * (S + 1) // 2    # q.k and p.v, causal pairs
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
            "launches": None, "max_abs_err": err_a, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": library_ms,
            "bound_f32_ms": n_flops / F32_FLOPS_PER_S * 1e3}
     print(f"[kernels] flash_attention forward shape B={B} H={H} S={S} d={d} "
@@ -309,6 +328,109 @@ def phase_flash_kernels():
           f"{rec['bound_f32_ms']:.4f} ms at the f32 rate; plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; max|err| "
           f"{err_a:.3e}")
+    return rec
+
+
+def _scan_f64(q, k, v, lf, li, chunk):
+    """The plain mLSTM scan in float64, as the yardstick of f32 rounding."""
+    B, H, _, dh = q.shape
+    f64 = dict(dtype=torch.float64, device=q.device)
+    h, _ = xlstm.mlstm_chunk_scan(
+        q.double(), k.double(), v.double(), lf.double(), li.double(),
+        (torch.zeros((B, H, dh, dh), **f64), torch.zeros((B, H, dh), **f64),
+         torch.full((B, H), xlstm.MMIN, **f64)), chunk=chunk)
+    return h
+
+
+def _scan_close(name, x, chunk, got, want):
+    """K3 against its plain version at the f32 tolerance, elementwise.
+
+    Where that fails, both are held against the same scan in float64: when
+    the f32 plain version is itself at least half the elementwise bound away
+    from it, the bound is below the rounding of float32 sums over dh and the
+    chunk, and the rtol is taken of max |h| instead (the reason is printed);
+    otherwise the failure stands. Returns (max |err|, the form used)."""
+    try:
+        return _assert_close(name, got, want, F32_TOL), "elementwise"
+    except AssertionError as e:
+        exact = _scan_f64(*x, chunk)
+        plain, kern = (kernel_bench.compare(t, exact)[1] for t in (want, got))
+        del exact
+        if plain < 0.5:
+            raise
+        form = (f"rtol of max |h|: against the float64 scan the f32 plain "
+                f"version is {plain:.3f}x the elementwise bound, the kernel "
+                f"{kern:.3f}x")
+        print(f"[kernels] {e}; {form}")
+        return _assert_close(name, got, want, F32_TOL, rtol_of_max=True), form
+
+
+def phase_mlstm_kernels():
+    """K3 against its plain version; returns the xLSTM-125m layer-shape
+    record."""
+    rng = np.random.RandomState(3)
+    errs = {}
+
+    def check(name, x, chunk, tol, plain_chunk=None):
+        got = ml_ops.mlstm_scan(*x, chunk=chunk)
+        want = mlstm_scan_ref(*x, chunk=plain_chunk or chunk)
+        if tol is F32_TOL:
+            errs[name] = _scan_close(f"mlstm_scan {name}", x, chunk, got,
+                                     want)[0]
+        else:
+            errs[name] = _assert_close(f"mlstm_scan {name}", got, want, tol)
+
+    for B, H, S, dh, chunk in MLSTM_SWEEP:
+        x = kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda")
+        name = f"B={B} H={H} S={S} dh={dh} chunk={chunk}"
+        check(f"(b) f32 {name}", x, chunk, F32_TOL)
+        # as tests/test_kernels.py: the plain version at another chunk
+        check(f"(b) f32 {name} vs plain chunk 8", x, chunk, F32_TOL, 8)
+        bf = [t.bfloat16() for t in x[:3]] + list(x[3:])
+        check(f"(c) bf16 {name}", bf, chunk, BF16_TOL)
+    # tests/test_kernels.py:118-131's property inputs and tolerance
+    x = kernel_bench.mlstm_inputs(rng, 1, 2, 48, 8, "cuda", (0.3, 0.999), 1.0)
+    check("(b) f32 property B=1 H=2 S=48 dh=8 chunk=16 vs plain chunk 48", x,
+          16, dict(atol=5e-5, rtol=5e-4), 48)
+    for B, H, S, dh, chunk in kernel_bench.MLSTM_SHAPES:
+        check(f"(d) f32 kernel-bench widths B={B} H={H} S={S} dh={dh} "
+              f"chunk={chunk}",
+              kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda"), chunk,
+              F32_TOL)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+             kernel_bench.mlstm_inputs(rng, 2, 3, 128, 48, "cuda")]
+    check("(d) strided (B,S,H,dh) views f32 chunk=32", views, 32, F32_TOL)
+    print("[kernels] mlstm_scan max|err| " + "; ".join(
+        f"{n} {e:.3e}" for n, e in errs.items()))
+
+    # (a) the xLSTM-125m mLSTM layer's shape, at the model's chunk (256) and
+    # the kernel's default (128)
+    B, H, S, dh = XLSTM_B, 4, XLSTM_S, 384
+    x = kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda")
+    rec = {"name": "mlstm_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/mlstm_scan.cu",
+           "replaces": "src/repro/kernels/mlstm_scan/kernel.py:74",
+           "launches": None, "library_ms": None}
+    for chunk in (XLSTM_CHUNK, 128):
+        err, form = _scan_close(
+            f"mlstm_scan (a) layer shape chunk={chunk} f32", x, chunk,
+            ml_ops.mlstm_scan(*x, chunk=chunk),
+            mlstm_scan_ref(*x, chunk=chunk))
+        ms = _time_ms(lambda: ml_ops.mlstm_scan(*x, chunk=chunk), 10)
+        plain_ms = _time_ms(lambda: mlstm_scan_ref(*x, chunk=chunk), 5)
+        full, needed = kernel_bench.mlstm_flops(B, H, S, dh, chunk)
+        bound, by = bound_ms(kernel_bench.mlstm_bytes(B, H, S, dh), needed,
+                             F32_FLOPS_PER_S)
+        sfx = "" if chunk == XLSTM_CHUNK else f"_chunk{chunk}"
+        rec.update({f"max_abs_err{sfx}": err, f"check{sfx}": form,
+                    f"ms{sfx}": ms,
+                    f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
+                    f"bound_by{sfx}": by})
+        print(f"[kernels] mlstm_scan layer shape B={B} H={H} S={S} dh={dh} "
+              f"chunk={chunk} f32: {ms:.4f} ms ({needed / ms / 1e9:.1f} "
+              f"TFLOP/s of {needed / 1e9:.2f} GFLOP needed; {full / 1e9:.2f} "
+              f"GFLOP with the full L x L), bound {bound:.4f} ms ({by}, f32 "
+              f"rate); plain {plain_ms:.4f} ms; max|err| {err:.3e} ({form})")
     return rec
 
 
@@ -357,6 +479,42 @@ def phase_small_forward():
     print(f"[forward] small input: reduced qwen B=2 S=128 f32, logits "
           f"max|err| {err:.3e}, loss {float(out['cuda'][1]):.6f} (cpu "
           f"{float(out['cpu'][1]):.6f}, |err| {err_l:.3e})")
+
+
+def phase_small_xlstm():
+    """Reduced xLSTM (5 layers: sLSTM at 0 and 4), f32: the forward and loss,
+    and prefill plus 4 greedy decode steps, on the card against the CPU."""
+    cfg = reduced(get_config("xlstm-125m"), n_layers=5)
+    bundle = get_model(cfg)
+    run = RunConfig(compute_dtype="float32")
+    params = bundle.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            p, b = _tree_to(params, dev), _tree_to(batch, dev)
+            logits, _ = xlstm.forward_train(p, cfg, run, b)
+            loss = bundle.train_loss(p, run, b)
+            lg, cache, lens = bundle.prefill(p, run, None, b["tokens"])
+            gen = [lg.argmax(-1)]
+            for _ in range(4):
+                lg, cache = bundle.decode_step(p, run, cache, gen[-1], lens)
+                lens = lens + 1
+                gen.append(lg.argmax(-1))
+            out[dev] = (logits.cpu(), loss.cpu(), torch.stack(gen, 1).cpu())
+    err = _assert_close("small xlstm logits, card vs cpu", out["cuda"][0],
+                        out["cpu"][0], F32_TOL)
+    err_l = _assert_close("small xlstm loss, card vs cpu", out["cuda"][1],
+                          out["cpu"][1], F32_TOL)
+    if not torch.equal(out["cuda"][2], out["cpu"][2]):
+        raise AssertionError(f"small xlstm: card tokens {out['cuda'][2]} != "
+                             f"cpu tokens {out['cpu'][2]}")
+    print(f"[xlstm] small input: reduced xlstm 5 layers B=2 S=96 f32, logits "
+          f"max|err| {err:.3e}, loss {float(out['cuda'][1]):.6f} (|err| "
+          f"{err_l:.3e}); prefill + 4 decode steps: card tokens == cpu "
+          f"tokens {out['cpu'][2].tolist()}")
 
 
 def phase_serve():
@@ -537,6 +695,127 @@ def phase_forward(params, flash_ms):
     return launches
 
 
+def phase_kernel_bench():
+    """benchmarks_torch/kernel_bench.py's main, K3's main path; returns the
+    launches of each kernel in it."""
+    counters = (ops.paged_attention, fa_ops.flash_attention,
+                ml_ops.mlstm_scan)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    kernel_bench.main([])
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if not all(launches.values()):
+        raise AssertionError(f"kernel bench: a kernel never ran {launches}")
+    print(f"[kernel_bench] launches {json.dumps(launches)}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_xlstm():
+    """Full-width, full-depth xLSTM-125m: forward and loss, prefill and
+    greedy decode through ``get_model(cfg)``; K3 on layer 1's own inputs.
+    Returns K3's launches on the model path (the model keeps its own chunk
+    scan, as the reference does, so 0)."""
+    cfg = get_config("xlstm-125m")
+    bundle = get_model(cfg)
+    run = RunConfig(compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = bundle.init(gen)        # float32 weights, the reference's default
+    n_params = sum(t.numel() for t in _leaves(params))
+    toks = torch.randint(0, cfg.vocab_size, (XLSTM_B, XLSTM_S + 1),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (ops.paged_attention, fa_ops.flash_attention,
+               ml_ops.mlstm_scan):
+        fn.launches = 0
+    wall = []
+    with torch.no_grad():
+        for i in range(1 + XLSTM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = bundle.train_loss(params, run, batch)
+            torch.cuda.synchronize()
+            if i:
+                wall.append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(loss)):
+                raise AssertionError(f"xlstm forward {i}: loss {float(loss)}")
+        peak = torch.cuda.max_memory_allocated()
+        if abs(float(loss) - math.log(cfg.vocab_size)) > 1.0:
+            raise AssertionError(f"xlstm loss {float(loss)} is not near "
+                                 f"ln V = {math.log(cfg.vocab_size):.3f}")
+        prompt = batch["tokens"][:, :-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, lens = bundle.prefill(params, run, None, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        gen_toks, step_ms, first = [lg.argmax(-1)], [], None
+        for _ in range(XLSTM_DECODE):
+            t0 = time.perf_counter()
+            lg, cache = bundle.decode_step(params, run, cache, gen_toks[-1],
+                                           lens)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError("xlstm decode: non-finite logits")
+            first = lg if first is None else first
+            lens = lens + 1
+            gen_toks.append(lg.argmax(-1))
+        model_launches = {fn.__name__: fn.launches for fn in
+                          (ops.paged_attention, fa_ops.flash_attention,
+                           ml_ops.mlstm_scan)}
+        if any(model_launches.values()):
+            raise AssertionError(f"the xlstm path launched {model_launches}")
+        # the forward over the prompt and the first greedy token: its last
+        # position is what the first decode step computed. bf16 through 12
+        # layers, the chunk scan against the decode cell: the rtol is taken
+        # of the logits' largest magnitude, as in the Qwen checks.
+        seq = torch.cat([prompt, gen_toks[0][:, None]], dim=1)
+        full, _ = xlstm.forward_train(params, cfg, run, {"tokens": seq})
+        err_dec = _assert_close("xlstm first decode vs the forward", first,
+                                full[:, -1], BF16_TOL, rtol_of_max=True)
+        del full
+        # K3 on the q, k, v and gates that layer 1 (the first mLSTM block)
+        # computes, against the layer's own chunk scan (chunk 256)
+        p1 = params["blocks"][1]
+        x1, _ = xlstm.slstm_block(params["blocks"][0], cfg,
+                                  xlstm._embed(params, run, batch["tokens"]))
+        q, k, v, lf, li, _, _ = xlstm._mlstm_qkvg(
+            p1, cfg, rms_norm(x1, p1["ln"], cfg.norm_eps))
+        q, k, v = q.float(), k.float(), v.float()
+        B, H, S, dh = q.shape
+        f32 = dict(dtype=torch.float32, device="cuda")
+        want, _ = xlstm.mlstm_chunk_scan(
+            q, k, v, lf, li, (torch.zeros((B, H, dh, dh), **f32),
+                              torch.zeros((B, H, dh), **f32),
+                              torch.full((B, H), xlstm.MMIN, **f32)))
+        err_layer, form = _scan_close(
+            "xlstm layer 1 K3 vs its chunk scan", (q, k, v, lf, li),
+            XLSTM_CHUNK, ml_ops.mlstm_scan(q, k, v, lf, li,
+                                           chunk=XLSTM_CHUNK), want)
+    fwd_ms = 1e3 * statistics.median(wall)
+    ntok = XLSTM_B * XLSTM_S
+    print(f"[xlstm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M params (float32), bf16 compute, "
+          f"B={XLSTM_B} "
+          f"S={XLSTM_S}: loss {float(loss):.6f} (ln V "
+          f"{math.log(cfg.vocab_size):.6f}); median forward+loss "
+          f"{fwd_ms:.3f} ms ({', '.join(f'{1e3 * t:.3f}' for t in wall)}), "
+          f"{ntok / (fwd_ms / 1e3):.1f} scored tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; prefill {XLSTM_S - 1} tokens "
+          f"{prefill_ms:.1f} ms; {XLSTM_DECODE} greedy decode steps, median "
+          f"{statistics.median(step_ms):.3f} ms; first decode vs forward "
+          f"max|err| {err_dec:.3e}; kernel launches on the model path "
+          f"{json.dumps(model_launches)}; K3 at layer 1 (chunk "
+          f"{XLSTM_CHUNK}) vs the layer's chunk scan max|err| "
+          f"{err_layer:.3e} ({form})")
+    return model_launches["mlstm_scan"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -547,11 +826,22 @@ def main():
     phase_build()
     rec_pa = phase_kernels()
     rec_fa = phase_flash_kernels()
+    rec_ml = phase_mlstm_kernels()
     phase_small_input()
     phase_small_forward()
+    phase_small_xlstm()
     rec_pa["launches"], params = phase_serve()
     rec_fa["launches"] = phase_forward(params, rec_fa["ms"])
-    print(json.dumps({"kernels": [rec_pa, rec_fa]}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench = phase_kernel_bench()
+    # K3's main path is the kernel bench; the model path runs it 0 times
+    rec_ml["launches"] = bench["mlstm_scan"]
+    rec_ml["model_path_launches"] = phase_xlstm()
+    for rec in (rec_pa, rec_fa, rec_ml):
+        rec["kernel_bench_launches"] = bench[rec["name"]]
+    print(json.dumps({"kernels": [rec_pa, rec_fa, rec_ml]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -1,9 +1,10 @@
 """Shared model components: param declaration, norms, rope, attention, loss.
 
 Port of ``repro/models/common.py``. Parameters are declared as ``ParamDef``
-trees (nested dicts) and materialized into nested dicts of tensors drawn
-from an explicit ``torch.Generator``. The numerics keep the reference's
-dtypes: norms, rope, attention and the loss run in float32 and cast back.
+trees (nested dicts and lists) and materialized into the same trees of
+tensors drawn from an explicit ``torch.Generator``. The numerics keep the
+reference's dtypes: norms, rope, attention and the loss run in float32 and
+cast back.
 The reference's ``scan_or_unroll`` is a plain loop over layers at the
 call sites.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,6 +44,8 @@ def _materialize(gen, defs: PyTree, lead, dtype) -> PyTree:
     # sorted keys: the same leaf order as a JAX tree flatten of the dict
     if isinstance(defs, ParamDef):
         return _make(gen, defs, lead, dtype)
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(_materialize(gen, d, lead, dtype) for d in defs)
     return {k: _materialize(gen, defs[k], lead, dtype) for k in sorted(defs)}
 
 
@@ -56,6 +60,18 @@ def init_stacked(gen: torch.Generator, defs: PyTree, n: int,
                  dtype=torch.float32) -> PyTree:
     """Per-layer weights for ``n`` layers, stacked on a leading axis."""
     return _materialize(gen, defs, (n,), dtype)
+
+
+def params_from_numpy(tree: PyTree, device, dtype=None) -> PyTree:
+    """A tree of dicts, lists and tuples of numpy arrays (e.g. the JAX
+    package's params through ``np.asarray``) -> the same tree of tensors on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    t = torch.from_numpy(np.array(tree, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def stack_defs(defs: PyTree, n: int, axis_name: Optional[str] = None) -> PyTree:

@@ -25,6 +25,8 @@ from repro_torch.models.common import (ParamDef, act_fn, apply_rope,
                                        attention, gqa_attention, init_params,
                                        init_stacked, rms_norm, softcap,
                                        softmax_xent, stack_defs)
+# re-exported: the tests and older callers take it from here
+from repro_torch.models.common import params_from_numpy  # noqa: F401
 
 PyTree = Any
 
@@ -266,15 +268,6 @@ def init(gen: torch.Generator, cfg: ModelConfig,
     return {"lm": init_params(gen, lm_defs(cfg), dtype=dtype),
             "blocks": init_stacked(gen, block_defs(cfg), cfg.n_layers,
                                    dtype=dtype)}
-
-
-def params_from_numpy(tree: PyTree, device, dtype=None) -> PyTree:
-    """Nested dict of numpy arrays (e.g. the JAX package's params through
-    ``np.asarray``) -> the same nested dict of tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    t = torch.from_numpy(np.array(tree, copy=True))
-    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def _embed(params, cfg: ModelConfig, run: RunConfig, batch) -> torch.Tensor:

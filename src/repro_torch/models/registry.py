@@ -2,10 +2,10 @@
 decode_step.
 
 Port of ``repro/models/registry.py`` for the families the port has: dense
-and vlm (``models/lm.py``). The ``moe`` family shares the bundle and raises
-``NotImplementedError`` where its blocks are built. The dry-run's
-``input_specs`` and the bundle's abstract params and sharding axes arrive
-with the launchers (ROADMAP slice F).
+and vlm (``models/lm.py``) and ssm (``models/xlstm.py``). The ``moe``
+family shares the dense bundle and raises ``NotImplementedError`` where its
+blocks are built. The dry-run's ``input_specs`` and the bundle's abstract
+params and sharding axes arrive with the launchers (ROADMAP slice F).
 """
 from __future__ import annotations
 
@@ -16,11 +16,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm as lm_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 PyTree = Any
 
-_NOT_PORTED = {"ssm": "slice E (xLSTM, with the mLSTM kernel)",
-               "hybrid": "slice E (hymba)",
+_NOT_PORTED = {"hybrid": "slice E (hymba)",
                "audio": "slice E (whisper)"}
 
 
@@ -40,7 +40,7 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
         raise NotImplementedError(
             f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
             f"ported yet; it comes with {_NOT_PORTED[cfg.family]}")
-    lib = lm_lib
+    lib = xlstm_lib if cfg.family == "ssm" else lm_lib
     return ModelBundle(
         cfg=cfg,
         init=lambda gen, dtype=torch.float32: lib.init(gen, cfg, dtype),
