@@ -13,7 +13,13 @@ Phases (any failure exits non-zero):
              the serving shape; K2 flash attention at the forward shape
              (B=2, H=20, S=4096, d=128, bf16, causal), the
              tests/test_kernels.py sweep in f32 and bf16, gemma2's widths,
-             ragged tails and strided views.
+             ragged tails (f32 and bf16), rows that see no key, and
+             strided views. K2 has two routes: bf16 goes to the wgmma/TMA
+             kernel (csrc/flash_attention_sm90.cu), f32 to the CUDA-core
+             kernel (csrc/flash_attention.cu); the forward shape prints the
+             bf16 kernel's TFLOP/s and its registers, shared memory and
+             spills, and times the CUDA-core kernel on the same bf16 inputs
+             as the earlier design.
 3. small   — the reduced models, kernel path on the card against the plain
              path on the CPU from the same weights: the serving example
              (same generated tokens) and a 2-layer Qwen forward with
@@ -27,7 +33,8 @@ Phases (any failure exits non-zero):
 5. forward — the same weights, the pools freed: the full-sequence forward
              and loss (``get_model(cfg).train_loss`` with use_pallas, B=2,
              S=4096, bf16). The loss must be finite, K2 must have run once
-             per layer per forward, K2 at the first and last layer is held
+             per layer per forward, every launch through the bf16 route,
+             K2 at the first and last layer is held
              against the plain version, and the logits and loss against a
              forward with the plain attention.
 6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
@@ -159,6 +166,13 @@ def _leaves(tree):
         yield tree
 
 
+def _zero_counts():
+    """Every kernel's launch count to 0, before a main path is driven."""
+    for fn in (ops.paged_attention, fa_ops.flash_attention, ml_ops.mlstm_scan):
+        fn.launches = 0
+    fa_ops.flash_attention.launches_sm90 = 0
+
+
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
     dev = "cuda"
     q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dtype)
@@ -284,15 +298,19 @@ def phase_flash_kernels():
           _flash_inputs(gen, 2, 8, 4, 512, 512, 256, torch.bfloat16),
           BF16_TOL, softcap=50.0)
     # tails that are no multiple of a tile, and the model's strided views
-    check("(d) ragged Sq=Sk=200 window 70 f32",
-          _flash_inputs(gen, 1, 4, 2, 200, 200, 80, torch.float32), F32_TOL,
-          window=70)
-    check("(d) ragged non-causal Sq=72 Sk=136 f32",
-          _flash_inputs(gen, 2, 2, 1, 72, 136, 48, torch.float32), F32_TOL,
-          causal=False)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype)[6:]
+        check(f"(d) ragged Sq=Sk=200 window 70 d=80 {name}",
+              _flash_inputs(gen, 1, 4, 2, 200, 200, 80, dtype), tol,
+              window=70)
+        check(f"(d) ragged non-causal Sq=72 Sk=136 d=48 {name}",
+              _flash_inputs(gen, 2, 2, 1, 72, 136, 48, dtype), tol,
+              causal=False)
     views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in
              _flash_inputs(gen, 2, 6, 3, 192, 192, 64, torch.bfloat16)]
     check("(d) strided (B,S,H,d) views bf16", views, BF16_TOL)
+    errs["(e) rows that see no key, causal Sq=256 Sk=64 window 32 bf16"] = \
+        _check_no_key_rows(gen, 256, 64, 32)
     print("[kernels] flash_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
@@ -311,24 +329,81 @@ def phase_flash_kernels():
     ms = _time_ms(lambda: fa_ops.flash_attention(*x), 20)
     plain_ms = _time_ms(lambda: attention_ref(*x), 5)
     library_ms = _time_ms(lambda: sdpa(*x, is_causal=True), 20)
+    # the f32 route: the CUDA-core kernel on f32 copies
+    xf = [t.float() for t in x]
+    simt_f32_ms = _time_ms(lambda: fa_ops.flash_attention(*xf), 5)
+    del xf
     elt = x[0].element_size()
     n_bytes = 4 * B * H * S * d * elt             # q, k, v in; out
     n_flops = 4 * B * H * d * S * (S + 1) // 2    # q.k and p.v, causal pairs
     bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
+    cfg = fa_ops.sm90_config(d)
+    # the kernel's own work: whole 128 x 128 tiles up to the diagonal, and
+    # P.V twice (P_hi and P_lo)
+    n_qt = S // cfg["block_q"]
+    tiles = B * H * sum((min((qt + 1) * cfg["block_q"], S) + cfg["block_k"]
+                         - 1) // cfg["block_k"] for qt in range(n_qt))
+    kernel_flops = tiles * cfg["block_q"] * cfg["block_k"] * d * 2 * 3
+    log = _build.build_log("flash_attention_sm90")
+    regs = max(int(w) for w in re.findall(r"Used (\d+) registers", log))
+    spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", log))
     rec = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
            "launches": None, "max_abs_err": err_a, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": library_ms,
-           "bound_f32_ms": n_flops / F32_FLOPS_PER_S * 1e3}
+           "bound_f32_ms": n_flops / F32_FLOPS_PER_S * 1e3,
+           "routes": {
+               "sm90": {"dtype": "bfloat16", "launches": None, "ms": ms,
+                        "source": "src/repro_torch/csrc/"
+                                  "flash_attention_sm90.cu"},
+               "simt": {"dtype": "float32", "launches": None,
+                        "ms": simt_f32_ms,
+                        "source": "src/repro_torch/csrc/flash_attention.cu"}}}
     print(f"[kernels] flash_attention forward shape B={B} H={H} S={S} d={d} "
-          f"bf16 causal: {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s), "
-          f"bound {rec['bound_ms']:.4f} ms at the bf16 tensor-core peak, "
-          f"{rec['bound_f32_ms']:.4f} ms at the f32 rate; plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; max|err| "
-          f"{err_a:.3e}")
+          f"bf16 causal: {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s of "
+          f"the function's {n_flops / 1e9:.1f} GFLOP, "
+          f"{kernel_flops / ms / 1e9:.1f} TFLOP/s executed by the kernel: "
+          f"{kernel_flops / 1e9:.1f} GFLOP with whole diagonal tiles and the "
+          f"split P.V), bound {rec['bound_ms']:.4f} ms at the "
+          f"bf16 tensor-core peak, {rec['bound_f32_ms']:.4f} ms at the f32 "
+          f"rate; plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; the "
+          f"f32 route (CUDA-core kernel) {simt_f32_ms:.4f} ms on f32 copies; "
+          f"max|err| {err_a:.3e}; sm90 kernel: {cfg['block_q']} q rows x "
+          f"{cfg['block_k']} keys per tile, 384 threads, registers <= "
+          f"{regs} (launch), {cfg['smem_bytes']} B dynamic shared memory, "
+          f"spill bytes {spills}")
     return rec
+
+
+def _check_no_key_rows(gen, Sq, Sk, window):
+    """Causal with a window, Sk < Sq: rows q >= Sk + window - 1 see no key.
+    Rows that see one are held against the plain version; the others
+    against the kernel's convention, the mean of v over the keys of the
+    tiles their 128-row q tile visited (or 0 when it visited none)."""
+    d = 64
+    x = _flash_inputs(gen, 1, 2, 2, Sq, Sk, d, torch.bfloat16)
+    got = fa_ops.flash_attention(*x, window=window)
+    want = attention_ref(*x, window=window).float()
+    cfg = fa_ops.sm90_config(d)
+    bq, bk = cfg["block_q"], cfg["block_k"]
+    v = x[2].float()
+    blind = 0
+    for qp in range(Sq):
+        if max(0, qp - window + 1) <= min(qp, Sk - 1):
+            continue                      # the row sees a key
+        blind += 1
+        q0 = qp // bq * bq
+        k_end = min(Sk, q0 + bq, Sq)
+        k_first = max(0, q0 - window + 1) // bk * bk
+        n_tiles = max(0, -(-(k_end - k_first) // bk))
+        keys = v[:, :, k_first:min(Sk, k_first + n_tiles * bk)]
+        want[:, :, qp] = keys.mean(2) if keys.shape[2] else 0.0
+    if not blind:
+        raise AssertionError("no-key check: every row sees a key")
+    return _assert_close(f"flash_attention (e) {blind} of {Sq} rows see no "
+                         f"key", got, want.bfloat16(), BF16_TOL)
 
 
 def _scan_f64(q, k, v, lf, li, chunk):
@@ -455,7 +530,8 @@ def phase_small_input():
 
 def phase_small_forward():
     """Reduced Qwen (2 layers, head_dim 32), f32: the forward and loss with
-    use_pallas on the card (K2) against the same on the CPU (plain)."""
+    use_pallas on the card (K2's f32 route) against the same on the CPU
+    (plain)."""
     cfg = reduced(get_config("qwen1.5-4b"), n_layers=2, head_dim=32)
     run = RunConfig(compute_dtype="float32", use_pallas=True)
     params = lm.init(torch.Generator().manual_seed(0), cfg)
@@ -464,6 +540,7 @@ def phase_small_forward():
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     out = {}
     before = fa_ops.flash_attention.launches
+    before_sm90 = fa_ops.flash_attention.launches_sm90
     with torch.no_grad():
         for dev in ("cpu", "cuda"):
             p, b = _tree_to(params, dev), _tree_to(batch, dev)
@@ -472,6 +549,8 @@ def phase_small_forward():
             out[dev] = (logits.cpu(), loss.cpu())
     if fa_ops.flash_attention.launches - before != 2 * cfg.n_layers:
         raise AssertionError("small forward: K2 did not run on the card")
+    if fa_ops.flash_attention.launches_sm90 != before_sm90:
+        raise AssertionError("small forward: f32 took the bf16 route")
     err = _assert_close("small forward logits, card vs cpu", out["cuda"][0],
                         out["cpu"][0], F32_TOL)
     err_l = _assert_close("small forward loss, card vs cpu", out["cuda"][1],
@@ -574,8 +653,7 @@ def phase_serve():
 
     torch.cuda.reset_peak_memory_stats()
     finished, step_s, tokens = [], [], 0
-    ops.paged_attention.launches = 0
-    fa_ops.flash_attention.launches = 0
+    _zero_counts()
     t_prev = time.perf_counter()
     stream = ex.serve(cfg, params, "cuda", requests, SERVE_SLOTS, run=run,
                       page_size=SERVE_PAGE, n_pages=SERVE_PAGES, decode=decode)
@@ -618,7 +696,8 @@ def phase_serve():
 
 def phase_forward(params, flash_ms):
     """Full-width, full-depth Qwen1.5-4B: the full-sequence forward and loss
-    through ``get_model(cfg).train_loss`` with K2; returns K2's launches."""
+    through ``get_model(cfg).train_loss`` with K2; returns K2's launches,
+    all of them and those of the bf16 route."""
     cfg = get_config("qwen1.5-4b")
     bundle = get_model(cfg)
     run = RunConfig(compute_dtype="bfloat16", use_pallas=True)
@@ -643,8 +722,7 @@ def phase_forward(params, flash_ms):
         checked["layer"] += 1
         return out
 
-    ops.paged_attention.launches = 0
-    fa_ops.flash_attention.launches = 0
+    _zero_counts()
     wall, n_fwd = [], 0
     with torch.no_grad():
         for i in range(1 + FWD_TIMED):
@@ -661,6 +739,7 @@ def phase_forward(params, flash_ms):
                                      flash=checked_flash)
         n_fwd += 1
         launches = fa_ops.flash_attention.launches
+        launches_sm90 = fa_ops.flash_attention.launches_sm90
         if ops.paged_attention.launches:
             raise AssertionError("the forward launched paged_attention")
         peak = torch.cuda.max_memory_allocated()
@@ -675,14 +754,16 @@ def phase_forward(params, flash_ms):
         del logits, plain
         err_loss = _assert_close("forward loss vs plain attention", loss_k,
                                  loss_p, BF16_TOL)
-    if launches != cfg.n_layers * n_fwd:
-        raise AssertionError(f"flash_attention launches {launches} != "
-                             f"{cfg.n_layers} x {n_fwd} forwards")
+    if launches != cfg.n_layers * n_fwd or launches_sm90 != launches:
+        raise AssertionError(f"flash_attention launches {launches} (bf16 "
+                             f"route {launches_sm90}) != {cfg.n_layers} x "
+                             f"{n_fwd} forwards, all on the bf16 route")
     if len(checked["err"]) != 2:
         raise AssertionError("the layer checks of the forward never ran")
     fwd_ms = 1e3 * statistics.median(wall)
     print(f"[forward] {cfg.name} B={FWD_B} S={FWD_S} bf16 use_pallas: "
-          f"{n_fwd} forwards, flash_attention launches {launches}; loss "
+          f"{n_fwd} forwards, flash_attention launches {launches} (bf16 "
+          f"wgmma route {launches_sm90}); loss "
           f"{float(loss):.6f} (plain attention {float(loss_p):.6f}, |err| "
           f"{err_loss:.3e}); logits vs plain attention max|err| "
           f"{err_logits:.3e}; K2 vs plain at layers 0 and "
@@ -692,21 +773,24 @@ def phase_forward(params, flash_ms):
           f"{FWD_B * FWD_S / (fwd_ms / 1e3):.1f} scored tokens/s, K2 share "
           f"{cfg.n_layers * flash_ms / fwd_ms:.3f} ({cfg.n_layers} x "
           f"{flash_ms:.4f} ms); peak memory {peak / 2**30:.1f} GiB")
-    return launches
+    return launches, launches_sm90
 
 
 def phase_kernel_bench():
-    """benchmarks_torch/kernel_bench.py's main, K3's main path; returns the
-    launches of each kernel in it."""
+    """benchmarks_torch/kernel_bench.py's main, K3's main path and K2's f32
+    route's; returns the launches of each kernel in it."""
     counters = (ops.paged_attention, fa_ops.flash_attention,
                 ml_ops.mlstm_scan)
-    for fn in counters:
-        fn.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     kernel_bench.main([])
     launches = {fn.__name__: fn.launches for fn in counters}
     if not all(launches.values()):
         raise AssertionError(f"kernel bench: a kernel never ran {launches}")
+    n_sm90 = fa_ops.flash_attention.launches_sm90
+    if n_sm90:
+        raise AssertionError(f"kernel bench: {n_sm90} f32 flash_attention "
+                             f"calls took the bf16 route")
     print(f"[kernel_bench] launches {json.dumps(launches)}, "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -729,9 +813,7 @@ def phase_xlstm():
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (ops.paged_attention, fa_ops.flash_attention,
-               ml_ops.mlstm_scan):
-        fn.launches = 0
+    _zero_counts()
     wall = []
     with torch.no_grad():
         for i in range(1 + XLSTM_TIMED):
@@ -831,13 +913,16 @@ def main():
     phase_small_forward()
     phase_small_xlstm()
     rec_pa["launches"], params = phase_serve()
-    rec_fa["launches"] = phase_forward(params, rec_fa["ms"])
+    rec_fa["launches"], rec_fa["routes"]["sm90"]["launches"] = \
+        phase_forward(params, rec_fa["ms"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
     bench = phase_kernel_bench()
     # K3's main path is the kernel bench; the model path runs it 0 times
     rec_ml["launches"] = bench["mlstm_scan"]
+    # K2's f32 route runs on the kernel bench (all its flash calls are f32)
+    rec_fa["routes"]["simt"]["launches"] = bench["flash_attention"]
     rec_ml["model_path_launches"] = phase_xlstm()
     for rec in (rec_pa, rec_fa, rec_ml):
         rec["kernel_bench_launches"] = bench[rec["name"]]

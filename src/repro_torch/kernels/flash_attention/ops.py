@@ -1,10 +1,18 @@
 """Public wrapper of blocked (flash) attention.
 
-A CUDA tensor goes to the hand-written kernel (``csrc/flash_attention.cu``),
-or the call raises; a CPU tensor goes to the plain version (``ref.py``).
-``flash_attention.launches`` counts the kernel's launches.
+A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor goes to
+one of two hand-written kernels, chosen by dtype, or the call raises:
 
-The kernel takes strides, so q, k, v and the output may be views (the
+* bfloat16 -> ``csrc/flash_attention_sm90.cu``: wgmma products fed by TMA,
+  for head_dim a multiple of 16 up to 256, with TMA's layout rule
+  (``_sm90_layout_ok``);
+* float32 -> ``csrc/flash_attention.cu``: float32 arithmetic on the CUDA
+  cores (the float32 tolerance rules out TF32 tensor cores).
+
+``flash_attention.launches`` counts the launches of both kernels,
+``flash_attention.launches_sm90`` those of the bfloat16 one.
+
+The kernels take strides, so q, k, v and the output may be views (the
 model's ``(B, S, H, d) -> (B, H, S, d)`` transposes) as long as the last
 dimension is contiguous. The output has q's layout.
 """
@@ -31,6 +39,38 @@ def _launcher():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launcher_sm90():
+    from repro_torch.kernels import _build
+    fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sm90_config(d: int) -> dict:
+    """The bfloat16 kernel's launch configuration at head_dim ``d``: q rows
+    per block, keys per tile, dynamic shared memory bytes (builds the
+    kernel; needs the CUDA toolkit)."""
+    from repro_torch.kernels import _build
+    vals = [ctypes.c_int() for _ in range(3)]
+    _build.load("flash_attention_sm90").flash_attention_sm90_config(
+        ctypes.c_int(d), *(ctypes.byref(x) for x in vals))
+    return dict(zip(("block_q", "block_k", "smem_bytes"),
+                    (x.value for x in vals)))
+
+
+def _sm90_layout_ok(t: torch.Tensor) -> bool:
+    """TMA's rule for a bfloat16 operand: a 16-byte aligned base, and the
+    stride of every non-innermost dimension longer than 1 a multiple of 16
+    bytes (8 elements)."""
+    return t.data_ptr() % 16 == 0 and all(
+        n <= 1 or (st * t.element_size()) % 16 == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
 def _check(q, k, v, window) -> None:
@@ -61,6 +101,21 @@ def _check(q, k, v, window) -> None:
                              f"in its last dimension")
 
 
+def _check_sm90(q, k, v) -> None:
+    d = q.shape[-1]
+    if d % 16:
+        raise ValueError(f"flash_attention: the bfloat16 kernel takes "
+                         f"head_dim a multiple of 16 up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _sm90_layout_ok(t):
+            raise ValueError(
+                f"flash_attention: {name} (strides {tuple(t.stride())}, "
+                f"address {t.data_ptr():#x}) does not fit TMA: the bfloat16 "
+                f"kernel needs a 16-byte aligned base and every stride but "
+                f"the last a multiple of 8 elements")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -72,6 +127,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
+    sm90 = q.dtype == torch.bfloat16
+    if sm90:
+        _check_sm90(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)       # q's strides where q is dense
@@ -79,16 +137,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    err = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), B, Hq, Hkv, Sq, Sk, d, int(causal),
-        window, 1.0 / math.sqrt(d), float(softcap), _DTYPE_CODE[q.dtype],
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ctypes.addressof(strides), B, Hq, Hkv, Sq, Sk, d, int(causal),
+            window, 1.0 / math.sqrt(d), float(softcap))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if sm90:
+        err = _launcher_sm90()(*args, q.device.index, stream)
+    else:
+        err = _launcher()(*args, _DTYPE_CODE[q.dtype], q.device.index,
+                          stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: TMA tensor map encoding "
+                           f"failed with CUresult {-err}")
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with "
                            f"CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_sm90 += sm90
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0

@@ -1,8 +1,11 @@
 """Port's flash attention (plain version on the CPU) vs the JAX Pallas kernel
 in interpret mode and its oracle, the port's plain attention functions vs
-the JAX package's, and the wrapper's CPU routing and refusals. The CUDA
-kernel itself is held against the plain version on the card by
-chip_smoke.py."""
+the JAX package's, and the wrapper's CPU routing and refusals. An emulation
+of the bfloat16 tensor-core kernel's arithmetic (csrc/flash_attention_sm90.cu)
+is held against the Pallas kernel too. The CUDA kernels themselves are held
+against the plain version on the card by chip_smoke.py."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -116,6 +119,113 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         ops.flash_attention(q, k, v, **kw)
+
+
+# --- the bfloat16 tensor-core kernel: its arithmetic, route and layout rule --
+
+def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """csrc/flash_attention_sm90.cu's arithmetic in plain PyTorch: bf16 q.k^T
+    summed in f32, then scaled; key tiles of 128 (64 at d > 128); a float32
+    online softmax from -1e30; P.V as two bf16 products, P_hi = bf16(p) and
+    P_lo = bf16(p - P_hi); l summed from the f32 p; bf16 out."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    block_k = 128 if d <= 128 else 64
+    q_pos = torch.arange(Sq)[:, None]
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, d))
+    for k0 in range(0, Sk, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (q.float() @ kt.transpose(-1, -2)) / math.sqrt(d)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        mask = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window:
+            mask &= (q_pos - k_pos) < window
+        s = torch.where(mask, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        acc = acc * corr + p_hi @ vt + p_lo @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+SM90_CASES = SWEEP + [
+    (2, 8, 4, 512, 512, 256, True, 0, 50.0),    # gemma2's widths
+    (1, 2, 2, 1024, 1024, 128, True, 0, 0.0),   # several 128-key tiles
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap",
+                         SM90_CASES)
+def test_sm90_arithmetic_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d, causal,
+                                               window, softcap):
+    """Split-P bf16 products stay within the bf16 tolerance of the Pallas
+    kernel, elementwise."""
+    x = _qkv(0, B, Hq, Hkv, Sq, Sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    block = 64 if Sq <= 256 else 128
+    want = _jax(x, jnp.bfloat16, jax_kernel, block_q=block, block_k=block,
+                interpret=True, **kw)
+    got = _port(x, torch.bfloat16, fn=_sm90_emulate, **kw)
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(dtype,
+                                                               monkeypatch):
+    """Only a CUDA tensor reaches a kernel: on the CPU neither route's
+    launcher is built and neither count moves, whatever the dtype."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached a kernel launcher")
+    monkeypatch.setattr(ops, "_launcher", refuse)
+    monkeypatch.setattr(ops, "_launcher_sm90", refuse)
+    x = [torch.from_numpy(a).to(dtype) for a in _qkv(0, 1, 2, 1, 64, 64, 32)]
+    counts = (ops.flash_attention.launches, ops.flash_attention.launches_sm90)
+    got = ops.flash_attention(*x)
+    assert counts == (ops.flash_attention.launches,
+                      ops.flash_attention.launches_sm90)
+    torch.testing.assert_close(got, attention_ref(*x), atol=0, rtol=0)
+
+
+def test_sm90_layout_rule_takes_the_models_views():
+    x = torch.zeros(2, 64, 6, 128, dtype=torch.bfloat16)    # (B, S, H, d)
+    assert ops._sm90_layout_ok(x.transpose(1, 2))
+    assert ops._sm90_layout_ok(torch.zeros(2, 6, 64, 128,
+                                           dtype=torch.bfloat16))
+    # a dimension of extent 1 is never stepped, whatever its stride
+    one = torch.zeros(64 * 32, dtype=torch.bfloat16)
+    assert ops._sm90_layout_ok(one.as_strided((1, 1, 64, 32), (7, 3, 32, 1)))
+    ops._check_sm90(*(x.transpose(1, 2),) * 3)
+
+
+@pytest.mark.parametrize("bad", ["odd_stride", "misaligned"])
+def test_sm90_layout_rule_refuses_what_tma_cannot_read(bad):
+    if bad == "odd_stride":     # seq stride 33 elements = 66 bytes
+        t = torch.zeros(1, 2, 64, 33, dtype=torch.bfloat16)[..., :32]
+    else:                       # base 2 bytes past an aligned address
+        t = torch.zeros(2 * 64 * 32 + 1, dtype=torch.bfloat16)[1:] \
+            .view(1, 2, 64, 32)
+    assert not ops._sm90_layout_ok(t)
+    with pytest.raises(ValueError, match="TMA"):
+        ops._check_sm90(t, t, t)
+
+
+def test_sm90_refuses_a_head_dim_off_the_wgmma_step():
+    t = torch.zeros(1, 2, 64, 24, dtype=torch.bfloat16)
+    assert ops._sm90_layout_ok(t)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops._check_sm90(t, t, t)
 
 
 # --- the plain attention functions of models/common.py ---------------------
