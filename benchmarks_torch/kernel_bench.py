@@ -13,7 +13,10 @@ H100 bound (the larger of the bytes over the HBM rate and the operations
 over the float32 rate); the kernel's median ms (CUDA events), the plain
 version's and, for K1 and K2, one PyTorch library call's (SDPA, the
 yardstick ``chip_smoke.py`` uses). No single PyTorch call computes the
-mLSTM scan, so K3 has no library column.
+mLSTM scan, so K3 has no library column. Every time is one call between
+two CUDA events, the wrapper's host work included; ``device_ms`` (device
+time per call from CUDA-graph replays) is kept here for the scripts that
+report it beside that.
 
 With ``--device cpu`` the wrappers take their plain versions, so the check
 runs and no time is measured. ``--device cuda`` (the default) exits
@@ -70,6 +73,36 @@ def time_ms(fn: Callable[[], object], repeats: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn: Callable[[], object], calls: int = 20,
+              repeats: int = 10) -> float:
+    """Median device milliseconds per call of ``fn()``: ``calls`` calls
+    captured in one CUDA graph after three warm-up calls on the capturing
+    stream, the graph replayed ``repeats`` times between two CUDA events.
+    The host's work per call is left out; the gaps between the calls'
+    kernels on the card stay in."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
 def compare(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
     """(max |got - want|, max of |got - want| / (atol + rtol |want|) at the
     f32 tolerance)."""
@@ -115,37 +148,49 @@ def bench_flash(dev: str, shapes=FLASH_SHAPES) -> List[Dict]:
     return rows
 
 
-def bench_paged(dev: str, shapes=PAGED_SHAPES) -> List[Dict]:
+def paged_inputs(dev: str, B, Hq, Hkv, d, page, n_slots, P, seed=0):
+    """The bench's float32 K1 inputs (q, k_pages, v_pages, page_table,
+    lengths) from ``seed``: lengths uniform in [page, page * n_slots], page
+    ids uniform in [0, P). Returns them with the live keys and pages."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(page, page * n_slots + 1, (B,)).astype(np.int32)
+    pt = rng.randint(0, P, (B, n_slots)).astype(np.int32)
+    q = torch.from_numpy(rng.randn(B, Hq, d).astype(np.float32)).to(dev)
+    kp, vp = (torch.from_numpy(rng.randn(P, Hkv, page, d)
+                               .astype(np.float32)).to(dev) for _ in range(2))
+    x = (q, kp, vp, torch.from_numpy(pt).to(dev),
+         torch.from_numpy(lengths).to(dev))
+    return x, int(lengths.sum()), int(((lengths + page - 1) // page).sum())
+
+
+def paged_sdpa(x, enable_gqa=True):
+    """The library yardstick for K1: SDPA over the pages gathered
+    beforehand (the gather is not timed). Returns a callable that gives
+    SDPA's (B, Hq, 1, d) output."""
+    q, kp, vp, pt, ln = x
+    B, d = q.shape[0], q.shape[2]
+    Hkv, page = kp.shape[1], kp.shape[2]
+    S = pt.shape[1] * page
+    kg = kp[pt.long()].transpose(1, 2).reshape(B, Hkv, S, d)
+    vg = vp[pt.long()].transpose(1, 2).reshape(B, Hkv, S, d)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < ln.long()[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qs, kg, vg, attn_mask=mask, enable_gqa=enable_gqa)
+
+
+def bench_paged(dev: str, shapes=PAGED_SHAPES) -> List[Dict]:
     rows = []
     for (B, Hq, Hkv, d, page, n_slots, P) in shapes:
-        rng = np.random.RandomState(0)
-        lengths = rng.randint(page, page * n_slots + 1, (B,)).astype(np.int32)
-        pt = rng.randint(0, P, (B, n_slots)).astype(np.int32)
-        q = torch.from_numpy(rng.randn(B, Hq, d).astype(np.float32)).to(dev)
-        kp, vp = (torch.from_numpy(rng.randn(P, Hkv, page, d)
-                                   .astype(np.float32)).to(dev)
-                  for _ in range(2))
-        pt_t, ln_t = torch.from_numpy(pt).to(dev), torch.from_numpy(lengths) \
-            .to(dev)
-        x = (q, kp, vp, pt_t, ln_t)
-        keys = int(lengths.sum())
-        pages = int(((lengths + page - 1) // page).sum())
+        x, keys, pages = paged_inputs(dev, B, Hq, Hkv, d, page, n_slots, P)
         flops = 4 * keys * Hq * d                      # q.k and p.v
         n_bytes = (4 * 2 * keys * Hkv * d              # live K and V rows
-                   + 4 * 2 * q.numel() + 4 * (B + pages))
-        # the library yardstick: SDPA over the pages gathered beforehand
-        S = n_slots * page
-        kg = kp[pt_t.long()].transpose(1, 2).reshape(B, Hkv, S, d)
-        vg = vp[pt_t.long()].transpose(1, 2).reshape(B, Hkv, S, d)
-        mask = (torch.arange(S, device=dev)[None, :]
-                < ln_t.long()[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
+                   + 4 * 2 * x[0].numel() + 4 * (B + pages))
         rows.append(_row(
             "paged_attention", f"B{B}H{Hq}/{Hkv}d{d}p{page}", flops,
             n_bytes, flops, dev, lambda: paged_attention(*x),
-            lambda: paged_attention_ref(*x),
-            lambda: sdpa(qs, kg, vg, attn_mask=mask, enable_gqa=True),
+            lambda: paged_attention_ref(*x), paged_sdpa(x),
             repeats=(50, 10)))
     return rows
 

@@ -9,17 +9,31 @@ Phases (any failure exits non-zero):
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's shape and at edge cases; the main path's shape
              is timed (CUDA events, median) beside its bound, the plain
-             version and one PyTorch library call. K1 paged attention at
-             the serving shape; K2 flash attention at the forward shape
-             (B=2, H=20, S=4096, d=128, bf16, causal), the
-             tests/test_kernels.py sweep in f32 and bf16, gemma2's widths,
-             ragged tails (f32 and bf16), rows that see no key, and
-             strided views. K2 has two routes: bf16 goes to the wgmma/TMA
-             kernel (csrc/flash_attention_sm90.cu), f32 to the CUDA-core
-             kernel (csrc/flash_attention.cu); the forward shape prints the
-             bf16 kernel's TFLOP/s and its registers, shared memory and
-             spills, and times the CUDA-core kernel on the same bf16 inputs
-             as the earlier design.
+             version and one PyTorch library call. K1 paged attention has
+             two routes, by shape in kernels/paged_attention/ops.py: the
+             split, bulk-copy kernel (csrc/paged_attention_sm90.cu) takes
+             every shape here, the simt kernel (csrc/paged_attention.cu,
+             one block per sequence and kv head) any other; both are held
+             against the plain version at the serving shape, the kernel
+             bench's shapes, GQA d=256 softcap bf16, GQA g=4 softcap bf16,
+             lengths 0, 1 and on split boundaries, empty trailing splits,
+             d=16 and a bad page id (NaN on its sequence only), the sm90
+             route at several splits; three shapes the sm90 route refuses
+             go through the wrapper to the simt kernel. K1 is timed as one
+             call between two CUDA events (``ms``, host work included, the
+             kernels line's measure) and as device time per call from
+             CUDA-graph replays (``device_ms``), at the chosen split and
+             (device time) at one split, beside the simt kernel and SDPA.
+             K2 flash attention at the forward shape (B=2, H=20, S=4096,
+             d=128, bf16, causal), the tests/test_kernels.py sweep
+             in f32 and bf16, gemma2's widths, ragged tails (f32 and bf16),
+             rows that see no key, and strided views. K2 has two routes:
+             bf16 goes to the wgmma/TMA kernel
+             (csrc/flash_attention_sm90.cu), f32 to the CUDA-core kernel
+             (csrc/flash_attention.cu); the forward shape prints the bf16
+             kernel's TFLOP/s and its registers, shared memory and spills,
+             and times the CUDA-core kernel on f32 copies of the same
+             inputs.
 3. small   — the reduced models, kernel path on the card against the plain
              path on the CPU from the same weights: the serving example
              (same generated tokens) and a 2-layer Qwen forward with
@@ -28,8 +42,8 @@ Phases (any failure exits non-zero):
              a seed, float32 KV pools) served through the SMS scheduler and
              the paged allocator until at least 8 requests of both client
              kinds have finished. Every logit must be finite, K1 must have
-             run once per layer per step, and one mid-run step is
-             recomputed with the plain attention.
+             run once per layer per step, every call on the sm90 route,
+             and one mid-run step is recomputed with the plain attention.
 5. forward — the same weights, the pools freed: the full-sequence forward
              and loss (``get_model(cfg).train_loss`` with use_pallas, B=2,
              S=4096, bf16). The loss must be finite, K2 must have run once
@@ -39,8 +53,9 @@ Phases (any failure exits non-zero):
              forward with the plain attention.
 6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
              K3 at the reference bench's sweeps against their plain
-             versions, timed beside their bounds. It is K3's main path: the
-             xLSTM model keeps its own chunk scan, as the reference does.
+             versions, timed beside their bounds; every K1 call on the sm90
+             route. It is K3's main path: the xLSTM model keeps its own
+             chunk scan, as the reference does.
 7. xlstm   — xLSTM-125m at full width and depth (random float32 weights
              from a seed, bf16 compute): ``get_model(cfg).train_loss`` at
              B=8, S=2048 timed; the loss finite and near ln(vocab); K3 on
@@ -75,6 +90,7 @@ import numpy as np
 import torch
 
 from benchmarks_torch import kernel_bench
+from benchmarks_torch.kernel_bench import device_ms as _device_ms
 from benchmarks_torch.kernel_bench import time_ms as _time_ms
 from repro_torch.configs.base import RunConfig, reduced
 from repro_torch.configs.registry import get_config
@@ -170,6 +186,7 @@ def _zero_counts():
     """Every kernel's launch count to 0, before a main path is driven."""
     for fn in (ops.paged_attention, fa_ops.flash_attention, ml_ops.mlstm_scan):
         fn.launches = 0
+    ops.paged_attention.launches_sm90 = 0
     fa_ops.flash_attention.launches_sm90 = 0
 
 
@@ -199,75 +216,231 @@ def phase_build():
               f"spill bytes {spills}")
 
 
+def _paged_case(errs, name, x, tol, *, softcap=0.0, splits=(None,)):
+    """K1 on x against its plain version: the sm90 route at each
+    pages_per_split (None: ``_pages_per_split``'s choice), every call
+    checked to have taken that route, and the simt kernel."""
+    want = paged_attention_ref(*x, softcap=softcap)
+    for pps in splits:
+        before = ops.paged_attention.launches_sm90
+        if pps is None:
+            got = ops.paged_attention(*x, softcap=softcap)
+            if ops.paged_attention.launches_sm90 != before + 1:
+                raise AssertionError(f"paged_attention {name}: not the sm90 "
+                                     f"route")
+        else:
+            got = ops._run_sm90(*x, softcap, pps)
+        errs[f"{name} sm90 pps={pps or 'auto'}"] = _assert_close(
+            f"paged_attention {name} sm90 pps={pps}", got, want, tol)
+    errs[f"{name} simt"] = _assert_close(
+        f"paged_attention {name} simt", ops._run_simt(*x, softcap), want, tol)
+
+
+def _paged_times(x, n_bytes, n_flops, enable_gqa=True):
+    """K1 timed two ways: ``ms`` keys are one call between two CUDA events
+    (median of 50), the wrapper's host work included, the kernels line's
+    measure; ``device_ms`` keys are device time per call from CUDA-graph
+    replays of 20 calls. For the public wrapper (the sm90 route at
+    ``_pages_per_split``'s choice), the sm90 route at one split (device
+    only), the simt kernel behind the same input checks as the wrapper
+    (``_check`` + ``_run_simt``) and SDPA over
+    pre-gathered pages; beside the byte bound."""
+    n_slots = x[3].shape[1]
+    wrapper = lambda: ops.paged_attention(*x)
+    simt = lambda: (ops._check(*x), ops._run_simt(*x, 0.0))
+    lib = kernel_bench.paged_sdpa(x, enable_gqa)
+    t = {"pages_per_split": ops._pages_per_split(
+        x[0].shape[0], x[1].shape[1], n_slots, ops._sm_count(0)),
+        "ms": _time_ms(wrapper, 50), "device_ms": _device_ms(wrapper),
+        "device_ms_one_split": _device_ms(
+            lambda: ops._run_sm90(*x, 0.0, n_slots)),
+        "simt_ms": _time_ms(simt, 50), "simt_device_ms": _device_ms(simt),
+        "library_ms": _time_ms(lib, 50), "library_device_ms": _device_ms(lib)}
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops,
+                                            F32_FLOPS_PER_S)
+    for k in ("ms", "device_ms"):
+        t[f"gb_s_{k}"] = n_bytes / t[k] / 1e6
+        t[f"bound_share_{k}"] = t["bound_ms"] / t[k]
+    return t
+
+
+def _paged_refused(errs, gen):
+    """Shapes ``_sm90_ok`` refuses, through the public wrapper: each must
+    move ``launches`` and not ``launches_sm90`` (the simt kernel), and
+    agree with the plain version."""
+    xa = _paged_inputs(gen, 3, 4, 2, 6, 16, 4, 16, [0, 37, 64],
+                       torch.float32)
+    xb = _paged_inputs(gen, 2, 4, 2, 256, 64, 3, 8, [100, 192],
+                       torch.float32)
+    xc = list(_paged_inputs(gen, 3, 4, 2, 32, 16, 4, 16, [20, 64, 41],
+                            torch.float32))
+    for i in (1, 2):                 # base 4 bytes past an aligned address
+        flat = torch.empty(xc[i].numel() + 1, device="cuda")
+        xc[i] = flat[1:].view(xc[i].shape).copy_(xc[i])
+    for name, x in (("f32 d=6, 24-byte rows", xa),
+                    ("f32 d=256 page 64, 64 KiB pages", xb),
+                    ("pools 4 bytes off 16-byte alignment", xc)):
+        if ops._sm90_ok(x[1], x[2]):
+            raise AssertionError(f"paged_attention (i) {name}: expected "
+                                 f"the sm90 route to refuse it")
+        n, n_sm90 = (ops.paged_attention.launches,
+                     ops.paged_attention.launches_sm90)
+        got = ops.paged_attention(*x)
+        if (ops.paged_attention.launches, ops.paged_attention.launches_sm90) \
+                != (n + 1, n_sm90):
+            raise AssertionError(f"paged_attention (i) {name}: not the simt "
+                                 f"route")
+        errs[f"(i) simt route via the wrapper, {name}"] = _assert_close(
+            f"paged_attention (i) {name}", got, paged_attention_ref(*x),
+            F32_TOL)
+
+
 def phase_kernels():
-    """K1 against its plain version; returns the serving-shape record."""
+    """K1 against its plain version on both routes, timed; returns the
+    serving-shape record."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
     B, H, d, page, n_slots, P = 32, 20, 128, 16, 36, SERVE_PAGES
     lens = torch.randint(1, page * n_slots + 1, (B,), generator=gen,
                          device="cuda")
     x = _paged_inputs(gen, B, H, H, d, page, n_slots, P, lens, torch.float32)
-    err_a = _assert_close("paged_attention (a) serving shape f32",
-                          ops.paged_attention(*x), paged_attention_ref(*x),
-                          F32_TOL)
-
+    _paged_case(errs, "(a) serving shape f32", x, F32_TOL,
+                splits=(None, 1, 4, 9))
+    err_a = errs["(a) serving shape f32 sm90 pps=auto"]
     lens_b = torch.randint(1, 16 * 8 + 1, (6,), generator=gen, device="cuda")
     xb = _paged_inputs(gen, 6, 8, 4, 256, 16, 8, 64, lens_b, torch.bfloat16)
-    err_b = _assert_close(
-        "paged_attention (b) GQA d=256 softcap bf16",
-        ops.paged_attention(*xb, softcap=50.0),
-        paged_attention_ref(*xb, softcap=50.0), BF16_TOL)
-
+    _paged_case(errs, "(b) GQA d=256 softcap bf16", xb, BF16_TOL,
+                softcap=50.0, splits=(None, 1, 3))
     # lengths 0, 1, an exact page multiple, ragged; ids -1 past the length
     xc = list(_paged_inputs(gen, 5, 6, 2, 80, 16, 4, 32,
                             [0, 1, 16, 48, 37], torch.float32))
     starts = torch.arange(4, device="cuda") * 16
     xc[3] = torch.where(starts[None, :] < xc[4][:, None], xc[3],
                         torch.full_like(xc[3], -1)).contiguous()
-    got_c = ops.paged_attention(*xc)
-    if bool(got_c[0].abs().max() != 0):
-        raise AssertionError("paged_attention (c): length 0 must give 0")
-    err_c = _assert_close("paged_attention (c) edge lengths, g=3, d=80",
-                          got_c, paged_attention_ref(*xc), F32_TOL)
+    for pps in (None, 1, 2, 3):
+        got = (ops.paged_attention(*xc) if pps is None
+               else ops._run_sm90(*xc, 0.0, pps))
+        if bool(got[0].abs().max() != 0):
+            raise AssertionError(f"paged_attention (c) pps={pps}: length 0 "
+                                 f"must give 0")
+    _paged_case(errs, "(c) edge lengths, g=3, d=80", xc, F32_TOL,
+                splits=(None, 1, 2, 3))
     xd = _paged_inputs(gen, 4, 4, 2, 16, 8, 3, 16, [5, 8, 24, 13],
                        torch.float32)
-    err_d = _assert_close("paged_attention (d) d=16 (example width)",
-                          ops.paged_attention(*xd), paged_attention_ref(*xd),
-                          F32_TOL)
-    print(f"[kernels] paged_attention max|err| (a) {err_a:.3e} "
-          f"(b) {err_b:.3e} (c) {err_c:.3e} (d) {err_d:.3e}")
+    _paged_case(errs, "(d) d=16 (example width)", xd, F32_TOL,
+                splits=(None, 1, 2))
+    # runs of 2 pages (32 keys): lengths on split boundaries, and splits 3-5
+    # of every sequence empty
+    xe = _paged_inputs(gen, 4, 8, 2, 128, 16, 12, 64, [32, 64, 96, 17],
+                       torch.float32)
+    _paged_case(errs, "(e) split boundaries, empty trailing splits",
+                xe, F32_TOL, splits=(2, 3, 4, 12))
+    xf = _paged_inputs(gen, 3, 16, 4, 128, 16, 6, 64, [0, 48, 77],
+                       torch.bfloat16)
+    _paged_case(errs, "(f) GQA g=4 softcap bf16, length 0", xf,
+                BF16_TOL, softcap=30.0, splits=(None, 1, 2, 3))
+    bench = {}
+    for shape in kernel_bench.PAGED_SHAPES:
+        xk, keys, pages = kernel_bench.paged_inputs("cuda", *shape)
+        name = "B{}H{}/{}d{}p{}".format(*shape[:5])
+        _paged_case(errs, f"(g) kernel bench {name}", xk, F32_TOL,
+                    splits=(None, 1, shape[5]))
+        Bk, Hq, Hkv, dk = shape[:4]
+        bench[name] = _paged_times(
+            xk, 4 * 2 * keys * Hkv * dk + 4 * 2 * xk[0].numel()
+            + 4 * (Bk + pages), 4 * keys * Hq * dk)
+    # a page id outside [0, P) inside sequence 1's length: NaN there only;
+    # an id of -3 past sequence 2's length is never read
+    xh = list(_paged_inputs(gen, 3, 4, 2, 64, 16, 6, 32, [90, 70, 40],
+                            torch.float32))
+    want_h = paged_attention_ref(*xh)
+    xh[3] = xh[3].clone()
+    xh[3][1, 2], xh[3][2, 4] = 32 + 7, -3
+    for pps in (None, 1, 2, 6, "simt"):
+        got = (ops._run_simt(*xh, 0.0) if pps == "simt"
+               else ops.paged_attention(*xh) if pps is None
+               else ops._run_sm90(*xh, 0.0, pps))
+        if not bool(torch.isnan(got[1]).all()):
+            raise AssertionError(f"paged_attention (h) pps={pps}: a bad id "
+                                 f"inside the length must give NaN")
+        errs[f"(h) bad id, the other sequences, pps={pps or 'auto'}"] = \
+            _assert_close(f"paged_attention (h) pps={pps}", got[[0, 2]],
+                          want_h[[0, 2]], F32_TOL)
+    _paged_refused(errs, gen)
+    print("[kernels] paged_attention max|err| " + "; ".join(
+        f"{n} {e:.3e}" for n, e in errs.items()))
 
     # timing at the serving shape
-    q, k, v, pt, ln = x
-    ms = _time_ms(lambda: ops.paged_attention(*x), 50)
-    plain_ms = _time_ms(lambda: paged_attention_ref(*x), 10)
     S = n_slots * page
-    kg = k[pt.long()].transpose(1, 2).reshape(B, H, S, d)
-    vg = v[pt.long()].transpose(1, 2).reshape(B, H, S, d)
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < ln.long()[:, None])[:, None, None, :]
-    qs = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_out = sdpa(qs, kg, vg, attn_mask=mask)[:, :, 0]
-    _assert_close("sdpa yardstick", lib_out, paged_attention_ref(*x),
-                  dict(atol=1e-4, rtol=1e-3))
-    library_ms = _time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask), 50)
-    keys = int(torch.clamp(ln, max=S).sum())
-    elt = q.element_size()
+    keys = int(torch.clamp(x[4], max=S).sum())
+    elt = x[0].element_size()
     n_bytes = (2 * keys * H * d * elt            # live K and V rows
-               + 2 * q.numel() * elt             # q in, out
-               + 4 * (B + int(((ln + page - 1) // page).sum())))
-    n_flops = 4 * keys * H * d                   # q.k and p.v
-    bound, by = bound_ms(n_bytes, n_flops, F32_FLOPS_PER_S)
-    rec = {"name": "paged_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/paged_attention.cu",
+               + 2 * x[0].numel() * elt          # q in, out
+               + 4 * (B + int(((x[4] + page - 1) // page).sum())))
+    t = _paged_times(x, n_bytes, 4 * keys * H * d, enable_gqa=False)
+    plain_ms = _time_ms(lambda: paged_attention_ref(*x), 10)
+    _assert_close("sdpa yardstick",
+                  kernel_bench.paged_sdpa(x, False)()[:, :, 0],
+                  paged_attention_ref(*x), dict(atol=1e-4, rtol=1e-3))
+    plan = ops.sm90_plan(1, d, page, torch.float32)
+    log = _build.build_log("paged_attention_sm90")
+    regs = max(int(w) for w in re.findall(r"Used (\d+) registers", log))
+    spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", log))
+    sm90_src = "src/repro_torch/csrc/paged_attention_sm90.cu"
+    rec = {"name": "paged_attention", "route": "cuda", "source": sm90_src,
            "replaces": "src/repro/kernels/paged_attention/kernel.py:67",
-           "launches": None, "max_abs_err": err_a, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": library_ms}
+           "launches": None, "max_abs_err": err_a, "ms": t["ms"],
+           "plain_ms": plain_ms, "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+           "timing": "ms, library_ms: one call between two CUDA events, "
+                     "host work included; *device_ms: device "
+                     "time per call, CUDA-graph replays of 20 calls",
+           "device_ms": t["device_ms"],
+           "library_device_ms": t["library_device_ms"],
+           "routes": {
+               "sm90": {"launches": None, "ms": t["ms"],
+                        "device_ms": t["device_ms"],
+                        "device_ms_one_split": t["device_ms_one_split"],
+                        "pages_per_split": t["pages_per_split"],
+                        "source": sm90_src, **plan},
+               "simt": {"launches": None, "ms": t["simt_ms"],
+                        "device_ms": t["simt_device_ms"],
+                        "source": "src/repro_torch/csrc/paged_attention.cu"}},
+           "kernel_bench_shapes": bench}
     print(f"[kernels] paged_attention serving shape B={B} H={H} d={d} "
-          f"page={page} slots={n_slots} keys={keys}: {ms:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s), plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+          f"page={page} slots={n_slots} keys={keys}, bound "
+          f"{t['bound_ms']:.4f} ms; one eager call (host work included): "
+          f"sm90 {t['ms']:.4f} ms ({t['gb_s_ms']:.1f} GB/s, "
+          f"{t['bound_share_ms']:.3f} of the bound), simt kernel "
+          f"{t['simt_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; device ms per call (graph replays): sm90 "
+          f"{t['device_ms']:.4f} ms at {t['pages_per_split']} pages per "
+          f"split ({t['gb_s_device_ms']:.1f} GB/s, "
+          f"{t['bound_share_device_ms']:.3f} of the bound), "
+          f"{t['device_ms_one_split']:.4f} ms at one split, simt kernel "
+          f"{t['simt_device_ms']:.4f} ms, sdpa {t['library_device_ms']:.4f}"
+          f" ms; sm90 kernel: {plan['stages']} stages, "
+          f"{plan['smem_bytes']} B dynamic shared memory, registers <= "
+          f"{regs} (all instances), spill bytes {spills}")
+    if t["bound_share_ms"] < 0.5:
+        print(f"[kernels] note: one eager call of the sm90 route reaches "
+              f"{t['bound_share_ms']:.3f} of the bound at the serving shape, "
+              f"under half")
+    for name, b in bench.items():
+        print(f"[kernels] paged_attention kernel bench {name}, bound "
+              f"{b['bound_ms']:.4f} ms; one eager call: sm90 {b['ms']:.4f} "
+              f"ms, simt kernel {b['simt_ms']:.4f} ms, sdpa "
+              f"{b['library_ms']:.4f} ms; device ms per call: sm90 "
+              f"{b['device_ms']:.4f} ms at {b['pages_per_split']} pages per "
+              f"split ({b['gb_s_device_ms']:.1f} GB/s, "
+              f"{b['bound_share_device_ms']:.3f} of the bound), "
+              f"{b['device_ms_one_split']:.4f} ms at one split, simt kernel "
+              f"{b['simt_device_ms']:.4f} ms, sdpa "
+              f"{b['library_device_ms']:.4f} ms")
+        for k in ("ms", "device_ms"):
+            if not b[k] < min(b[f"simt_{k}"], b[f"library_{k}"]):
+                print(f"[kernels] note: at {name} the sm90 route is not the "
+                      f"fastest of the three by {k}")
     return rec
 
 
@@ -671,6 +844,7 @@ def phase_serve():
             raise AssertionError(f"step cap {SERVE_STEP_CAP}: finished "
                                  f"{finished}")
     launches = ops.paged_attention.launches
+    launches_sm90 = ops.paged_attention.launches_sm90
     stream.close()                     # frees the KV pools
     if fa_ops.flash_attention.launches:
         raise AssertionError("serving decode launched flash_attention")
@@ -678,6 +852,10 @@ def phase_serve():
     if launches != SERVE_LAYERS_PER_STEP * steps:
         raise AssertionError(f"paged_attention launches {launches} != "
                              f"{SERVE_LAYERS_PER_STEP} x {steps} steps")
+    if launches_sm90 != launches:
+        raise AssertionError(f"serve: {launches - launches_sm90} of "
+                             f"{launches} paged_attention calls did not "
+                             f"take the sm90 route")
     if calls["plain_err"] is None:
         raise AssertionError("the plain-attention check step never ran")
     total = sum(step_s)
@@ -686,12 +864,13 @@ def phase_serve():
           f"{finished.count('interactive')} interactive), decode "
           f"{tokens / total:.1f} tok/s, mean step {1e3 * total / len(step_s):.3f}"
           f" ms, median step {1e3 * statistics.median(step_s):.3f} ms, "
-          f"paged_attention launches {launches}; step {SERVE_CHECK_STEP}: "
+          f"paged_attention launches {launches} (sm90 route "
+          f"{launches_sm90}); step {SERVE_CHECK_STEP}: "
           f"attention vs plain max|err| {calls['attn_err']:.3e} (40 layers),"
           f" logits vs plain-attention step max|err| "
           f"{calls['plain_err']:.3e}, argmax agreement {calls['argmax']:.3f};"
           f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return launches, params
+    return launches, launches_sm90, params
 
 
 def phase_forward(params, flash_ms):
@@ -791,6 +970,10 @@ def phase_kernel_bench():
     if n_sm90:
         raise AssertionError(f"kernel bench: {n_sm90} f32 flash_attention "
                              f"calls took the bf16 route")
+    launches["paged_attention_sm90"] = ops.paged_attention.launches_sm90
+    if launches["paged_attention_sm90"] != launches["paged_attention"]:
+        raise AssertionError(f"kernel bench: paged_attention calls off the "
+                             f"sm90 route {launches}")
     print(f"[kernel_bench] launches {json.dumps(launches)}, "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -912,7 +1095,9 @@ def main():
     phase_small_input()
     phase_small_forward()
     phase_small_xlstm()
-    rec_pa["launches"], params = phase_serve()
+    rec_pa["launches"], n_sm90, params = phase_serve()
+    rec_pa["routes"]["sm90"]["launches"] = n_sm90
+    rec_pa["routes"]["simt"]["launches"] = rec_pa["launches"] - n_sm90
     rec_fa["launches"], rec_fa["routes"]["sm90"]["launches"] = \
         phase_forward(params, rec_fa["ms"])
     del params

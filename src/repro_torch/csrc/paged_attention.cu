@@ -28,7 +28,8 @@
 //
 // Bound: the K/V bytes of the live pages (each key and value row is read
 // once); the arithmetic is 4 g d flops per key, far below the memory line.
-// Splitting long sequences across blocks, TMA and wgmma are later work.
+// csrc/paged_attention_sm90.cu (pages split across blocks, bulk TMA copies)
+// takes every shape that ops._sm90_ok passes; this kernel keeps the rest.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
