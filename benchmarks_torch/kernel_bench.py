@@ -10,13 +10,16 @@ is below 1e-3. Per row: max |err|; its ratio to the elementwise f32
 tolerance of tests/test_kernels.py (``2e-5 + 2e-4 |plain|``; above 1 where
 the float32 rounding of long sums exceeds it); GFLOP and MB per call; the
 H100 bound (the larger of the bytes over the HBM rate and the operations
-over the float32 rate); the kernel's median ms (CUDA events), the plain
-version's and, for K1 and K2, one PyTorch library call's (SDPA, the
-yardstick ``chip_smoke.py`` uses). No single PyTorch call computes the
-mLSTM scan, so K3 has no library column. Every time is one call between
-two CUDA events, the wrapper's host work included; ``device_ms`` (device
-time per call from CUDA-graph replays) is kept here for the scripts that
-report it beside that.
+over the float32 rate); the bound at the rate the kernel uses
+(``bound_used_ms``: K1 and K2's float32 route run on the CUDA cores, so the
+same; K3 takes each float32 product as three TF32 tensor-core products,
+3xTF32, so three times its operations at the TF32 rate); the kernel's
+median ms (CUDA events), the plain version's and, for K1 and K2, one
+PyTorch library call's (SDPA, the yardstick ``chip_smoke.py`` uses). No
+single PyTorch call computes the mLSTM scan, so K3 has no library column.
+Every ``ms`` is one call between two CUDA events, the wrapper's host work
+included; K3's rows add ``device_ms``, the device time per call from
+CUDA-graph replays (``device_ms`` below), which leaves the host out.
 
 With ``--device cpu`` the wrappers take their plain versions, so the check
 runs and no time is measured. ``--device cuda`` (the default) exits
@@ -44,7 +47,8 @@ from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.roofline.analysis import F32_FLOPS_PER_S, bound_ms
+from repro_torch.roofline.analysis import (F32_FLOPS_PER_S, TF32_FLOPS_PER_S,
+                                           bound_ms)
 
 F32_TOL = dict(atol=2e-5, rtol=2e-4)           # tests/test_kernels.py
 MAX_ERR = 1e-3          # benchmarks/kernel_bench.py:107-108's pass/FAIL rule
@@ -120,7 +124,8 @@ def _row(kernel, shape, flops, n_bytes, bound_flops, dev, fn, plain,
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
            "f32_tol_ratio": ratio, "gflop": flops / 1e9,
            "mbytes": n_bytes / 1e6, "bound_ms": bound, "bound_by": by,
-           "ms": None, "plain_ms": None, "library_ms": None}
+           "bound_used_ms": bound, "ms": None, "device_ms": None,
+           "plain_ms": None, "library_ms": None}
     if dev == "cuda":
         row["ms"] = time_ms(fn, repeats[0])
         row["plain_ms"] = time_ms(plain, repeats[1])
@@ -231,12 +236,24 @@ def bench_mlstm(dev: str, shapes=MLSTM_SHAPES) -> List[Dict]:
     for (B, H, S, dh, chunk) in shapes:
         x = mlstm_inputs(np.random.RandomState(0), B, H, S, dh, dev)
         full, needed = mlstm_flops(B, H, S, dh, chunk)
-        rows.append(_row(
-            "mlstm_scan", f"B{B}H{H}S{S}dh{dh}c{chunk}", full,
-            mlstm_bytes(B, H, S, dh), needed, dev,
-            lambda: mlstm_scan(*x, chunk=chunk),
-            lambda: mlstm_scan_ref(*x, chunk=chunk), None))
+        fn = lambda: mlstm_scan(*x, chunk=chunk)      # noqa: E731
+        row = _row("mlstm_scan", f"B{B}H{H}S{S}dh{dh}c{chunk}", full,
+                   mlstm_bytes(B, H, S, dh), needed, dev, fn,
+                   lambda: mlstm_scan_ref(*x, chunk=chunk), None)
+        row["bound_used_ms"] = mlstm_bound_3xtf32(B, H, S, dh, chunk)
+        if dev == "cuda":
+            row["device_ms"] = device_ms(fn)
+        rows.append(row)
     return rows
+
+
+def mlstm_bound_3xtf32(B, H, S, dh, chunk) -> float:
+    """K3's bound at the rate its kernel uses: three TF32 tensor-core
+    products for each float32 product the function needs (3xTF32), or its
+    bytes, whichever takes longer."""
+    return bound_ms(mlstm_bytes(B, H, S, dh),
+                    3 * mlstm_flops(B, H, S, dh, chunk)[1],
+                    TF32_FLOPS_PER_S)[0]
 
 
 def _fmt(x) -> str:
@@ -258,14 +275,15 @@ def main(argv=None) -> List[Dict]:
     print(f"# kernels vs plain versions, float32, {card}; bound = H100 SXM "
           f"data sheet (HBM 3.35 TB/s, float32 67 TFLOP/s)")
     print("kernel,shape,max_err,f32_tol_ratio,gflop_call,mbytes_call,"
-          "bound_ms,bound_by,ms,plain_ms,library_ms")
+          "bound_ms,bound_by,bound_used_ms,ms,device_ms,plain_ms,library_ms")
     rows = (bench_paged(args.device) + bench_flash(args.device)
             + bench_mlstm(args.device))
     for r in rows:
         print(f"{r['kernel']},{r['shape']},{r['max_abs_err']:.2e},"
               f"{r['f32_tol_ratio']:.3f},{r['gflop']:.3f},{r['mbytes']:.2f},"
-              f"{r['bound_ms']:.4f},"
-              f"{r['bound_by']},{_fmt(r['ms'])},{_fmt(r['plain_ms'])},"
+              f"{r['bound_ms']:.4f},{r['bound_by']},"
+              f"{r['bound_used_ms']:.4f},{_fmt(r['ms'])},"
+              f"{_fmt(r['device_ms'])},{_fmt(r['plain_ms'])},"
               f"{_fmt(r['library_ms'])}")
     worst = max(r["max_abs_err"] for r in rows)
     print(json.dumps({"kernel_bench": rows}))

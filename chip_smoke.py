@@ -1,6 +1,6 @@
 """Run the PyTorch port on one NVIDIA GPU, end to end.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--baseline-src DIR]
 
 Phases (any failure exits non-zero):
 
@@ -53,9 +53,9 @@ Phases (any failure exits non-zero):
              forward with the plain attention.
 6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
              K3 at the reference bench's sweeps against their plain
-             versions, timed beside their bounds; every K1 call on the sm90
-             route. It is K3's main path: the xLSTM model keeps its own
-             chunk scan, as the reference does.
+             versions, timed beside their bounds; every K1 and K3 call on
+             its sm90 route. It is K3's main path: the xLSTM model keeps its
+             own chunk scan, as the reference does.
 7. xlstm   — xLSTM-125m at full width and depth (random float32 weights
              from a seed, bf16 compute): ``get_model(cfg).train_loss`` at
              B=8, S=2048 timed; the loss finite and near ln(vocab); K3 on
@@ -63,15 +63,25 @@ Phases (any failure exits non-zero):
              scan; ``prefill`` of S-1 tokens and 8 greedy ``decode_step``s,
              the first held against the forward's last position.
 
-The kernel phase also holds K3 (mLSTM scan) against its plain version: the
-tests/test_kernels.py sweep in f32 (also against another chunk) and bf16,
-the kernel bench's widths, strided views, and the xLSTM-125m layer shape
-(B=8, H=4, S=2048, dh=384) at chunk 256 and 128, timed. The small phase
-also runs a reduced 5-layer xLSTM on the card against the CPU.
+The kernel phase also holds K3 (mLSTM scan, csrc/mlstm_scan_sm90.cu: a
+scalar pass, the state entering each chunk, the outputs; 3xTF32 tensor-core
+products) against its plain version: the tests/test_kernels.py sweep in f32
+(also against another chunk) and bf16, the kernel bench's widths, strided
+views in f32 and bf16, the gate extremes of the CPU tests (m at its floor of
+-40; a stabilizer that switches between chunks), dh=512 at chunk 256, dh=6,
+bases off 16-byte alignment and chunk 1; every call must take the sm90
+route. It times the xLSTM-125m layer shape (B=8, H=4, S=2048, dh=384) at
+chunk 256 and 128 (one eager call, the device time from CUDA-graph replays,
+and each pass alone) and the kernel bench's two shapes; with
+``--baseline-src DIR`` (a checkout that still has K3's earlier CUDA-core
+kernel, csrc/mlstm_scan.cu) it times that kernel beside it on the same
+inputs. The small phase also runs a reduced 5-layer xLSTM on the card
+against the CPU.
 
 It prints a JSON ``kernels`` line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout.
 """
+import argparse
 import gc
 import importlib.util
 import json
@@ -188,6 +198,7 @@ def _zero_counts():
         fn.launches = 0
     ops.paged_attention.launches_sm90 = 0
     fa_ops.flash_attention.launches_sm90 = 0
+    ml_ops.mlstm_scan.launches_sm90 = 0
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -613,11 +624,63 @@ def _scan_close(name, x, chunk, got, want):
         return _assert_close(name, got, want, F32_TOL, rtol_of_max=True), form
 
 
-def phase_mlstm_kernels():
-    """K3 against its plain version; returns the xLSTM-125m layer-shape
-    record."""
+def _k3_edge_cases(rng):
+    """K3 inputs that reach the kernel's edges: (name, inputs, chunk, tol)."""
+    def gates(x, li):
+        return list(x[:4]) + [torch.from_numpy(li.astype(np.float32)).cuda()]
+    cases = []
+    # lf strongly negative and li near -42: most log weights fall under -40,
+    # so m_i and the carried m sit at the floor in some rows and chunks
+    for B, H, S, dh, chunk in ((1, 2, 128, 16, 32), (2, 4, 512, 96, 128)):
+        x = kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda", (1e-8, 1e-6))
+        cases.append((f"(e) m at its floor B={B} H={H} S={S} dh={dh} "
+                      f"chunk={chunk}", gates(x, rng.randn(B, H, S) * 2 - 42),
+                      chunk, F32_TOL))
+    # two large input gates: the carried state sets m_i for whole chunks,
+    # then a key of a later chunk takes over
+    for B, H, S, dh, chunk in ((1, 1, 256, 64, 64), (1, 4, 1024, 384, 256)):
+        x = kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda", (0.9, 0.99))
+        li = rng.randn(B, H, S) * 0.5
+        li[..., 3], li[..., 2 * chunk + 5] = 12.0, 15.0
+        cases.append((f"(f) the stabilizer switches B={B} H={H} S={S} "
+                      f"dh={dh} chunk={chunk}", gates(x, li), chunk, F32_TOL))
+    # the widest head and chunk: the most shared memory per block
+    x = kernel_bench.mlstm_inputs(rng, 1, 2, 512, 512, "cuda")
+    cases.append(("(g) dh=512 chunk=256 f32", x, 256, F32_TOL))
+    cases.append(("(g) dh=512 chunk=256 bf16",
+                  [t.bfloat16() for t in x[:3]] + list(x[3:]), 256,
+                  BF16_TOL))
+    # rows read element by element: dh not a multiple of 4, and bases 4
+    # bytes off 16-byte alignment
+    x = kernel_bench.mlstm_inputs(rng, 2, 2, 128, 6, "cuda")
+    cases.append(("(h) dh=6 chunk=64 f32", x, 64, F32_TOL))
+    cases.append(("(h) dh=6 chunk=64 bf16",
+                  [t.bfloat16() for t in x[:3]] + list(x[3:]), 64, BF16_TOL))
+    x = list(kernel_bench.mlstm_inputs(rng, 1, 3, 256, 64, "cuda"))
+    for i in range(3):
+        flat = torch.empty(x[i].numel() + 1, device="cuda")
+        x[i] = flat[1:].view(x[i].shape).copy_(x[i])
+    cases.append(("(h) q, k, v 4 bytes off alignment chunk=128", x, 128,
+                  F32_TOL))
+    cases.append(("(i) chunk=1",
+                  kernel_bench.mlstm_inputs(rng, 1, 2, 16, 8, "cuda"), 1,
+                  F32_TOL))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+             kernel_bench.mlstm_inputs(rng, 2, 3, 128, 48, "cuda")]
+    cases.append(("(d) strided (B,S,H,dh) views bf16 chunk=64",
+                  [t.bfloat16() for t in views[:3]] + views[3:], 64,
+                  BF16_TOL))
+    return cases
+
+
+def phase_mlstm_kernels(baseline=None):
+    """K3 against its plain version, every call on the sm90 route; the
+    xLSTM-125m layer shape and the kernel bench's shapes timed, beside the
+    earlier CUDA-core kernel where ``baseline`` (``k3_baseline.load``)
+    gives it. Returns the layer-shape record."""
     rng = np.random.RandomState(3)
     errs = {}
+    n0, n0_sm90 = ml_ops.mlstm_scan.launches, ml_ops.mlstm_scan.launches_sm90
 
     def check(name, x, chunk, tol, plain_chunk=None):
         got = ml_ops.mlstm_scan(*x, chunk=chunk)
@@ -648,6 +711,8 @@ def phase_mlstm_kernels():
     views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in
              kernel_bench.mlstm_inputs(rng, 2, 3, 128, 48, "cuda")]
     check("(d) strided (B,S,H,dh) views f32 chunk=32", views, 32, F32_TOL)
+    for name, x, chunk, tol in _k3_edge_cases(rng):
+        check(name, x, chunk, tol)
     print("[kernels] mlstm_scan max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
@@ -655,31 +720,98 @@ def phase_mlstm_kernels():
     # the kernel's default (128)
     B, H, S, dh = XLSTM_B, 4, XLSTM_S, 384
     x = kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda")
-    rec = {"name": "mlstm_scan", "route": "cuda",
-           "source": "src/repro_torch/csrc/mlstm_scan.cu",
+    src = "src/repro_torch/csrc/mlstm_scan_sm90.cu"
+    rec = {"name": "mlstm_scan", "route": "cuda", "source": src,
            "replaces": "src/repro/kernels/mlstm_scan/kernel.py:74",
-           "launches": None, "library_ms": None}
+           "launches": None, "library_ms": None,
+           "timing": "ms: one call between two CUDA events, host work "
+                     "included; device_ms: device time per call, CUDA-graph "
+                     "replays; passes_device_ms: each pass alone, the same "
+                     "way",
+           "routes": {"sm90": {"launches": None, "source": src}}}
     for chunk in (XLSTM_CHUNK, 128):
+        fn = lambda: ml_ops.mlstm_scan(*x, chunk=chunk)     # noqa: E731
         err, form = _scan_close(
-            f"mlstm_scan (a) layer shape chunk={chunk} f32", x, chunk,
-            ml_ops.mlstm_scan(*x, chunk=chunk),
+            f"mlstm_scan (a) layer shape chunk={chunk} f32", x, chunk, fn(),
             mlstm_scan_ref(*x, chunk=chunk))
-        ms = _time_ms(lambda: ml_ops.mlstm_scan(*x, chunk=chunk), 10)
+        ms = _time_ms(fn, 10)
+        dev_ms = _device_ms(fn, 5, 5)
+        ws = ml_ops.workspace(B, H, S, dh, chunk, x[0].device)
+        out = torch.empty_like(x[0])
+        ml_ops._run_sm90(*x, chunk, ws=ws, out=out)
+        passes = {name: _device_ms(lambda: ml_ops._run_sm90(
+            *x, chunk, ws=ws, out=out, passes=p), 5, 5)
+            for name, p in (("scalars", 1), ("states", 2), ("outputs", 4))}
+        del ws, out
         plain_ms = _time_ms(lambda: mlstm_scan_ref(*x, chunk=chunk), 5)
         full, needed = kernel_bench.mlstm_flops(B, H, S, dh, chunk)
         bound, by = bound_ms(kernel_bench.mlstm_bytes(B, H, S, dh), needed,
                              F32_FLOPS_PER_S)
+        bound3 = kernel_bench.mlstm_bound_3xtf32(B, H, S, dh, chunk)
+        prev = _k3_previous(baseline, x, chunk, fn())
         sfx = "" if chunk == XLSTM_CHUNK else f"_chunk{chunk}"
         rec.update({f"max_abs_err{sfx}": err, f"check{sfx}": form,
-                    f"ms{sfx}": ms,
+                    f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
+                    f"passes_device_ms{sfx}": passes,
                     f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
-                    f"bound_by{sfx}": by})
+                    f"bound_by{sfx}": by, f"bound_ms_3xtf32{sfx}": bound3,
+                    f"previous_kernel{sfx}": prev})
         print(f"[kernels] mlstm_scan layer shape B={B} H={H} S={S} dh={dh} "
-              f"chunk={chunk} f32: {ms:.4f} ms ({needed / ms / 1e9:.1f} "
-              f"TFLOP/s of {needed / 1e9:.2f} GFLOP needed; {full / 1e9:.2f} "
-              f"GFLOP with the full L x L), bound {bound:.4f} ms ({by}, f32 "
-              f"rate); plain {plain_ms:.4f} ms; max|err| {err:.3e} ({form})")
+              f"chunk={chunk} f32: {ms:.4f} ms one eager call, device "
+              f"{dev_ms:.4f} ms (scalars {passes['scalars']:.4f}, states "
+              f"{passes['states']:.4f}, outputs {passes['outputs']:.4f}); "
+              f"{needed / ms / 1e9:.1f} TFLOP/s of {needed / 1e9:.2f} GFLOP "
+              f"needed; bound {bound:.4f} ms ({by}, f32 rate; "
+              f"{bound / ms:.3f} of it), {bound3:.4f} ms at the 3xTF32 rate "
+              f"({bound3 / ms:.3f}); plain {plain_ms:.4f} ms; earlier "
+              f"CUDA-core kernel {_k3_fmt(prev)}; max|err| {err:.3e} "
+              f"({form})")
+        if ms > 2 * bound:
+            print(f"[kernels] note: one eager call at chunk {chunk} is "
+                  f"under half the f32 bound")
+    bench = {}
+    for B_, H_, S_, dh_, chunk in kernel_bench.MLSTM_SHAPES:
+        xb = kernel_bench.mlstm_inputs(np.random.RandomState(0), B_, H_, S_,
+                                       dh_, "cuda")
+        fn = lambda: ml_ops.mlstm_scan(*xb, chunk=chunk)    # noqa: E731
+        name = f"B{B_}H{H_}S{S_}dh{dh_}c{chunk}"
+        bench[name] = {"ms": _time_ms(fn, 20), "device_ms": _device_ms(fn),
+                       "previous_kernel": _k3_previous(baseline, xb, chunk,
+                                                       fn())}
+        b = bench[name]
+        print(f"[kernels] mlstm_scan kernel bench {name}: {b['ms']:.4f} ms "
+              f"one eager call, device {b['device_ms']:.4f} ms; earlier "
+              f"CUDA-core kernel {_k3_fmt(b['previous_kernel'])}")
+        prev = b["previous_kernel"]
+        if prev and b["device_ms"] > prev["device_ms"]:
+            print(f"[kernels] note: at {name} the sm90 kernel is slower in "
+                  f"device ms than the earlier kernel")
+    rec["kernel_bench_shapes"] = bench
+    n, n_sm90 = (ml_ops.mlstm_scan.launches - n0,
+                 ml_ops.mlstm_scan.launches_sm90 - n0_sm90)
+    if n != n_sm90:
+        raise AssertionError(f"mlstm_scan: {n - n_sm90} of {n} calls left "
+                             f"the sm90 route")
     return rec
+
+
+def _k3_previous(baseline, x, chunk, want):
+    """The earlier CUDA-core K3 kernel on the same inputs: checked against
+    the sm90 kernel's output ``want`` (rtol of max |h|), timed as one eager
+    call and in device time; None without a baseline checkout."""
+    if baseline is None:
+        return None
+    fn = lambda: baseline(*x, chunk=chunk)      # noqa: E731
+    err = _assert_close("earlier K3 kernel vs the sm90 kernel", fn(), want,
+                        F32_TOL, rtol_of_max=True)
+    return {"ms": _time_ms(fn, 5), "device_ms": _device_ms(fn, 5, 3),
+            "max_abs_err_vs_sm90": err}
+
+
+def _k3_fmt(prev):
+    if prev is None:
+        return "not measured (no --baseline-src)"
+    return (f"{prev['ms']:.4f} ms eager, {prev['device_ms']:.4f} ms device")
 
 
 def phase_small_input():
@@ -974,6 +1106,10 @@ def phase_kernel_bench():
     if launches["paged_attention_sm90"] != launches["paged_attention"]:
         raise AssertionError(f"kernel bench: paged_attention calls off the "
                              f"sm90 route {launches}")
+    launches["mlstm_scan_sm90"] = ml_ops.mlstm_scan.launches_sm90
+    if launches["mlstm_scan_sm90"] != launches["mlstm_scan"]:
+        raise AssertionError(f"kernel bench: mlstm_scan calls off the sm90 "
+                             f"route {launches}")
     print(f"[kernel_bench] launches {json.dumps(launches)}, "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -1081,7 +1217,13 @@ def phase_xlstm():
     return model_launches["mlstm_scan"]
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline-src", default=None, metavar="DIR",
+                    help="a checkout that has K3's earlier CUDA-core kernel "
+                         "(src/repro_torch/csrc/mlstm_scan.cu), timed beside "
+                         "the sm90 kernel")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1089,9 +1231,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
+    baseline = None
+    if args.baseline_src:
+        from benchmarks_torch import k3_baseline
+        baseline = k3_baseline.load(args.baseline_src)
     rec_pa = phase_kernels()
     rec_fa = phase_flash_kernels()
-    rec_ml = phase_mlstm_kernels()
+    rec_ml = phase_mlstm_kernels(baseline)
     phase_small_input()
     phase_small_forward()
     phase_small_xlstm()
@@ -1106,6 +1252,7 @@ def main():
     bench = phase_kernel_bench()
     # K3's main path is the kernel bench; the model path runs it 0 times
     rec_ml["launches"] = bench["mlstm_scan"]
+    rec_ml["routes"]["sm90"]["launches"] = bench["mlstm_scan_sm90"]
     # K2's f32 route runs on the kernel bench (all its flash calls are f32)
     rec_fa["routes"]["simt"]["launches"] = bench["flash_attention"]
     rec_ml["model_path_launches"] = phase_xlstm()

@@ -1,12 +1,17 @@
 """Public wrapper of the chunkwise-parallel mLSTM scan.
 
-A CUDA tensor goes to the hand-written kernel (``csrc/mlstm_scan.cu``), or
-the call raises; a CPU tensor goes to the plain version (``ref.py``).
-``mlstm_scan.launches`` counts the kernel's launches.
+A CUDA tensor goes to the hand-written kernel ``csrc/mlstm_scan_sm90.cu``
+(three passes: the gate scalars, the state entering each chunk, the outputs;
+3xTF32 tensor-core products), or the call raises; a CPU tensor goes to the
+plain version (``ref.py``). The kernel takes every shape the wrapper
+accepts. ``mlstm_scan.launches`` counts the calls that launched it,
+``mlstm_scan.launches_sm90`` those on the sm90 route (all of them).
 
 The kernel takes (batch, head, seq) strides, so q, k, v, lf and li may be
 views as long as the last dimension of q, k and v is contiguous. The output
-is a new contiguous (B, H, S, dh) tensor in q's dtype.
+is a new contiguous (B, H, S, dh) tensor in q's dtype; the float32 workspace
+(gate scalars, and the states entering chunks 1 .. S/chunk - 1, B H dh^2
+floats each) is allocated per call.
 """
 from __future__ import annotations
 
@@ -18,16 +23,44 @@ import torch
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 512      # the float32 C tile (dh x 64) must fit shared memory
-MAX_CHUNK = 256         # one thread per chunk row for the gate scalars
+MAX_HEAD_DIM = 512      # 8 warps x 8 n tiles of output columns
+MAX_CHUNK = 256         # one scalar-pass thread per chunk row
+OUTPUT_TILES = (1, 2, 4, 6, 8)  # output n tiles per warp: 64 x this >= dh
+MAX_SMEM = 232448       # dynamic shared memory one block may have on sm_90
+# as in the source: the states pass's slice, rows and stages; the output
+# block's rows, slice and stages
+KS, STATE_ROWS, STATE_STAGES = 32, 64, 3
+ROWS, OUT_KS, OUT_STAGES, OUT_THREADS = 64, 32, 2, 512
+
+
+def plan(S: int, dh: int, chunk: int) -> dict:
+    """The kernel's tiling for an accepted shape: ``nt`` output n tiles per
+    warp (the output block holds 64 x ``dhp`` = 64 nt columns), ``bn`` the
+    state block's columns (96 at dhp = 384: 768 blocks at xLSTM-125m's
+    layer shape, three resident on each SM, fill two whole waves), the
+    dynamic shared memory of the state and output passes, and the number
+    of chunks. The source checks it."""
+    nt = next(n for n in OUTPUT_TILES if 64 * n >= dh)
+    dhp = 64 * nt
+    bn = 96 if dhp == 384 else 128 if dhp >= 256 else 64
+    lp = -(-chunk // 64) * 64           # keys a row tile can see, rounded up
+    stage = max(ROWS * (OUT_KS + 4) + lp * (OUT_KS + 4),
+                ROWS * (OUT_KS + 4) + OUT_KS * (dhp + 8) + OUT_KS)
+    return {"nt": nt, "dhp": dhp, "bn": bn, "n_chunks": S // chunk,
+            "row_tiles": -(-chunk // ROWS),
+            "smem_states": 4 * STATE_STAGES * (KS * (STATE_ROWS + 8)
+                                               + KS * (bn + 8) + KS),
+            "smem_outputs": 4 * (OUT_STAGES * stage + ROWS * (lp + 4)
+                                 + 3 * ROWS + 2 * lp
+                                 + OUT_THREADS // 64 * ROWS + ROWS)}
 
 
 @functools.cache
 def _launcher():
     from repro_torch.kernels import _build
-    fn = _build.load("mlstm_scan").mlstm_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+    fn = _build.load("mlstm_scan_sm90").mlstm_scan_sm90_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -81,22 +114,54 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_scan_ref(q, k, v, lf, li, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan: no kernel for {q.device}")
+    if q.numel() == 0:
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = _run_sm90(q, k, v, lf, li, chunk)
+    mlstm_scan.launches += 1
+    mlstm_scan.launches_sm90 += 1
+    return out
+
+
+def workspace(B: int, H: int, S: int, dh: int, chunk: int,
+              device) -> tuple:
+    """The kernel's float32 workspace: (scalars per position (4, B H, S),
+    per chunk (3, B H, S/chunk + 1), n states (B H, S/chunk - 1, dhp), C
+    states (B H, S/chunk - 1, dh, dhp)); the two states are None for a
+    single chunk."""
+    p = plan(S, dh, chunk)
+    nc, BH = p["n_chunks"], B * H
+    f32 = dict(dtype=torch.float32, device=device)
+    states = ((torch.empty((BH, nc - 1, p["dhp"]), **f32),
+               torch.empty((BH, nc - 1, dh, p["dhp"]), **f32))
+              if nc > 1 else (None, None))
+    return (torch.empty((4, BH, S), **f32),
+            torch.empty((3, BH, nc + 1), **f32), *states)
+
+
+def _run_sm90(q, k, v, lf, li, chunk, *, ws=None, out=None, passes=7):
+    """Launches ``csrc/mlstm_scan_sm90.cu`` on checked, non-empty CUDA
+    inputs and returns the output. A measurement may pass the workspace
+    and output of an earlier call and a mask of the passes to run (1 the
+    scalars, 2 the states, 4 the outputs)."""
     B, H, S, dh = q.shape
-    out = torch.empty((B, H, S, dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+    p = plan(S, dh, chunk)
+    ws = ws or workspace(B, H, S, dh, chunk, q.device)
+    if out is None:
+        out = torch.empty((B, H, S, dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 15)(
         *(s for t in (q, k, v, lf, li) for s in t.stride()[:3]))
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
-        li.data_ptr(), out.data_ptr(), ctypes.addressof(strides), B, H, S,
-        dh, chunk, dh ** -0.5, _DTYPE_CODE[q.dtype], q.device.index,
+        li.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+        *(None if t is None else t.data_ptr() for t in ws), B, H, S, dh,
+        chunk, p["nt"], p["bn"], p["smem_states"], p["smem_outputs"],
+        dh ** -0.5, _DTYPE_CODE[q.dtype], passes, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"mlstm_scan: kernel launch failed with CUDA "
                            f"error {err}")
-    mlstm_scan.launches += 1
     return out
 
 
 mlstm_scan.launches = 0
+mlstm_scan.launches_sm90 = 0

@@ -11,6 +11,7 @@ from typing import Tuple
 
 HBM_BYTES_PER_S = 3.35e12        # HBM3
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # TF32 dense tensor cores
 BF16_FLOPS_PER_S = 989e12        # bf16 dense tensor cores
 
 

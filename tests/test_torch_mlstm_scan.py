@@ -1,6 +1,9 @@
 """Port's mLSTM scan (K3): its plain version and the wrapper's CPU branch
 against the JAX Pallas kernel (interpret mode) and its oracle; the
-wrapper's refusals. The CUDA kernel is held against the plain version on
+wrapper's refusals; a plain emulation of the sm90 kernel's arithmetic
+(``_sm90_emulate``: the scalar pass, the chunk-local states and their
+combine, the output pass, 3xTF32 products) against both, and the kernel's
+tiling (``ops.plan``). The CUDA kernel is held against the plain version on
 the card by chip_smoke.py."""
 import pytest
 
@@ -18,6 +21,8 @@ from repro_torch.kernels.mlstm_scan import ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
 F32_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_kernels.py:115
+BF16_TOL = dict(atol=2e-3, rtol=2e-2)    # tests/test_kernels.py:17
+MMIN, NEG = -40.0, -1e30
 
 
 def _inputs(rng, B, H, S, dh, lf_lo=0.5, lf_hi=0.99, li_scale=0.5):
@@ -140,3 +145,233 @@ def test_kernel_bench_counts_and_cpu_rows():
                        kb.mlstm_flops(1, 2, 64, 16, 32)[1], kb.F32_FLOPS_PER_S)
     assert (rows[0]["bound_ms"], rows[0]["bound_by"]) == want
     assert rows[0]["gflop"] == kb.mlstm_flops(1, 2, 64, 16, 32)[0] / 1e9
+    assert rows[0]["device_ms"] is None
+    assert rows[0]["bound_used_ms"] == kb.mlstm_bound_3xtf32(1, 2, 64, 16, 32)
+
+
+def test_kernel_bench_3xtf32_bound_at_the_layer_shape():
+    from benchmarks_torch import kernel_bench as kb
+    # 3 x 51.6 GFLOP at 495 TFLOP/s: 0.313 ms, operations (not bytes)
+    assert abs(kb.mlstm_bound_3xtf32(8, 4, 2048, 384, 256) - 0.3127) < 1e-3
+    from repro_torch.roofline.analysis import HBM_BYTES_PER_S
+    assert kb.mlstm_bound_3xtf32(8, 4, 2048, 384, 256) > \
+        kb.mlstm_bytes(8, 4, 2048, 384) / HBM_BYTES_PER_S * 1e3
+
+
+# ---- the sm90 kernel's arithmetic, in plain PyTorch -------------------------
+
+def _tf32(x):
+    """float32 to the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as the kernel rounds hi: add half of the dropped bits to the
+    magnitude, then clear them."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x):
+    """What the tensor core reads of a float32 operand: its top 11
+    significant bits (the low 13 bits cleared)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernel's tensor cores take it: each float32 operand split
+    into hi = tf32(x) and lo = x - hi (read as TF32), lo.hi + hi.lo + hi.hi
+    summed in float32 (the products of TF32 values are exact in float32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _sm90_emulate(q, k, v, lf, li, chunk):
+    """What csrc/mlstm_scan_sm90.cu computes, pass by pass. Returns h in q's
+    dtype and the scalars (m entering each chunk, the row stabilizers m_i
+    and the rows' intra-chunk maxima)."""
+    B, H, S, dh = q.shape
+    L, nc = chunk, S // chunk
+    qs = (q.float() * dh ** -0.5).reshape(B, H, nc, L, dh)
+    kc = k.float().reshape(B, H, nc, L, dh)
+    vc = v.float().reshape(B, H, nc, L, dh)
+    lic = li.reshape(B, H, nc, L)
+    # pass 1: F summed in double and rounded once; the carried m in order
+    F = torch.cumsum(lf.reshape(B, H, nc, L).double(), -1).float()
+    FL = F[..., -1]
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    dlog = (F[..., :, None] - F[..., None, :]) + lic[..., None, :]
+    lmax = torch.where(causal, dlog, torch.tensor(NEG)).amax(-1)
+    g = ((FL[..., None] - F) + lic).amax(-1)
+    m, ms = torch.full((B, H), MMIN), []
+    for c in range(nc):
+        ms.append(m)
+        m = torch.clamp(torch.maximum(FL[..., c] + m, g[..., c]), min=MMIN)
+    mc = torch.stack(ms, -1)                         # entering each chunk
+    mnext = torch.stack(ms[1:] + [m], -1)
+    Mi = torch.clamp(torch.maximum(lmax, F + mc[..., None]), min=MMIN)
+    Sf = torch.exp((F + mc[..., None]) - Mi)
+    wL = torch.exp(((FL[..., None] - F) + lic) - mnext[..., None])
+    decay = torch.exp((FL + mc) - mnext)
+    # pass 2: the state entering each chunk
+    C, n, Cs, ns = torch.zeros(B, H, dh, dh), torch.zeros(B, H, dh), [], []
+    for c in range(nc):
+        Cs.append(C)
+        ns.append(n)
+        kw = kc[:, :, c] * wL[:, :, c, :, None]
+        C = decay[..., c, None, None] * C + _mm3(kw.transpose(-1, -2),
+                                                 vc[:, :, c])
+        n = decay[..., c, None] * n + kw.sum(-2)
+    # pass 3: P = e^(D - m_i) (q.k^T), its row sums, q.C_prev and P.V
+    hs = []
+    for c in range(nc):
+        s = _mm3(qs[:, :, c], kc[:, :, c].transpose(-1, -2))
+        w = torch.where(causal, torch.exp(dlog[:, :, c]
+                                          - Mi[:, :, c, :, None]),
+                        torch.tensor(0.0))
+        P = w * s
+        den = P.sum(-1) + (qs[:, :, c] * ns[c][:, :, None, :]).sum(-1) \
+            * Sf[:, :, c]
+        O = _mm3(qs[:, :, c], Cs[c]) * Sf[:, :, c, :, None] \
+            + _mm3(P, vc[:, :, c])
+        hs.append(O / torch.maximum(den.abs(), torch.exp(-Mi[:, :, c]))
+                  [..., None])
+    h = torch.stack(hs, 2).reshape(B, H, S, dh).to(q.dtype)
+    return h, {"m": mc, "m_i": Mi, "row_max": lmax, "state_log": F
+               + mc[..., None]}
+
+
+@pytest.mark.parametrize("B,H,nc,dh,chunk,dtype", [
+    (1, 2, 4, 16, 16, "float32"),
+    (2, 1, 3, 64, 64, "float32"),
+    (1, 2, 2, 96, 128, "float32"),
+    (1, 1, 1, 96, 64, "float32"),       # one chunk: no state pass
+    (1, 1, 2, 16, 128, "float32"),
+    (2, 2, 2, 64, 16, "bfloat16"),
+    (1, 2, 3, 96, 64, "bfloat16"),
+    (1, 1, 1, 16, 128, "bfloat16"),
+])
+def test_sm90_emulation_matches_the_pallas_kernel(B, H, nc, dh, chunk,
+                                                  dtype):
+    S = nc * chunk
+    x = _inputs(np.random.RandomState(dh * 7 + S), B, H, S, dh)
+    jx, tx = _jax(x), _torch(x)
+    tol = F32_TOL
+    if dtype == "bfloat16":
+        jx[:3] = [a.astype(jnp.bfloat16) for a in jx[:3]]
+        tx[:3] = [t.bfloat16() for t in tx[:3]]
+        tol = BF16_TOL
+    kernel = np.asarray(jmlstm_scan(*jx, chunk=chunk, interpret=True)
+                        .astype(jnp.float32))
+    oracle = np.asarray(jmlstm_scan_ref(*jx, chunk=chunk)
+                        .astype(jnp.float32))
+    got, _ = _sm90_emulate(*tx, chunk)
+    assert got.dtype == tx[0].dtype
+    np.testing.assert_allclose(got.float().numpy(), kernel, **tol)
+    np.testing.assert_allclose(got.float().numpy(), oracle, **tol)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        mlstm_scan_ref(*tx, chunk=chunk).float().numpy(), **tol)
+
+
+def test_sm90_emulation_where_m_reaches_its_floor():
+    """lf strongly negative and li near -42: the state decays at once and
+    most log weights fall under -40, so m_i and the carried m sit at the
+    floor in some rows and chunks and above it in others."""
+    rng = np.random.RandomState(11)
+    x = list(_inputs(rng, 1, 2, 4 * 32, 16, 1e-8, 1e-6))
+    x[4] = (rng.randn(1, 2, 4 * 32) * 2.0 - 42.0).astype(np.float32)
+    got, sc = _sm90_emulate(*_torch(x), 32)
+    assert bool((sc["m_i"] == MMIN).any()) and bool((sc["m_i"] > MMIN).any())
+    assert bool((sc["m"][..., 1:] == MMIN).any())
+    kernel = np.asarray(jmlstm_scan(*_jax(x), chunk=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), kernel, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), mlstm_scan_ref(
+        *_torch(x), chunk=32).numpy(), **F32_TOL)
+
+
+def test_sm90_emulation_where_the_stabilizer_switches_between_chunks():
+    """Two large input gates: after the first the carried state sets m_i
+    (F_i + m above every intra-chunk weight) for whole chunks, after the
+    second a key of the chunk takes over again."""
+    rng = np.random.RandomState(12)
+    x = list(_inputs(rng, 1, 1, 4 * 64, 64, 0.9, 0.99))
+    x[4][0, 0, 3] = 12.0            # chunk 0
+    x[4][0, 0, 2 * 64 + 5] = 15.0   # chunk 2
+    got, sc = _sm90_emulate(*_torch(x), 64)
+    from_state = sc["m_i"] == sc["state_log"]
+    from_rows = sc["m_i"] == sc["row_max"]
+    assert bool(from_state[0, 0, 1].all())                 # chunk 1
+    assert bool(from_state[0, 0, 2, :5].all())
+    assert bool(from_rows[0, 0, 2, 5:].all())
+    kernel = np.asarray(jmlstm_scan(*_jax(x), chunk=64, interpret=True))
+    np.testing.assert_allclose(got.numpy(), kernel, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), mlstm_scan_ref(
+        *_torch(x), chunk=64).numpy(), **F32_TOL)
+
+
+def test_tf32_split_rounds_to_nearest_and_keeps_21_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -10 + 2.0 ** -23])
+    hi = _tf32(x)
+    assert hi.tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                           -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -10]
+    r = torch.from_numpy(np.random.RandomState(3).randn(4096)
+                         .astype(np.float32))
+    hi = _tf32(r)
+    lo = _tf32_read(r - hi)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((r - hi).abs() / r.abs()).max()) <= 2.0 ** -11
+    assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("dh", [1, 8, 16, 63, 64, 65, 96, 128, 129, 256, 257,
+                                384, 385, 511, 512])
+@pytest.mark.parametrize("chunk", [1, 8, 16, 48, 64, 96, 128, 200, 256])
+def test_plan_covers_every_accepted_shape(dh, chunk):
+    p = ops.plan(4 * chunk, dh, chunk)
+    assert p["nt"] in ops.OUTPUT_TILES and p["dhp"] == 64 * p["nt"] >= dh
+    assert p["nt"] == 1 or 64 * ops.OUTPUT_TILES[
+        ops.OUTPUT_TILES.index(p["nt"]) - 1] < dh           # the least
+    assert p["dhp"] % p["bn"] == 0 and p["bn"] in (64, 96, 128)
+    assert p["smem_outputs"] <= ops.MAX_SMEM
+    assert p["smem_states"] <= ops.MAX_SMEM // 2             # 2 blocks an SM
+    assert p["n_chunks"] == 4 and p["row_tiles"] == -(-chunk // 64)
+
+
+def test_plan_at_the_layer_and_bench_shapes():
+    # xLSTM-125m's mLSTM layer: B=8, H=4, S=2048, dh=384, chunk 256
+    p = ops.plan(2048, 384, 256)
+    assert (p["nt"], p["dhp"], p["bn"], p["n_chunks"], p["row_tiles"]) == \
+        (6, 384, 96, 8, 4)
+    out_blocks = p["row_tiles"] * p["n_chunks"] * 8 * 4
+    assert out_blocks == 1024 and out_blocks >= 7 * 132   # blocks per SM
+    assert (384 // 64) * (384 // p["bn"]) * 8 * 4 == 768  # state blocks
+    # the kernel bench's shapes get more output blocks than the earlier
+    # kernel's grid of (B H, dh / 64): 16 and 4
+    from benchmarks_torch.kernel_bench import MLSTM_SHAPES
+    for (B, H, S, dh, chunk), old in zip(MLSTM_SHAPES, (16, 4)):
+        q = ops.plan(S, dh, chunk)
+        assert q["row_tiles"] * q["n_chunks"] * B * H > old
+        assert (q["dhp"] // 64) * (q["dhp"] // q["bn"]) * B * H >= old
+
+
+def test_workspace_shapes_and_the_cpu_route():
+    ws = ops.workspace(2, 3, 512, 96, 128, "cpu")
+    assert [tuple(t.shape) for t in ws] == [
+        (4, 6, 512), (3, 6, 5), (6, 3, 128), (6, 3, 96, 128)]
+    assert ops.workspace(1, 1, 64, 16, 64, "cpu")[2:] == (None, None)
+    x = _torch(_inputs(np.random.RandomState(9), 1, 1, 64, 16))
+    n, n90 = ops.mlstm_scan.launches, ops.mlstm_scan.launches_sm90
+    ops.mlstm_scan(*x, chunk=32)
+    assert (ops.mlstm_scan.launches, ops.mlstm_scan.launches_sm90) == (n, n90)
+
+
+def test_wrapper_refuses_past_the_kernels_limits():
+    gates = torch.zeros(1, 1, 514)
+    wide = torch.zeros(1, 1, 514, ops.MAX_HEAD_DIM + 1)
+    with pytest.raises(ValueError, match="dh <= 512"):
+        ops.mlstm_scan(wide, wide, wide, gates, gates, chunk=257)
+    long = torch.zeros(1, 1, 514, 8)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        ops.mlstm_scan(long, long, long, gates, gates, chunk=257)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        m = [t.to("meta") for t in (long, long, long, gates, gates)]
+        ops.mlstm_scan(*m, chunk=2)
