@@ -62,6 +62,18 @@ Phases (any failure exits non-zero):
              layer 1's own q, k, v and gates against the layer's chunk
              scan; ``prefill`` of S-1 tokens and 8 greedy ``decode_step``s,
              the first held against the forward's last position.
+8. sim     — the cycle simulator's main path (src/repro_torch/core), which
+             runs no hand-written kernel (every kernel count stays 0): the
+             goldens' configuration for frfcfs, sms and sms_dash on the card
+             reproduces the sha1 digests of tests/golden_policy_states.json;
+             then the paper's 16 CPUs + 1 GPU on 4 channels of 8 banks (the
+             buffer at SMS's entry parity, 134 entries) over 14 workloads
+             and the 23 alone runs in one batch, 1,000 warm-up and 4,000
+             measured cycles, every metric equal to the same run on the CPU
+             (a second process, run alongside); the timed loop runs under
+             torch.cuda.set_sync_debug_mode("error"). It prints WS and max
+             slowdown, simulated cycles/s on the card and the CPU, and
+             kernels per cycle from a torch.profiler window.
 
 The kernel phase also holds K3 (mLSTM scan, csrc/mlstm_scan_sm90.cu: a
 scalar pass, the state entering each chunk, the outputs; 3xTF32 tensor-core
@@ -83,6 +95,7 @@ its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout.
 """
 import argparse
 import gc
+import hashlib
 import importlib.util
 import json
 import math
@@ -104,6 +117,10 @@ from benchmarks_torch.kernel_bench import device_ms as _device_ms
 from benchmarks_torch.kernel_bench import time_ms as _time_ms
 from repro_torch.configs.base import RunConfig, reduced
 from repro_torch.configs.registry import get_config
+from repro_torch.core import metrics as sim_met
+from repro_torch.core import simulator as sim
+from repro_torch.core import workloads as sim_wl
+from repro_torch.core.params import SimConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1217,13 +1234,293 @@ def phase_xlstm():
     return model_launches["mlstm_scan"]
 
 
+# the simulator phase: the goldens' configuration (tests/test_policy_registry
+# and tests/golden_policy_states.json), then the paper's 16 CPUs + 1 GPU on
+# 4 memory channels (benchmarks/fig6_core_scaling.py: "paper: 4 MCs")
+SIM_POLICIES = ("frfcfs", "sms", "sms_dash")
+SIM_GOLDEN_CFG = dict(n_cpu=3, n_gpu=1, n_channels=2, buf_entries=24,
+                      fifo_size=5, dcs_size=3)
+SIM_GOLDEN_CYCLES = 1_500
+SIM_GOLDEN_SCHED = {                 # keys that make the sched check real
+    "sms": ("f_len", "f_row", "d_len", "d_src", "drain_left", "rr_bank"),
+    "centralized": ("valid", "src", "bank", "row", "birth", "marked"),
+}
+SIM_N_CPU, SIM_CHANNELS, SIM_PER_CAT = 16, 4, 2
+SIM_WARMUP, SIM_CYCLES = 1_000, 4_000
+SIM_PROFILE_CYCLES = 20
+
+
+def _sim_golden_pool(cfg):
+    """The goldens' capture-time pool (seed 42)."""
+    rng = np.random.RandomState(42)
+    S = cfg.n_src
+    mpki = rng.uniform(2, 40, S).astype(np.float32)
+    pool = {
+        "mpki": mpki,
+        "inst_per_miss": np.maximum(1000.0 / mpki, 1.0).astype(np.float32),
+        "rbl": rng.uniform(0.1, 0.95, S).astype(np.float32),
+        "blp": rng.randint(1, 7, S).astype(np.int32),
+        "is_gpu": np.asarray([False] * cfg.n_cpu + [True]),
+        "dl_period": np.zeros(S, np.int32),
+        "dl_reqs": np.zeros(S, np.int32),
+    }
+    pool["dl_period"][0] = 400
+    pool["dl_reqs"][0] = 35
+    return pool
+
+
+def _sim_digest(tree):
+    """Per-key sha1 over dtype, shape and bytes, as the goldens hold."""
+    out = {}
+    for key in sorted(tree):
+        v = np.ascontiguousarray(tree[key])
+        h = hashlib.sha1()
+        h.update(str(v.dtype).encode())
+        h.update(str(v.shape).encode())
+        h.update(v.tobytes())
+        out[key] = h.hexdigest()
+    return out
+
+
+def _sim_parity_config(n_cpu, n_channels, fifo_size=6, dcs_size=4):
+    """The centralized buffer sized to SMS's entry parity (the paper's
+    comparison, benchmarks/common.parity_config)."""
+    cfg = SimConfig(n_cpu=n_cpu, n_channels=n_channels, fifo_size=fifo_size,
+                    dcs_size=dcs_size)
+    return cfg.replace(buf_entries=cfg.n_src * cfg.fifo_size
+                       + cfg.n_banks * cfg.dcs_size)
+
+
+def _sim_batch():
+    """The paper's configuration and one batch: the 14 shared workloads (two
+    per intensity category) followed by the 23 alone runs, which give the
+    per-benchmark baselines. Workloads never interact, so one batch is the
+    two separate runs."""
+    cfg = _sim_parity_config(SIM_N_CPU, SIM_CHANNELS)
+    wls = sim_wl.make_workloads(SIM_N_CPU, n_per_cat=SIM_PER_CAT)
+    pool, active = sim_wl.pool_batch(cfg, wls)
+    apool, aactive, amap = sim_wl.alone_batch(cfg)
+    both = {k: np.concatenate([pool[k], apool[k]]) for k in pool}
+    return cfg, wls, pool, both, np.concatenate([active, aactive]), amap
+
+
+def sim_cpu_worker(out_path, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
+    """The CPU half of the simulator phase, in a process of its own: the
+    goldens' runs and the paper configuration's runs, saved to `out_path`."""
+    res = {}
+    gcfg = SimConfig(**SIM_GOLDEN_CFG)
+    for pol in SIM_POLICIES:
+        trees = sim.simulate_debug(gcfg, pol, _sim_golden_pool(gcfg),
+                                   np.ones(gcfg.n_src, bool),
+                                   SIM_GOLDEN_CYCLES, device="cpu")
+        for part, tree in zip(("src", "sched", "dram"), trees):
+            res.update({f"golden/{pol}/{part}/{k}": v
+                        for k, v in tree.items()})
+    cfg, _, _, both, active, _ = _sim_batch()
+    for pol in SIM_POLICIES:
+        t0 = time.perf_counter()
+        m = sim.simulate(cfg, pol, both, active, cycles, warmup,
+                         device="cpu")
+        res[f"seconds/{pol}"] = np.float64(time.perf_counter() - t0)
+        res.update({f"paper/{pol}/{k}": v for k, v in m.items()})
+    np.savez(out_path, **res)
+
+
+def _sim_ws_maxsd(cfg, wls, pool, m, amap):
+    """The paper's WS and max slowdown, averaged over the shared workloads,
+    from one batch's metrics (shared rows first, then the alone rows)."""
+    n = len(wls)
+    alone = sim_wl.alone_perf_lookup(
+        cfg, {k: v[n:] for k, v in m.items()}, amap)
+    perf = sim.perf_vector(cfg, {k: v[:n] for k, v in m.items()}, pool)
+    rows = [sim_met.workload_metrics(cfg, w, perf[i], alone)
+            for i, w in enumerate(wls)]
+    return sim_met.aggregate(rows)
+
+
+def _sim_profile(cfg, pol, both, active):
+    """Kernels per simulated cycle (and the device's share of the wall time)
+    from a short torch.profiler window over the step on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    bcfg, step, carry = sim.prepare_run(cfg, pol, both, active,
+                                        device="cuda")
+    for t in range(5):
+        carry, _ = step(carry, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(5, 5 + SIM_PROFILE_CYCLES):
+            carry, _ = step(carry, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if e.name.lower().startswith("memcpy")]
+    copy_names = sorted({e.name for e in copies})
+    launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
+    busy_us = sum(e.device_time_total for e in dev)
+    n = SIM_PROFILE_CYCLES
+    return {"kernels_per_cycle": (len(dev) - len(copies)) / n,
+            "memcpy_per_cycle": len(copies) / n,
+            "memcpy_kinds": copy_names,
+            "cudaLaunchKernel_per_cycle": launches / n,
+            "device_us_per_cycle": busy_us / n,
+            "wall_us_per_cycle_profiled": 1e6 * wall / n,
+            "device_idle_share": 1.0 - busy_us / (1e6 * wall)}
+
+
+def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
+    """The cycle simulator (src/repro_torch/core): the goldens on the card,
+    then the paper's 16-core + 1-GPU, 4-channel system for frfcfs, sms and
+    sms_dash, every metric equal to the same run on the CPU (run alongside
+    in a second process). The timed loop runs under
+    torch.cuda.set_sync_debug_mode("error"): it never waits for the card."""
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "sim")       # git-ignored
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, f"cpu-{os.getpid()}.npz")
+    worker = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sim-cpu-worker", out_path,
+                               "--sim-cycles", f"{warmup},{cycles}"])
+    try:
+        _zero_counts()
+        with open(os.path.join(ROOT, "tests",
+                               "golden_policy_states.json")) as f:
+            golden = json.load(f)
+        gcfg = SimConfig(**SIM_GOLDEN_CFG)
+        card_golden = {}
+        for pol in SIM_POLICIES:
+            trees = sim.simulate_debug(gcfg, pol, _sim_golden_pool(gcfg),
+                                       np.ones(gcfg.n_src, bool),
+                                       SIM_GOLDEN_CYCLES, device="cuda")
+            card_golden[pol] = trees
+            g = golden[pol]
+            essential = SIM_GOLDEN_SCHED[
+                "sms" if pol.startswith("sms") else "centralized"]
+            for part, tree in zip(("src", "sched", "dram"), trees):
+                new = _sim_digest(tree)
+                keys = set(g[part]) & set(new) if part == "sched" \
+                    else set(g[part])
+                if part == "sched" and not set(essential) <= keys:
+                    raise AssertionError(f"sim golden {pol}: sched keys "
+                                         f"{sorted(keys)}")
+                bad = sorted(k for k in keys if new.get(k) != g[part][k])
+                if bad:
+                    raise AssertionError(f"sim golden {pol} {part}: "
+                                         f"digests differ on card: {bad}")
+        print(f"[sim] goldens on the card: {', '.join(SIM_POLICIES)} at "
+              f"{SIM_GOLDEN_CYCLES} cycles reproduce every src, dram and "
+              f"sched digest of tests/golden_policy_states.json")
+
+        cfg, wls, pool, both, active, amap = _sim_batch()
+        card, card_s = {}, {}
+        for pol in SIM_POLICIES:
+            bcfg, step, carry = sim.prepare_run(cfg, pol, both, active,
+                                                device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m = sim._scan_and_measure(bcfg, step, carry, cycles,
+                                          warmup)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            card_s[pol] = time.perf_counter() - t0
+            card[pol] = {k: v.cpu().numpy() for k, v in m.items()}
+        prof = {pol: _sim_profile(cfg, pol, both, active)
+                for pol in SIM_POLICIES}
+        launched = {fn.__name__: fn.launches for fn in
+                    (ops.paged_attention, fa_ops.flash_attention,
+                     ml_ops.mlstm_scan)}
+        if any(launched.values()):
+            raise AssertionError(f"the simulator path launched {launched}")
+
+        worker.wait(timeout=900)
+        if worker.returncode != 0:
+            raise AssertionError(f"sim CPU worker exit {worker.returncode}")
+        cpu = np.load(out_path)
+        for pol in SIM_POLICIES:
+            for part, tree in zip(("src", "sched", "dram"),
+                                  card_golden[pol]):
+                for k, v in tree.items():
+                    want = cpu[f"golden/{pol}/{part}/{k}"]
+                    if v.dtype != want.dtype or not np.array_equal(v, want):
+                        raise AssertionError(f"sim golden {pol} {part}[{k}]:"
+                                             f" card != cpu")
+            for k, v in card[pol].items():
+                want = cpu[f"paper/{pol}/{k}"]
+                if v.dtype != want.dtype or not np.array_equal(v, want):
+                    raise AssertionError(f"sim paper {pol} {k}: card != cpu")
+        n_cyc = warmup + cycles
+        W, S = active.shape
+        print(f"[sim] paper system: {SIM_N_CPU} CPUs + 1 GPU, "
+              f"{cfg.n_channels} channels x {cfg.n_banks} banks, "
+              f"{cfg.buf_entries} buffer entries per channel (SMS FIFO "
+              f"{cfg.fifo_size}, DCS {cfg.dcs_size}); W={W} workloads "
+              f"({len(wls)} shared + {W - len(wls)} alone) x S={S}, "
+              f"{warmup} warm-up + {cycles} measured cycles; every "
+              f"metric card == cpu; no sync in the timed loop; kernel "
+              f"launches on the path {json.dumps(launched)}")
+        rec = {}
+        for pol in SIM_POLICIES:
+            a = _sim_ws_maxsd(cfg, wls, pool, card[pol], amap)
+            cpu_s = float(cpu[f"seconds/{pol}"])
+            rec[pol] = {"ws": a["weighted_speedup"],
+                        "max_slowdown": a["max_slowdown"],
+                        "cycles_per_s_card": n_cyc / card_s[pol],
+                        "cycles_per_s_cpu": n_cyc / cpu_s,
+                        **prof[pol]}
+            print(f"[sim] {pol}: WS {a['weighted_speedup']:.4f}, max "
+                  f"slowdown {a['max_slowdown']:.4f}, cpuWS "
+                  f"{a['cpu_weighted_speedup']:.4f}, gpuSU "
+                  f"{a['gpu_speedup']:.4f}; card {card_s[pol]:.2f} s = "
+                  f"{n_cyc / card_s[pol]:.1f} cycles/s, cpu {cpu_s:.2f} s = "
+                  f"{n_cyc / cpu_s:.1f} cycles/s (cpu run alongside); "
+                  f"{prof[pol]['kernels_per_cycle']:.1f} kernels, "
+                  f"{prof[pol]['memcpy_per_cycle']:.2f} copies "
+                  f"{prof[pol]['memcpy_kinds']}, "
+                  f"{prof[pol]['cudaLaunchKernel_per_cycle']:.1f} "
+                  f"cudaLaunchKernel per cycle; device "
+                  f"{prof[pol]['device_us_per_cycle']:.1f} us of "
+                  f"{prof[pol]['wall_us_per_cycle_profiled']:.1f} us per "
+                  f"profiled cycle (idle share "
+                  f"{prof[pol]['device_idle_share']:.3f}); {smi_line}")
+        print(f"[sim] {json.dumps({'sim': rec})}")
+        print(f"[sim] phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+        if os.path.exists(out_path):
+            os.remove(out_path)
+    return rec
+
+
+def _smi():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sim-cpu-worker", default=None, metavar="NPZ",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sim-cycles", default=f"{SIM_WARMUP},{SIM_CYCLES}",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--baseline-src", default=None, metavar="DIR",
                     help="a checkout that has K3's earlier CUDA-core kernel "
                          "(src/repro_torch/csrc/mlstm_scan.cu), timed beside "
                          "the sm90 kernel")
     args = ap.parse_args(argv)
+    if args.sim_cpu_worker:
+        sim_cpu_worker(args.sim_cpu_worker,
+                       *map(int, args.sim_cycles.split(",")))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1258,11 +1555,10 @@ def main(argv=None):
     rec_ml["model_path_launches"] = phase_xlstm()
     for rec in (rec_pa, rec_fa, rec_ml):
         rec["kernel_bench_launches"] = bench[rec["name"]]
+    smi_line = _smi()
+    phase_sim(smi_line)
     print(json.dumps({"kernels": [rec_pa, rec_fa, rec_ml]}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi_line)
     print(f"[chip_smoke] wall {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,48 @@
-"""Name -> object registry shared by the port's scheduling domains.
+"""`MemoryPolicy` protocol + registry: one scheduler API for the whole port.
 
-Port of ``Registry`` from ``repro/core/policy.py``. The rest of that module
-(the ``MemoryPolicy`` protocol and the cycle-sim step) belongs to the
-simulator and is not ported yet.
+Port of ``repro/core/policy.py``. A policy is an object with
+
+    name         registry key ("frfcfs", "sms", ...)
+    variant_of   None, or the name of the policy this one is a configured
+                 variant of (variants are excluded from the baseline sweep)
+    configure(cfg)                    -> cfg     (static/shape changes only)
+    configure_knobs(knobs)            -> knobs   (optional: pin value knobs,
+                                                  e.g. sms_dash's dash=True)
+    init_state(cfg, W, device)        -> sched   (dict of (W, ...) tensors)
+    tick(cfg, pool, st, sched, t)     -> (st, sched)
+    select(cfg, pool, st, sched, dram, t) -> (st, sched, dram)
+
+and the simulator's cycle is one generic step (`make_step`) over whatever
+policy object the registry hands back. `t` is a Python int.
+
+`Registry` itself is domain-agnostic; `repro_torch.serving.scheduler` uses a
+second instance, so the serving engine and the cycle sim enumerate policies
+the same way. The stacked cross-policy path and the variable-step witnesses
+(`is_stackable`, `make_skip_step`) come with slice B.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, Optional, Protocol,
+                    Tuple)
+
+from repro_torch.core import energy, engine
+from repro_torch.core.params import Knobs, SimConfig
+
+
+class MemoryPolicy(Protocol):
+    """Structural type for cycle-sim scheduling policies."""
+
+    name: str
+    variant_of: Optional[str]
+
+    def configure(self, cfg: SimConfig) -> SimConfig: ...
+
+    def init_state(self, cfg: SimConfig, W: int, device) -> Dict[str, Any]:
+        ...
+
+    def tick(self, cfg: SimConfig, pool, st, sched, t): ...
+
+    def select(self, cfg: SimConfig, pool, st, sched, dram, t): ...
 
 
 class Registry:
@@ -64,3 +100,69 @@ class Registry:
 
     def __setitem__(self, name: str, obj: Any) -> None:
         self._entries[name] = obj               # tests swap entries in-place
+
+
+POLICY_REGISTRY = Registry("memory policy")
+
+
+def register(cls):
+    """Class decorator: instantiate and register a `MemoryPolicy`."""
+    POLICY_REGISTRY.register(cls.name)(cls())
+    return cls
+
+
+def _ensure_builtin() -> None:
+    # lazy, so `policy` stays import-cycle-free (policies import schedulers,
+    # which imports engine); the built-ins self-register on first lookup
+    from repro_torch.core import policies  # noqa: F401
+
+
+def get(name: str) -> MemoryPolicy:
+    _ensure_builtin()
+    return POLICY_REGISTRY.get(name)
+
+
+def names() -> Tuple[str, ...]:
+    """All registered policies, in registration order."""
+    _ensure_builtin()
+    return POLICY_REGISTRY.names()
+
+
+def baseline_names() -> Tuple[str, ...]:
+    """Policies that are not configured variants of another policy."""
+    _ensure_builtin()
+    return tuple(n for n, p in POLICY_REGISTRY.items()
+                 if getattr(p, "variant_of", None) is None)
+
+
+def resolve_knobs(cfg: SimConfig, pol, knobs: Optional[Knobs] = None
+                  ) -> Knobs:
+    """The knob point a policy actually runs at: caller-supplied (or cfg
+    defaults) filtered through the policy's optional `configure_knobs`."""
+    kn = Knobs.from_cfg(cfg) if knobs is None else knobs
+    ck = getattr(pol, "configure_knobs", None)
+    return ck(kn) if ck is not None else kn
+
+
+def make_step(cfg: SimConfig, pol: MemoryPolicy, pool, active):
+    """One simulator cycle for every workload of the batch, generic over the
+    policy object. `pool`/`active` are read-only (W, S) tensors closed over
+    here; the carry holds only cycle-varying state."""
+    if cfg.telemetry_enabled:
+        raise NotImplementedError(
+            "telemetry_enabled: the flight recorder comes with slice B")
+    if cfg.validate_enabled:
+        raise NotImplementedError(
+            "validate_enabled: the invariant sanitizer comes with slice B")
+
+    def step(carry, t: int):
+        st, sched, dram = carry
+        st, dram = engine.completions_tick(st, dram, t)
+        dram = energy.background_tick(cfg, dram, t)
+        st = engine.deadline_tick(cfg, pool, st, t)
+        st = engine.source_tick(cfg, pool, st, active, t)
+        st, sched = pol.tick(cfg, pool, st, sched, t)
+        st, sched, dram = pol.select(cfg, pool, st, sched, dram, t)
+        return (st, sched, dram), None
+
+    return step

@@ -1,0 +1,238 @@
+"""Centralized request-buffer substrate for `MemoryPolicy` implementations.
+
+Port of the single-policy path of ``repro/core/schedulers.py``: the
+per-channel CAM-style request buffer scored every cycle, as the base class
+`CentralizedPolicy`. Subclasses override
+
+    extra_state(cfg, W, device)            policy-private state tensors
+    boundary_pred(cfg, pool, st, buf, t)   Python bool: run boundary_tick?
+                                           (None = policy has no boundary)
+    boundary_tick(cfg, pool, st, buf, t)   epoch/quantum/batch maintenance
+    policy_tick(cfg, pool, st, buf, t)     cheap per-cycle maintenance
+    score(cfg, pool, buf, is_hit, t)       (W, C, E) int32 score
+    on_admit(cfg, pool, st, buf, do, slot, src, t)   per-admission hook
+    on_issue(cfg, pool, buf, do, pick, src, t)       per-issue hook (buf is
+                                                     the PRE-clear buffer)
+
+Buffer shapes: (W, C, E). `t` is a Python int, and every boundary
+predicate depends on `t` only, so the gate is a plain `if`.
+
+Scores are lexicographic integers:
+
+    [policy bits 22+] [rank 15..20] [row-hit 14] [age 0..13]
+
+The stacked cross-policy step and the skip witnesses (`next_admission`,
+`next_issue_ready`) come with slice B.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.params import SimConfig
+
+AGE_CAP = (1 << 14) - 1
+HIT_BIT = 1 << 14
+RANK_SHIFT = 15
+POL_BIT = 1 << 22
+
+
+def buffer_state(cfg: SimConfig, W: int, device) -> Dict[str, Any]:
+    """The shared CAM buffer; policy-private arrays live in extra_state.
+    `gpu_occ` mirrors the GPU-held entries per channel (admit +1, issue -1).
+    """
+    C, E = cfg.n_channels, cfg.buf_entries
+    z = lambda dt: torch.zeros((W, C, E), dtype=dt, device=device)
+    return {
+        "valid": z(torch.bool), "src": z(torch.int32),
+        "bank": z(torch.int32), "row": z(torch.int32),
+        "birth": z(torch.int32), "marked": z(torch.bool),
+        "gpu_occ": torch.zeros((W, C), dtype=torch.int32, device=device),
+    }
+
+
+def rank_pos(key: torch.Tensor) -> torch.Tensor:
+    """Rank position of each element under an ascending stable sort along
+    the last axis (0 = smallest), int32."""
+    order = torch.argsort(key, dim=-1, stable=True)
+    return torch.argsort(order, dim=-1, stable=True).to(torch.int32)
+
+
+def base_score(cfg: SimConfig, buf, is_hit, t) -> torch.Tensor:
+    """FR-FCFS core: row hit above age. (W, C, E) int32."""
+    age = torch.clamp(t - buf["birth"], 0, AGE_CAP)
+    return is_hit.to(torch.int32) * HIT_BIT + age
+
+
+def admit(cfg: SimConfig, pool, st, buf, t, key=None):
+    """One admission per channel per cycle; lowest-key pending request wins
+    (default key: birth, i.e. oldest first). GPU sources are blocked while
+    they hold >= gpu_cap entries of the channel's buffer.
+
+    Returns (st, buf, do, slot, src): per-channel (W, C) admission outcome.
+    """
+    S, C = cfg.n_src, cfg.n_channels
+    is_gpu_src = pool["is_gpu"]                                 # (W, S)
+    st = dict(st)
+    buf = dict(buf)
+    dev = is_gpu_src.device
+    cidx = engine.arange(C, dev)
+    ch = engine.channel_of(cfg, st["pend_bank"])                # (W, S)
+    gpu_ok = buf["gpu_occ"] < cfg.gpu_cap                       # (W, C)
+    cand = st["pend_valid"][:, None, :] & \
+        (ch[:, None, :] == cidx[None, :, None]) & \
+        (gpu_ok[:, :, None] | ~is_gpu_src[:, None, :])          # (W, C, S)
+    has_free = ~torch.all(buf["valid"], dim=-1)                 # (W, C)
+    key = st["pend_birth"] if key is None else key
+    key = torch.where(cand, key[:, None, :], 2 ** 30)
+    s = torch.argmin(key, dim=-1)                               # (W, C)
+    do = engine.take(cand, s) & has_free
+    slot = torch.argmin(buf["valid"].to(torch.uint8), dim=-1)   # first free
+    wr = lambda a, v: engine.masked_set(a, slot, v, do)
+    at_s = lambda a: torch.gather(a, -1, s)                     # (W, C)
+    buf["valid"] = wr(buf["valid"], True)
+    buf["src"] = wr(buf["src"], s.to(torch.int32))
+    buf["bank"] = wr(buf["bank"],
+                     engine.bank_in_channel(cfg, at_s(st["pend_bank"])))
+    buf["row"] = wr(buf["row"], at_s(st["pend_row"]))
+    buf["birth"] = wr(buf["birth"], at_s(st["pend_birth"]))
+    buf["marked"] = wr(buf["marked"], False)
+    buf["gpu_occ"] = buf["gpu_occ"] + (do & at_s(is_gpu_src)).to(torch.int32)
+    taken = torch.any((engine.arange(S, dev) == s[..., None])
+                      & do[..., None], dim=-2)                  # (W, S)
+    st["pend_valid"] = st["pend_valid"] & ~taken
+    return st, buf, do, slot.to(torch.int32), s.to(torch.int32)
+
+
+class CentralizedPolicy:
+    """`MemoryPolicy` base for single-stage CAM-buffer schedulers.
+
+    `policy_tick` runs every cycle and must stay cheap; `boundary_tick`
+    holds the epoch/quantum/batch maintenance, gated on `boundary_pred`.
+    """
+
+    name = "centralized"
+    variant_of = None
+
+    # keys `boundary_tick` may WRITE (everything else is read-only there)
+    boundary_keys: tuple = ()
+
+    # -- per-policy hooks --------------------------------------------------
+    def extra_state(self, cfg: SimConfig, W: int, device) -> Dict[str, Any]:
+        return {}
+
+    def pre_tick(self, cfg: SimConfig, pool, st, buf, t):
+        """Per-cycle maintenance that must run BEFORE the boundary gate."""
+        return buf
+
+    def boundary_pred(self, cfg: SimConfig, pool, st, buf, t):
+        """Gate for `boundary_tick`: a Python bool computed from `t` alone,
+        or None (no boundary work)."""
+        return None
+
+    def boundary_tick(self, cfg: SimConfig, pool, st, buf, t):
+        """Gated maintenance: may read any state, writes `boundary_keys`."""
+        return buf
+
+    def policy_tick(self, cfg: SimConfig, pool, st, buf, t):
+        """Unconditional per-cycle maintenance."""
+        return buf
+
+    def score(self, cfg: SimConfig, pool, buf, is_hit, t) -> torch.Tensor:
+        """Default: cached per-source priority + FR-FCFS base score."""
+        s = base_score(cfg, buf, is_hit, t)
+        if "pri_src" in buf:
+            src = buf["src"]
+            pri = torch.gather(buf["pri_src"], -1,
+                               src.reshape(src.shape[0], -1).to(torch.int64))
+            s = pri.reshape(src.shape) + s
+        return s
+
+    def on_admit(self, cfg: SimConfig, pool, st, buf, do, slot, src, t):
+        """Per-admission accounting ((W, C) tensors, after the write)."""
+        return buf
+
+    def on_issue(self, cfg: SimConfig, pool, buf, do, pick, src, t):
+        """Per-issue accounting. `buf` is PRE-clear."""
+        return buf
+
+    def admit_key(self, cfg: SimConfig, pool, st, buf, t):
+        """(W, S) admission ordering key, lowest first (default: oldest)."""
+        return st["pend_birth"]
+
+    # -- MemoryPolicy protocol ---------------------------------------------
+    def configure(self, cfg: SimConfig) -> SimConfig:
+        return cfg
+
+    def init_state(self, cfg: SimConfig, W: int, device) -> Dict[str, Any]:
+        return {**buffer_state(cfg, W, device),
+                **self.extra_state(cfg, W, device)}
+
+    def tick_hooks(self, cfg: SimConfig, pool, st, buf, do, slot, src, t):
+        """Everything policy-specific between admission and selection:
+        per-admission accounting, cheap maintenance, the gated boundary
+        work."""
+        buf = self.on_admit(cfg, pool, st, buf, do, slot, src, t)
+        buf = self.pre_tick(cfg, pool, st, buf, t)
+        pred = self.boundary_pred(cfg, pool, st, buf, t)
+        if pred is not None and not isinstance(pred, bool):
+            raise TypeError(f"{self.name}: boundary_pred must return a "
+                            f"Python bool computed from t, got {type(pred)}")
+        if pred:
+            new = self.boundary_tick(cfg, pool, st, buf, t)
+            buf = {**buf, **{k: new[k] for k in self.boundary_keys}}
+        buf = self.policy_tick(cfg, pool, st, buf, t)
+        return buf
+
+    def tick(self, cfg: SimConfig, pool, st, buf, t):
+        st, buf, do, slot, src = admit(
+            cfg, pool, st, buf, t,
+            key=self.admit_key(cfg, pool, st, buf, t))
+        buf = self.tick_hooks(cfg, pool, st, buf, do, slot, src, t)
+        return st, buf
+
+    def select(self, cfg: SimConfig, pool, st, buf, dram, t):
+        """Pick + issue at most one request per channel, all at once."""
+        elig, lat, is_hit = eligibility_grid(cfg, buf, dram, t)
+        score = self.score(cfg, pool, buf, is_hit, t)
+        score = torch.where(elig, score, -1)
+        st, dram, do, pick, src = issue_picked(cfg, st, buf, dram, score,
+                                               lat, is_hit, t)
+        buf = self.on_issue(cfg, pool, buf, do, pick, src, t)
+        buf = clear_picked(cfg, pool, buf, do, pick, src)
+        return st, buf, dram
+
+
+def eligibility_grid(cfg: SimConfig, buf, dram, t):
+    """Per-entry issue legality for every channel: (W, C, E) elig/lat/hit."""
+    return engine.eligibility(cfg, dram, buf["bank"], buf["row"],
+                              buf["valid"], t)
+
+
+def issue_picked(cfg: SimConfig, st, buf, dram, score, lat, is_hit, t):
+    """argmax the masked score per channel and commit the issue to DRAM.
+
+    Returns (st, dram, do, pick, src); `buf` is untouched (still pre-clear).
+    """
+    pick = torch.argmax(score, dim=-1).to(torch.int32)          # (W, C)
+    at_pick = lambda a: engine.take(a, pick)
+    do = at_pick(score) >= 0
+    src = at_pick(buf["src"])
+    dram, st = engine.issue_channels(
+        cfg, dram, st, do, at_pick(buf["bank"]), at_pick(buf["row"]),
+        src, at_pick(buf["birth"]), at_pick(lat), at_pick(is_hit), t)
+    return st, dram, do, pick, src
+
+
+def clear_picked(cfg: SimConfig, pool, buf, do, pick, src):
+    """Free the issued entries and settle the GPU-occupancy counter."""
+    buf = dict(buf)
+    clear = lambda a: engine.masked_set(a, pick, False, do)
+    buf["valid"] = clear(buf["valid"])
+    buf["marked"] = clear(buf["marked"])
+    buf["gpu_occ"] = buf["gpu_occ"] - \
+        (do & torch.gather(pool["is_gpu"], -1, src.to(torch.int64))
+         ).to(torch.int32)
+    return buf
