@@ -63,17 +63,27 @@ Phases (any failure exits non-zero):
              scan; ``prefill`` of S-1 tokens and 8 greedy ``decode_step``s,
              the first held against the forward's last position.
 8. sim     — the cycle simulator's main path (src/repro_torch/core), which
-             runs no hand-written kernel (every kernel count stays 0): the
-             goldens' configuration for frfcfs, sms and sms_dash on the card
-             reproduces the sha1 digests of tests/golden_policy_states.json;
-             then the paper's 16 CPUs + 1 GPU on 4 channels of 8 banks (the
-             buffer at SMS's entry parity, 134 entries) over 14 workloads
-             and the 23 alone runs in one batch, 1,000 warm-up and 4,000
-             measured cycles, every metric equal to the same run on the CPU
-             (a second process, run alongside); the timed loop runs under
-             torch.cuda.set_sync_debug_mode("error"). It prints WS and max
-             slowdown, simulated cycles/s on the card and the CPU, and
-             kernels per cycle from a torch.profiler window.
+             runs no hand-written kernel (every kernel count stays 0). At
+             the goldens' configuration: frfcfs, atlas, parbs, tcm, sms and
+             sms_dash alone, and the stackable family (frfcfs, atlas,
+             parbs, tcm, bliss, squash_prio) stacked, reproduce the sha1
+             digests of tests/golden_policy_states.json (the stacked run
+             slice by slice); sms at the knob points {} and dash=True on
+             the folded step equals sms and sms_dash alone; each slice of
+             a stacked grid with period and value overrides equals its run
+             alone. Then the paper's 16 CPUs + 1 GPU on 4 channels of 8
+             banks (the buffer at SMS's entry parity, 134 entries) over 14
+             workloads and the 23 alone runs in one batch (W = 37), 1,000
+             warm-up and 4,000 measured cycles: the six stackable policies
+             in ONE stacked run on P*W = 222 rows, sms and sms_dash alone,
+             and frfcfs alone, which must equal its stacked slice. Every
+             result equals the same call on the CPU (a second process, run
+             alongside); the timed loops run under
+             torch.cuda.set_sync_debug_mode("error"). It prints WS, max
+             slowdown, cpuWS and gpuSU per policy, SMS's WS gain and
+             fairness over TCM beside the paper's Fig 4, slice-cycles/s on
+             the card and the CPU, and kernels per cycle and the device
+             idle share from a torch.profiler window.
 
 The kernel phase also holds K3 (mLSTM scan, csrc/mlstm_scan_sm90.cu: a
 scalar pass, the state entering each chunk, the outputs; 3xTF32 tensor-core
@@ -1237,7 +1247,9 @@ def phase_xlstm():
 # the simulator phase: the goldens' configuration (tests/test_policy_registry
 # and tests/golden_policy_states.json), then the paper's 16 CPUs + 1 GPU on
 # 4 memory channels (benchmarks/fig6_core_scaling.py: "paper: 4 MCs")
-SIM_POLICIES = ("frfcfs", "sms", "sms_dash")
+SIM_GOLDEN_POLICIES = ("frfcfs", "atlas", "parbs", "tcm", "sms", "sms_dash")
+SIM_SOLO = ("frfcfs", "sms", "sms_dash")      # the paper batch, one by one
+SIM_FAMILY = ("frfcfs", "atlas", "parbs", "tcm", "bliss", "squash_prio")
 SIM_GOLDEN_CFG = dict(n_cpu=3, n_gpu=1, n_channels=2, buf_entries=24,
                       fifo_size=5, dcs_size=3)
 SIM_GOLDEN_CYCLES = 1_500
@@ -1245,9 +1257,21 @@ SIM_GOLDEN_SCHED = {                 # keys that make the sched check real
     "sms": ("f_len", "f_row", "d_len", "d_src", "drain_left", "rr_bank"),
     "centralized": ("valid", "src", "bank", "row", "birth", "marked"),
 }
+# the grid checks, at the goldens' configuration: sms at two knob points on
+# the folded step; a stacked grid with period and value overrides (the
+# cpu_reserve override gives admission's per-row gpu_cap two values)
+SIM_GRID_WARMUP, SIM_GRID_CYCLES = 200, 600
+SIM_GRID_POINTS = ({}, {"dash": True})
+SIM_STACKED_GRID = (("atlas", {"atlas_epoch": 100, "atlas_alpha": 0.75}),
+                    ("frfcfs", {"cpu_reserve": 0.25}),
+                    ("bliss", {"bliss_clear_interval": 150}),
+                    ("tcm", {}))
 SIM_N_CPU, SIM_CHANNELS, SIM_PER_CAT = 16, 4, 2
 SIM_WARMUP, SIM_CYCLES = 1_000, 4_000
 SIM_PROFILE_CYCLES = 20
+# benchmarks/fig4_perf_fairness.py:25-30: SMS's WS gain over TCM and TCM's
+# max slowdown over SMS's, from the paper (8 CPUs, 2 channels, 16,000 cycles)
+SIM_FIG4_PAPER = "+41.2% / 4.8x"
 
 
 def _sim_golden_pool(cfg):
@@ -1304,25 +1328,74 @@ def _sim_batch():
     return cfg, wls, pool, both, np.concatenate([active, aactive]), amap
 
 
-def sim_cpu_worker(out_path, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
-    """The CPU half of the simulator phase, in a process of its own: the
-    goldens' runs and the paper configuration's runs, saved to `out_path`."""
+def _sim_golden_batch(gcfg):
+    pool = _sim_golden_pool(gcfg)
+    return ({k: v[None] for k, v in pool.items()},
+            np.ones((1, gcfg.n_src), bool))
+
+
+def _sim_small_runs(device):
+    """The goldens' configuration on `device`: every golden policy alone and
+    the stackable family stacked (raw final states), and the grid checks
+    (metrics). One flat dict of numpy arrays."""
     res = {}
     gcfg = SimConfig(**SIM_GOLDEN_CFG)
-    for pol in SIM_POLICIES:
-        trees = sim.simulate_debug(gcfg, pol, _sim_golden_pool(gcfg),
-                                   np.ones(gcfg.n_src, bool),
-                                   SIM_GOLDEN_CYCLES, device="cpu")
+    gpool, on = _sim_golden_pool(gcfg), np.ones(gcfg.n_src, bool)
+    for pol in SIM_GOLDEN_POLICIES:
+        trees = sim.simulate_debug(gcfg, pol, gpool, on, SIM_GOLDEN_CYCLES,
+                                   device=device)
         for part, tree in zip(("src", "sched", "dram"), trees):
             res.update({f"golden/{pol}/{part}/{k}": v
                         for k, v in tree.items()})
+    stacked = sim.simulate_debug_stacked(gcfg, SIM_FAMILY, gpool, on,
+                                         SIM_GOLDEN_CYCLES, device=device)
+    for pol, trees in stacked.items():
+        for part, tree in zip(("src", "sched", "dram"), trees):
+            res.update({f"gstack/{pol}/{part}/{k}": v
+                        for k, v in tree.items()})
+    batch, active = _sim_golden_batch(gcfg)
+    run = lambda c, pol: sim.simulate(c, pol, batch, active, SIM_GRID_CYCLES,
+                                      SIM_GRID_WARMUP, device=device)
+    runs = {"grid/sms": sim.simulate_grid(
+        gcfg, "sms", SIM_GRID_POINTS, batch, active, SIM_GRID_CYCLES,
+        SIM_GRID_WARMUP, device=device)}
+    runs["solo"] = [run(gcfg, pol) for pol in ("sms", "sms_dash")]
+    runs["sgrid"] = sim.simulate_stacked_grid(
+        gcfg, SIM_STACKED_GRID, batch, active, SIM_GRID_CYCLES,
+        SIM_GRID_WARMUP, device=device)
+    # each stacked-grid slice alone, its overrides baked into the config
+    runs["baked"] = [run(gcfg.replace(**ov), pol)
+                     for pol, ov in SIM_STACKED_GRID]
+    for name, slices in runs.items():
+        for i, m in enumerate(slices):
+            res.update({f"{name}/{i}/{k}": v for k, v in m.items()})
+    return res
+
+
+def _split_slices(metrics, names, W):
+    """Folded (P·W, ...) metrics as {slice name: (W, ...) numpy}."""
+    host = {k: v.cpu().numpy() for k, v in metrics.items()}
+    return {n: {k: v[i * W:(i + 1) * W] for k, v in host.items()}
+            for i, n in enumerate(names)}
+
+
+def sim_cpu_worker(out_path, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
+    """The CPU half of the simulator phase, in a process of its own: the
+    same calls as the card's, saved to `out_path`."""
+    res = _sim_small_runs("cpu")
     cfg, _, _, both, active, _ = _sim_batch()
-    for pol in SIM_POLICIES:
+    for pol in SIM_SOLO:
         t0 = time.perf_counter()
         m = sim.simulate(cfg, pol, both, active, cycles, warmup,
                          device="cpu")
         res[f"seconds/{pol}"] = np.float64(time.perf_counter() - t0)
         res.update({f"paper/{pol}/{k}": v for k, v in m.items()})
+    t0 = time.perf_counter()
+    stk = sim.simulate_stacked(cfg, SIM_FAMILY, both, active, cycles, warmup,
+                               device="cpu")
+    res["seconds/stacked"] = np.float64(time.perf_counter() - t0)
+    for pol, m in stk.items():
+        res.update({f"pstack/{pol}/{k}": v for k, v in m.items()})
     np.savez(out_path, **res)
 
 
@@ -1338,13 +1411,11 @@ def _sim_ws_maxsd(cfg, wls, pool, m, amap):
     return sim_met.aggregate(rows)
 
 
-def _sim_profile(cfg, pol, both, active):
+def _sim_profile(step, carry):
     """Kernels per simulated cycle (and the device's share of the wall time)
-    from a short torch.profiler window over the step on the card."""
+    from a short torch.profiler window over a prepared step on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    bcfg, step, carry = sim.prepare_run(cfg, pol, both, active,
-                                        device="cuda")
     for t in range(5):
         carry, _ = step(carry, t)
     torch.cuda.synchronize()
@@ -1371,12 +1442,79 @@ def _sim_profile(cfg, pol, both, active):
             "device_idle_share": 1.0 - busy_us / (1e6 * wall)}
 
 
+def _sim_timed(prep, cycles, warmup):
+    """Run a prepared (cfg, step, carry) under the sync check; (metrics,
+    seconds)."""
+    cfg, step, carry = prep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = sim._scan_and_measure(cfg, step, carry, cycles, warmup)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def _sim_same(a, b):
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _sim_check_goldens(golden, card):
+    """The card's goldens' runs against tests/golden_policy_states.json:
+    every golden policy alone, and the stacked family slice by slice."""
+    for prefix, pols in (("golden", SIM_GOLDEN_POLICIES),
+                         ("gstack", [p for p in SIM_FAMILY if p in golden])):
+        for pol in pols:
+            g = golden[pol]
+            essential = SIM_GOLDEN_SCHED[
+                "sms" if pol.startswith("sms") else "centralized"]
+            for part in ("src", "sched", "dram"):
+                pre = f"{prefix}/{pol}/{part}/"
+                new = _sim_digest({k[len(pre):]: v for k, v in card.items()
+                                   if k.startswith(pre)})
+                keys = set(g[part]) & set(new) if part == "sched" \
+                    else set(g[part])
+                if part == "sched" and not set(essential) <= keys:
+                    raise AssertionError(f"sim {prefix} {pol}: sched keys "
+                                         f"{sorted(keys)}")
+                bad = sorted(k for k in keys if new.get(k) != g[part][k])
+                if bad:
+                    raise AssertionError(f"sim {prefix} {pol} {part}: "
+                                         f"digests differ on card: {bad}")
+
+
+def _sim_check_grids(card):
+    """On one device: the sms grid's two points equal sms and sms_dash
+    alone, and each stacked-grid slice equals its own run alone with its
+    overrides baked into the config (all but the shared `sim_steps`)."""
+    def run(name, i):
+        pre = f"{name}/{i}/"
+        return {k[len(pre):]: v for k, v in card.items()
+                if k.startswith(pre)}
+    pairs = [(("grid/sms", i), ("solo", i), f"sms point {i}")
+             for i in range(len(SIM_GRID_POINTS))]
+    pairs += [(("sgrid", i), ("baked", i), f"stacked grid slice {i}")
+              for i in range(len(SIM_STACKED_GRID))]
+    for a, b, what in pairs:
+        got, want = run(*a), run(*b)
+        if not want or got.keys() != want.keys() or not all(
+                _sim_same(got[k], want[k]) for k in want
+                if k != "sim_steps"):
+            raise AssertionError(f"sim grid: {what} != its run alone")
+
+
 def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
-    """The cycle simulator (src/repro_torch/core): the goldens on the card,
-    then the paper's 16-core + 1-GPU, 4-channel system for frfcfs, sms and
-    sms_dash, every metric equal to the same run on the CPU (run alongside
-    in a second process). The timed loop runs under
-    torch.cuda.set_sync_debug_mode("error"): it never waits for the card."""
+    """The cycle simulator (src/repro_torch/core) on the card, every result
+    equal to the same call on the CPU (a second process, run alongside):
+    the goldens' configuration (every golden policy alone and the stackable
+    family stacked reproduce tests/golden_policy_states.json; the grid
+    checks); then the paper's 16-core + 1-GPU, 4-channel system: the six
+    stackable policies in ONE stacked run, sms and sms_dash alone, and
+    frfcfs alone, which must equal its stacked slice. The timed loops run
+    under torch.cuda.set_sync_debug_mode("error"): they never wait for the
+    card."""
     t_phase = time.perf_counter()
     out_dir = os.path.join(ROOT, "build", "sim")       # git-ignored
     os.makedirs(out_dir, exist_ok=True)
@@ -1389,105 +1527,125 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
         with open(os.path.join(ROOT, "tests",
                                "golden_policy_states.json")) as f:
             golden = json.load(f)
-        gcfg = SimConfig(**SIM_GOLDEN_CFG)
-        card_golden = {}
-        for pol in SIM_POLICIES:
-            trees = sim.simulate_debug(gcfg, pol, _sim_golden_pool(gcfg),
-                                       np.ones(gcfg.n_src, bool),
-                                       SIM_GOLDEN_CYCLES, device="cuda")
-            card_golden[pol] = trees
-            g = golden[pol]
-            essential = SIM_GOLDEN_SCHED[
-                "sms" if pol.startswith("sms") else "centralized"]
-            for part, tree in zip(("src", "sched", "dram"), trees):
-                new = _sim_digest(tree)
-                keys = set(g[part]) & set(new) if part == "sched" \
-                    else set(g[part])
-                if part == "sched" and not set(essential) <= keys:
-                    raise AssertionError(f"sim golden {pol}: sched keys "
-                                         f"{sorted(keys)}")
-                bad = sorted(k for k in keys if new.get(k) != g[part][k])
-                if bad:
-                    raise AssertionError(f"sim golden {pol} {part}: "
-                                         f"digests differ on card: {bad}")
-        print(f"[sim] goldens on the card: {', '.join(SIM_POLICIES)} at "
+        t_small = time.perf_counter()
+        card_small = _sim_small_runs("cuda")
+        _sim_check_goldens(golden, card_small)
+        _sim_check_grids(card_small)
+        t_small = time.perf_counter() - t_small
+        print(f"[sim] goldens on the card: {', '.join(SIM_GOLDEN_POLICIES)} "
+              f"alone and {', '.join(SIM_FAMILY)} stacked at "
               f"{SIM_GOLDEN_CYCLES} cycles reproduce every src, dram and "
-              f"sched digest of tests/golden_policy_states.json")
+              f"sched digest of tests/golden_policy_states.json (the "
+              f"stacked slices of every golden policy); sms at knob points "
+              f"{list(SIM_GRID_POINTS)} == sms, sms_dash alone; each slice "
+              f"of the stacked grid {[list(s) for s in SIM_STACKED_GRID]} "
+              f"== its run alone, overrides baked ({t_small:.1f} s)")
 
         cfg, wls, pool, both, active, amap = _sim_batch()
-        card, card_s = {}, {}
-        for pol in SIM_POLICIES:
-            bcfg, step, carry = sim.prepare_run(cfg, pol, both, active,
-                                                device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                m = sim._scan_and_measure(bcfg, step, carry, cycles,
-                                          warmup)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            card_s[pol] = time.perf_counter() - t0
+        W = active.shape[0]
+        card, card_s, prof = {}, {}, {}
+        for pol in SIM_SOLO:
+            m, card_s[pol] = _sim_timed(
+                sim.prepare_run(cfg, pol, both, active, device="cuda"),
+                cycles, warmup)
             card[pol] = {k: v.cpu().numpy() for k, v in m.items()}
-        prof = {pol: _sim_profile(cfg, pol, both, active)
-                for pol in SIM_POLICIES}
+        m, card_s["stacked"] = _sim_timed(
+            sim.prepare_stacked_run(cfg, SIM_FAMILY, both, active,
+                                    device="cuda"), cycles, warmup)
+        stacked = _split_slices(m, SIM_FAMILY, W)
+        for pol in SIM_SOLO:
+            _, step, carry = sim.prepare_run(cfg, pol, both, active,
+                                             device="cuda")
+            prof[pol] = _sim_profile(step, carry)
+        _, step, carry = sim.prepare_stacked_run(cfg, SIM_FAMILY, both,
+                                                 active, device="cuda")
+        prof["stacked"] = _sim_profile(step, carry)
         launched = {fn.__name__: fn.launches for fn in
                     (ops.paged_attention, fa_ops.flash_attention,
                      ml_ops.mlstm_scan)}
         if any(launched.values()):
             raise AssertionError(f"the simulator path launched {launched}")
+        for k, v in card["frfcfs"].items():
+            if not _sim_same(stacked["frfcfs"][k], v):
+                raise AssertionError(f"sim paper: stacked frfcfs {k} != "
+                                     f"frfcfs alone on the card")
 
         worker.wait(timeout=900)
         if worker.returncode != 0:
             raise AssertionError(f"sim CPU worker exit {worker.returncode}")
         cpu = np.load(out_path)
-        for pol in SIM_POLICIES:
-            for part, tree in zip(("src", "sched", "dram"),
-                                  card_golden[pol]):
-                for k, v in tree.items():
-                    want = cpu[f"golden/{pol}/{part}/{k}"]
-                    if v.dtype != want.dtype or not np.array_equal(v, want):
-                        raise AssertionError(f"sim golden {pol} {part}[{k}]:"
-                                             f" card != cpu")
-            for k, v in card[pol].items():
-                want = cpu[f"paper/{pol}/{k}"]
-                if v.dtype != want.dtype or not np.array_equal(v, want):
-                    raise AssertionError(f"sim paper {pol} {k}: card != cpu")
+        for k, v in card_small.items():
+            if not _sim_same(v, cpu[k]):
+                raise AssertionError(f"sim {k}: card != cpu")
+        for prefix, runs in (("paper", card), ("pstack", stacked)):
+            for pol, mets in runs.items():
+                for k, v in mets.items():
+                    if not _sim_same(v, cpu[f"{prefix}/{pol}/{k}"]):
+                        raise AssertionError(f"sim {prefix} {pol} {k}: "
+                                             f"card != cpu")
         n_cyc = warmup + cycles
-        W, S = active.shape
+        S = active.shape[1]
+        P = len(SIM_FAMILY)
         print(f"[sim] paper system: {SIM_N_CPU} CPUs + 1 GPU, "
               f"{cfg.n_channels} channels x {cfg.n_banks} banks, "
               f"{cfg.buf_entries} buffer entries per channel (SMS FIFO "
               f"{cfg.fifo_size}, DCS {cfg.dcs_size}); W={W} workloads "
               f"({len(wls)} shared + {W - len(wls)} alone) x S={S}, "
-              f"{warmup} warm-up + {cycles} measured cycles; every "
-              f"metric card == cpu; no sync in the timed loop; kernel "
-              f"launches on the path {json.dumps(launched)}")
+              f"{warmup} warm-up + {cycles} measured cycles; "
+              f"{', '.join(SIM_FAMILY)} in ONE stacked run on P*W = "
+              f"{P * W} rows, {', '.join(SIM_SOLO)} alone; every metric "
+              f"card == cpu; the stacked frfcfs slice == frfcfs alone; no "
+              f"sync in the timed loops; kernel launches on the path "
+              f"{json.dumps(launched)}")
         rec = {}
-        for pol in SIM_POLICIES:
-            a = _sim_ws_maxsd(cfg, wls, pool, card[pol], amap)
-            cpu_s = float(cpu[f"seconds/{pol}"])
+        results = {**stacked, **{p: card[p] for p in SIM_SOLO
+                                 if p != "frfcfs"}}
+        for pol in sim.ALL_POLICIES:
+            if pol not in results:
+                continue
+            a = _sim_ws_maxsd(cfg, wls, pool, results[pol], amap)
             rec[pol] = {"ws": a["weighted_speedup"],
                         "max_slowdown": a["max_slowdown"],
-                        "cycles_per_s_card": n_cyc / card_s[pol],
-                        "cycles_per_s_cpu": n_cyc / cpu_s,
-                        **prof[pol]}
-            print(f"[sim] {pol}: WS {a['weighted_speedup']:.4f}, max "
+                        "cpu_ws": a["cpu_weighted_speedup"],
+                        "gpu_su": a["gpu_speedup"],
+                        "run": "stacked" if pol in stacked else "alone"}
+            print(f"[sim] {pol:12s} WS {a['weighted_speedup']:.4f}, max "
                   f"slowdown {a['max_slowdown']:.4f}, cpuWS "
                   f"{a['cpu_weighted_speedup']:.4f}, gpuSU "
-                  f"{a['gpu_speedup']:.4f}; card {card_s[pol]:.2f} s = "
-                  f"{n_cyc / card_s[pol]:.1f} cycles/s, cpu {cpu_s:.2f} s = "
-                  f"{n_cyc / cpu_s:.1f} cycles/s (cpu run alongside); "
-                  f"{prof[pol]['kernels_per_cycle']:.1f} kernels, "
-                  f"{prof[pol]['memcpy_per_cycle']:.2f} copies "
-                  f"{prof[pol]['memcpy_kinds']}, "
-                  f"{prof[pol]['cudaLaunchKernel_per_cycle']:.1f} "
-                  f"cudaLaunchKernel per cycle; device "
-                  f"{prof[pol]['device_us_per_cycle']:.1f} us of "
-                  f"{prof[pol]['wall_us_per_cycle_profiled']:.1f} us per "
-                  f"profiled cycle (idle share "
-                  f"{prof[pol]['device_idle_share']:.3f}); {smi_line}")
+                  f"{a['gpu_speedup']:.4f} ({rec[pol]['run']})")
+        gain = rec["sms"]["ws"] / rec["tcm"]["ws"] - 1.0
+        fair = rec["tcm"]["max_slowdown"] / rec["sms"]["max_slowdown"]
+        rec["fig4"] = {"sms_ws_gain_over_tcm": gain,
+                       "tcm_maxsd_over_sms": fair}
+        print(f"[sim] fig4: SMS over TCM, WS {100 * gain:+.1f}%, max "
+              f"slowdown {fair:.2f}x (paper {SIM_FIG4_PAPER}; fig4 runs 8 "
+              f"CPUs on 2 channels for 16,000 cycles, this runs "
+              f"{SIM_N_CPU} CPUs on {cfg.n_channels} channels for "
+              f"{cycles:,})")
+        speed = {}
+        for name in SIM_SOLO + ("stacked",):
+            n = P if name == "stacked" else 1
+            cpu_s = float(cpu[f"seconds/{name}"])
+            speed[name] = {"slice_cycles_per_s_card": n * n_cyc
+                           / card_s[name],
+                           "slice_cycles_per_s_cpu": n * n_cyc / cpu_s,
+                           "seconds_card": card_s[name],
+                           "seconds_cpu": cpu_s, **prof[name]}
+            pr = prof[name]
+            print(f"[sim] {name}: {n} slice(s) x {n_cyc} cycles, card "
+                  f"{card_s[name]:.2f} s = "
+                  f"{speed[name]['slice_cycles_per_s_card']:.1f} "
+                  f"slice-cycles/s, cpu {cpu_s:.2f} s = "
+                  f"{speed[name]['slice_cycles_per_s_cpu']:.1f} (cpu run "
+                  f"alongside); {pr['kernels_per_cycle']:.1f} kernels, "
+                  f"{pr['memcpy_per_cycle']:.2f} copies "
+                  f"{pr['memcpy_kinds']}, "
+                  f"{pr['cudaLaunchKernel_per_cycle']:.1f} cudaLaunchKernel "
+                  f"per cycle; device {pr['device_us_per_cycle']:.1f} us of "
+                  f"{pr['wall_us_per_cycle_profiled']:.1f} us per profiled "
+                  f"cycle (idle share {pr['device_idle_share']:.3f}); "
+                  f"{smi_line}")
+        rec["speed"] = speed
         print(f"[sim] {json.dumps({'sim': rec})}")
         print(f"[sim] phase {time.perf_counter() - t_phase:.1f} s")
     finally:

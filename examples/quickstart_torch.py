@@ -4,8 +4,8 @@
       [--policies frfcfs,sms] [--cycles 8000] [--warmup 1000]
 
 The port of ``examples/quickstart.py``: the same configuration, workloads and
-cycle counts, and the same table, for the policies the port has (frfcfs,
-sms, sms_dash and the `Oldest` policy below). Every scheduler is a
+cycle counts, and the same table of nine rows (the eight built-in policies
+in the registry's order, then the `Oldest` policy below). Every scheduler is a
 `MemoryPolicy` object in the port's registry (`repro_torch.core.policy`);
 `Oldest` is a complete custom policy: subclass `CentralizedPolicy`, override
 `score`, decorate with `@policy.register`.

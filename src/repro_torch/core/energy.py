@@ -12,7 +12,7 @@ contract: no counter feeds back into eligibility, scoring or timing.
   * a wake-up penalty when a powered-down channel next issues.
 
 The closed-form accrual of a skipped span (`skip_accrue`) comes with the
-variable-step driver in slice B.
+variable-step driver in slice B2.
 """
 from __future__ import annotations
 

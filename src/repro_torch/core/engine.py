@@ -12,7 +12,7 @@ accumulators float32, as in the reference. The reference's uint32 streams
 masked to 32 bits after every multiply and add, and export as uint32.
 
 Skip witnesses (``next_*``, ``skip_sources``, ``lcg_skip``) come with the
-variable-step driver in slice B.
+variable-step driver in slice B2.
 """
 from __future__ import annotations
 
@@ -35,7 +35,17 @@ U32 = 0xFFFFFFFF
 # predate them)
 NCLASS_SRC_KEYS = ("frames_released",)
 # state keys holding uint32 streams (int64 here; uint32 on export)
-U32_KEYS = ("rng", "rng2")
+U32_KEYS = ("rng", "rng2", "sq_rng")
+
+
+def check_ported(cfg: SimConfig) -> None:
+    """Refuse the measurement subsystems the port does not have yet."""
+    if cfg.telemetry_enabled:
+        raise NotImplementedError(
+            "telemetry_enabled: the flight recorder comes with slice B2")
+    if cfg.validate_enabled:
+        raise NotImplementedError(
+            "validate_enabled: the invariant sanitizer comes with slice B2")
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,6 +123,26 @@ def accum_by_index(acc: torch.Tensor, idx: torch.Tensor, v, do: torch.Tensor
         & do[..., None]
     return acc + torch.sum(onehot.to(acc.dtype) * _lift(v, 1), dim=-2,
                            dtype=acc.dtype)
+
+
+def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """float32 `a * b + c` rounded once, as XLA contracts the reference's
+    multiply-adds (`energy_bg`, ATLAS's decay). a, c: float32; b: a Python
+    float holding a float32 value. The product is exact in float64 (24 x 24
+    bits); the sum is rounded to odd (TwoSum gives its error; an inexact
+    sum with an even last bit moves one ulp toward the exact value), and
+    53 >= 24 + 2 bits makes the one rounding to float32 that follows the
+    correctly rounded fused result, on any device."""
+    b = float(np.float32(b))
+    p = a.to(torch.float64) * b
+    c = c.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

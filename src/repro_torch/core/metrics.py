@@ -2,7 +2,7 @@
 per-class QoS (deadline-met rate, tail latency, class-masked fairness).
 
 A numpy copy of ``repro/core/metrics.py``. `timeline_breakdown` reads the
-flight recorder and comes with it in slice B."""
+flight recorder and comes with it in slice B2."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple

@@ -102,11 +102,11 @@ class SimConfig:
     energy_pd_idle: int = 48         # all-banks-idle cycles before power-down
     # per-source request-latency histogram (core.qos): measurement-only
     qos_enabled: bool = True
-    # invariant sanitizer: not ported yet (slice B); must stay off
+    # invariant sanitizer: not ported yet (slice B2); must stay off
     validate_enabled: bool = False
     lat_bins: int = 32               # histogram bins per source
     lat_bin_width: int = 64          # cycles per bin (last bin open-ended)
-    # flight recorder: not ported yet (slice B); must stay off
+    # flight recorder: not ported yet (slice B2); must stay off
     telemetry_enabled: bool = False
     telemetry_window: int = 32
     telemetry_epoch: int = 256
@@ -272,6 +272,54 @@ def bind(cfg: SimConfig, knobs: Knobs) -> BoundConfig:
     if isinstance(cfg, BoundConfig):
         cfg = cfg.base
     return BoundConfig(cfg, knobs)
+
+
+class RowConfig:
+    """The config that the shared work of a folded step reads (the engine
+    half of the cycle, run once over every slice's rows): the static fields
+    of `cfg`, and the only two value knobs that work touches, admission's
+    `gpu_cap` and the power-down threshold `energy_pd_idle`, one value per
+    row as an (R, 1) tensor. Reading any other value knob raises: those are per slice, and each
+    slice's hooks read them from their own `BoundConfig`."""
+
+    __slots__ = ("_cfg", "gpu_cap", "energy_pd_idle")
+
+    def __init__(self, cfg: SimConfig, gpu_cap, energy_pd_idle):
+        object.__setattr__(self, "_cfg", cfg)
+        object.__setattr__(self, "gpu_cap", gpu_cap)
+        object.__setattr__(self, "energy_pd_idle", energy_pd_idle)
+
+    def __setattr__(self, name, value):
+        raise AttributeError("RowConfig is read-only")
+
+    def __getattr__(self, name):
+        if name in _KNOB_SET:
+            raise AttributeError(
+                f"value knob {name!r} differs per slice; the shared work "
+                f"of a folded step reads only gpu_cap and energy_pd_idle")
+        return getattr(self._cfg, name)
+
+
+def row_config(cfg: SimConfig, bound, W: int, device) -> RowConfig:
+    """The shared-work config of slices `bound` (their `BoundConfig`s), W
+    rows each, policy-major: each knob an (len(bound)·W, 1) int32 device
+    tensor, made here once, so no later cycle copies it to the device."""
+    if isinstance(cfg, BoundConfig):
+        cfg = cfg.base
+
+    def col(vals):
+        return torch.tensor(vals, dtype=torch.int32).repeat_interleave(
+            W)[:, None].to(device)
+
+    return RowConfig(cfg, col([b.gpu_cap for b in bound]),
+                     col([b.energy_pd_idle for b in bound]))
+
+
+def knob_points(cfg: SimConfig, points) -> list:
+    """A sequence of knob points (value-knob override dicts or `Knobs`) as
+    `Knobs`, one per grid slice."""
+    return [Knobs.from_cfg(cfg, **pt) if isinstance(pt, dict) else pt
+            for pt in points]
 
 
 @dataclass(frozen=True)

@@ -17,15 +17,19 @@ policy object the registry hands back. `t` is a Python int.
 
 `Registry` itself is domain-agnostic; `repro_torch.serving.scheduler` uses a
 second instance, so the serving engine and the cycle sim enumerate policies
-the same way. The stacked cross-policy path and the variable-step witnesses
-(`is_stackable`, `make_skip_step`) come with slice B.
+the same way. `is_stackable` says which policies join the stacked
+cross-policy step (`schedulers.make_stacked_step`); `make_folded_step` runs
+knob points of any other policy the same folded way. The variable-step
+witnesses (`make_skip_step`) come with slice B2.
 """
 from __future__ import annotations
 
 from typing import (Any, Callable, Dict, Iterator, Optional, Protocol,
                     Tuple)
 
-from repro_torch.core import energy, engine
+import torch
+
+from repro_torch.core import energy, engine, params, schedulers
 from repro_torch.core.params import Knobs, SimConfig
 
 
@@ -144,16 +148,29 @@ def resolve_knobs(cfg: SimConfig, pol, knobs: Optional[Knobs] = None
     return ck(kn) if ck is not None else kn
 
 
+def is_stackable(name: str, cfg: SimConfig) -> bool:
+    """True if `name` opts into the stacked cross-policy step: the policy
+    declares `stackable`, its `configure` leaves cfg untouched and its
+    `configure_knobs` is the identity at this config. Stacked slices share
+    one static config and, by default, cfg's knob point, so a policy that
+    pins either (sms_dash's dash=True) runs on its own."""
+    pol = get(name)
+    if not getattr(pol, "stackable", False) or pol.configure(cfg) != cfg:
+        return False
+    ck = getattr(pol, "configure_knobs", None)
+    if ck is None:
+        return True
+    base = Knobs.from_cfg(cfg)
+    resolved = ck(base)
+    return all(torch.equal(getattr(resolved, f), getattr(base, f))
+               for f in params.KNOB_FIELDS)
+
+
 def make_step(cfg: SimConfig, pol: MemoryPolicy, pool, active):
     """One simulator cycle for every workload of the batch, generic over the
     policy object. `pool`/`active` are read-only (W, S) tensors closed over
     here; the carry holds only cycle-varying state."""
-    if cfg.telemetry_enabled:
-        raise NotImplementedError(
-            "telemetry_enabled: the flight recorder comes with slice B")
-    if cfg.validate_enabled:
-        raise NotImplementedError(
-            "validate_enabled: the invariant sanitizer comes with slice B")
+    engine.check_ported(cfg)
 
     def step(carry, t: int):
         st, sched, dram = carry
@@ -163,6 +180,42 @@ def make_step(cfg: SimConfig, pol: MemoryPolicy, pool, active):
         st = engine.source_tick(cfg, pool, st, active, t)
         st, sched = pol.tick(cfg, pool, st, sched, t)
         st, sched, dram = pol.select(cfg, pool, st, sched, dram, t)
+        return (st, sched, dram), None
+
+    return step
+
+
+def make_folded_step(cfg: SimConfig, pol: MemoryPolicy, pool, active, cfgs,
+                     row_cfg):
+    """One cycle for V knob points of one policy folded into V·W rows, for
+    a policy outside the stacked family (sms): the engine work runs once
+    over every row; the policy's `tick` and `select` run per slice, on row
+    views of the state, with the unrepeated (W, S) pool and the slice's
+    own bound config `cfgs[i]`. `row_cfg` serves the shared work's two
+    value knobs (`params.row_config`). Only tensors some slice replaced
+    are re-concatenated."""
+    engine.check_ported(cfg)
+    V, W = len(cfgs), active.shape[0]
+    rpool, ractive = schedulers.shared_inputs(pool, active, V)
+    views = lambda tree: schedulers.row_views(tree, V, W)
+    merge = schedulers.merge_rows
+
+    def step(carry, t: int):
+        st, sched, dram = carry
+        st, dram = engine.completions_tick(st, dram, t)
+        dram = energy.background_tick(row_cfg, dram, t)
+        st = engine.deadline_tick(cfg, rpool, st, t)
+        st = engine.source_tick(cfg, rpool, st, ractive, t)
+        sv, cv = views(st), views(sched)
+        new = [pol.tick(cfgs[i], pool, sv[i], cv[i], t) for i in range(V)]
+        st = merge(st, sv, [n[0] for n in new], st.keys())
+        sched = merge(sched, cv, [n[1] for n in new], sched.keys())
+        sv, cv, dv = views(st), views(sched), views(dram)
+        new = [pol.select(cfgs[i], pool, sv[i], cv[i], dv[i], t)
+               for i in range(V)]
+        st = merge(st, sv, [n[0] for n in new], st.keys())
+        sched = merge(sched, cv, [n[1] for n in new], sched.keys())
+        dram = merge(dram, dv, [n[2] for n in new], dram.keys())
         return (st, sched, dram), None
 
     return step

@@ -21,16 +21,18 @@ Scores are lexicographic integers:
 
     [policy bits 22+] [rank 15..20] [row-hit 14] [age 0..13]
 
-The stacked cross-policy step and the skip witnesses (`next_admission`,
-`next_issue_ready`) come with slice B.
+The stacked cross-policy step (`make_stacked_step`) folds a family of P
+policies into the leading row axis, policy-major: P·W rows, slice i on rows
+[i·W, (i+1)·W). The skip witnesses (`next_admission`, `next_issue_ready`)
+come with slice B2.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import energy, engine
 from repro_torch.core.params import SimConfig
 
 AGE_CAP = (1 << 14) - 1
@@ -118,6 +120,19 @@ class CentralizedPolicy:
 
     # keys `boundary_tick` may WRITE (everything else is read-only there)
     boundary_keys: tuple = ()
+
+    # -- cross-policy stacking contract (see `make_stacked_step`) -----------
+    # A stackable policy runs with its state padded to the family union
+    # schema (sibling keys present but zero) and with `configure` leaving
+    # cfg untouched. Opt out with `stackable = False`.
+    stackable: bool = True
+    # buf keys the tick-side hooks (on_admit/pre_tick/boundary_tick/
+    # policy_tick) may WRITE; None = `boundary_keys`. The stacked step
+    # re-concatenates only the union of these across the family: an
+    # undeclared write is dropped on the stacked path.
+    stacked_tick_keys: tuple = None
+    # buf keys `on_issue` may WRITE (default: none).
+    stacked_issue_keys: tuple = ()
 
     # -- per-policy hooks --------------------------------------------------
     def extra_state(self, cfg: SimConfig, W: int, device) -> Dict[str, Any]:
@@ -236,3 +251,125 @@ def clear_picked(cfg: SimConfig, pool, buf, do, pick, src):
         (do & torch.gather(pool["is_gpu"], -1, src.to(torch.int64))
          ).to(torch.int32)
     return buf
+
+
+# ---------------------------------------------------------------------------
+# Stacked cross-policy execution: a family of P centralized policies (or V
+# knob points of one) in one step over P·W rows.
+#
+# The policies share the buffer layout and the engine half of the cycle and
+# differ only in their hooks. So every policy's state is padded to the union
+# schema and folded into the leading row axis, policy-major; per cycle the
+# policy-independent work (completions, background energy, deadlines,
+# sources, admission, eligibility, issue, clear) runs ONCE over all rows,
+# while `admit_key`, `tick_hooks`, `score` and `on_issue` run per slice on
+# row views with the unrepeated (W, S) pool and the slice's own bound
+# config. Only the declared write-sets are re-concatenated.
+# ---------------------------------------------------------------------------
+
+
+def stacked_union_state(cfg: SimConfig, pols, W: int, device
+                        ) -> List[Dict[str, Any]]:
+    """Per-policy init states ((W, ...) tensors) padded to the family union
+    schema: the same keys, shapes and dtypes in every dict. A key claimed by
+    two policies with a different shape or dtype is a schema collision and
+    refuses to stack."""
+    states = [p.init_state(cfg, W, device) for p in pols]
+    union: Dict[str, Any] = {}
+    owner: Dict[str, str] = {}
+    for p, s in zip(pols, states):
+        for k, v in s.items():
+            if k in union:
+                u = union[k]
+                if u.shape != v.shape or u.dtype != v.dtype:
+                    raise ValueError(
+                        f"stacked schema collision on {k!r}: "
+                        f"{owner[k]} has {tuple(u.shape)}/{u.dtype}, "
+                        f"{p.name} has {tuple(v.shape)}/{v.dtype}")
+            else:
+                union[k] = torch.zeros_like(v)
+                owner[k] = p.name
+    return [{**union, **s} for s in states]
+
+
+def fold_rows(trees) -> Dict[str, torch.Tensor]:
+    """Concatenate per-slice (W, ...) trees along the row axis."""
+    return {k: torch.cat([t[k] for t in trees]) for k in trees[0]}
+
+
+def row_views(tree: Dict[str, torch.Tensor], P: int, W: int) -> list:
+    """The P slices of a folded tree, as views of rows [i·W, (i+1)·W)."""
+    parts = {k: v.split(W) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(P)]
+
+
+def merge_rows(tree, views, news, keys) -> Dict[str, torch.Tensor]:
+    """`tree` with each of `keys` re-concatenated from the slices' results;
+    a key every slice returned untouched (its own view) keeps its tensor."""
+    out = dict(tree)
+    for k in keys:
+        parts = [n[k] for n in news]
+        if any(p is not v[k] for p, v in zip(parts, views)):
+            out[k] = torch.cat(parts)
+    return out
+
+
+def shared_inputs(pool, active, P: int):
+    """The pool and the active mask repeated P times along the rows, made
+    once on the device (the shared work reads them; hooks get `pool`)."""
+    return ({k: v.repeat(P, 1) for k, v in pool.items()},
+            active.repeat(P, 1))
+
+
+def make_stacked_step(cfg: SimConfig, pols, pool, active, cfgs, row_cfg):
+    """One simulator cycle for P stacked centralized policies over P·W rows.
+
+    `pool`/`active` are the unrepeated (W, S) tensors. `cfgs` are the
+    slices' own config views (bound knob points, period overrides) for the
+    per-slice hooks; `row_cfg` serves the shared work, with per-row values
+    of the two value knobs it reads, admission's `gpu_cap` and the
+    power-down `energy_pd_idle` (`params.row_config`).
+    """
+    engine.check_ported(cfg)
+    P = len(pols)
+    W = active.shape[0]
+    rpool, ractive = shared_inputs(pool, active, P)
+    tick_union = sorted(set().union(*(
+        p.stacked_tick_keys if p.stacked_tick_keys is not None
+        else p.boundary_keys for p in pols)))
+    issue_union = sorted(set().union(*(p.stacked_issue_keys for p in pols)))
+    split = lambda x: x.split(W)
+
+    def step(carry, t: int):
+        st, buf, dram = carry
+        st, dram = engine.completions_tick(st, dram, t)
+        dram = energy.background_tick(row_cfg, dram, t)
+        st = engine.deadline_tick(cfg, rpool, st, t)
+        st = engine.source_tick(cfg, rpool, st, ractive, t)
+        # admission: each slice's key, one merged admit
+        sv, bv = row_views(st, P, W), row_views(buf, P, W)
+        key = torch.cat([p.admit_key(cfgs[i], pool, sv[i], bv[i], t)
+                         for i, p in enumerate(pols)])
+        st, buf, do, slot, src = admit(row_cfg, rpool, st, buf, t, key=key)
+        sv, bv = row_views(st, P, W), row_views(buf, P, W)
+        do_, slot_, src_ = split(do), split(slot), split(src)
+        new = [p.tick_hooks(cfgs[i], pool, sv[i], bv[i], do_[i], slot_[i],
+                            src_[i], t) for i, p in enumerate(pols)]
+        buf = merge_rows(buf, bv, new, tick_union)
+        # selection: merged eligibility/issue, per-slice score + on_issue
+        elig, lat, is_hit = eligibility_grid(cfg, buf, dram, t)
+        bv, hit_ = row_views(buf, P, W), split(is_hit)
+        score = torch.cat([p.score(cfgs[i], pool, bv[i], hit_[i], t)
+                           for i, p in enumerate(pols)])
+        score = torch.where(elig, score, -1)
+        st, dram, do, pick, src = issue_picked(cfg, st, buf, dram, score,
+                                               lat, is_hit, t)
+        if issue_union:
+            do_, pick_, src_ = split(do), split(pick), split(src)
+            new = [p.on_issue(cfgs[i], pool, bv[i], do_[i], pick_[i],
+                              src_[i], t) for i, p in enumerate(pols)]
+            buf = merge_rows(buf, bv, new, issue_union)
+        buf = clear_picked(cfg, rpool, buf, do, pick, src)
+        return (st, buf, dram), None
+
+    return step

@@ -7,16 +7,22 @@ delta-measured after a warm-up. Every state tensor carries the workload
 axis W in front (the reference vmaps one workload's step instead), and the
 cycle counter is a Python int.
 
+The stacked and grid drivers (``simulate_stacked``, ``simulate_grid``,
+``simulate_stacked_grid``, ``simulate_debug_stacked``) fold their slices
+(policies, knob points, or both) into that leading axis, policy-major:
+P slices of W workloads are P·W rows of one run, each slice equal to its
+solo run (`schedulers.make_stacked_step`, `policy.make_folded_step`).
+
 The entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise. Policies resolve by name
 through `repro_torch.core.policy.POLICY_REGISTRY`.
 
-Not ported yet (slice B): the variable-step driver (``skip=True``), the
-knob-grid and stacked drivers, the sanitizer and the flight recorder.
+Not ported yet (slice B2): the variable-step driver (``skip=True``), the
+sanitizer and the flight recorder.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +30,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core import params
 from repro_torch.core import policy as policy_api
+from repro_torch.core import schedulers
 from repro_torch.core.params import SimConfig
 
 _SNAP_KEYS = ("insts_done", "emitted", "completed", "sum_lat", "dl_met",
@@ -61,7 +68,7 @@ def resolve_device(device=None) -> torch.device:
 def _check_skip(skip) -> None:
     if skip:
         raise NotImplementedError(
-            "skip=True: the variable-step driver comes with slice B")
+            "skip=True: the variable-step driver comes with slice B2")
 
 
 def _init(cfg: SimConfig, policy: str, W: int, device):
@@ -140,23 +147,16 @@ def _scan_and_measure(cfg: SimConfig, step, carry, n_cycles: int,
         out.update({
             "energy_act": d("e_act"),
             "energy_rw": d("e_rw"),
-            "energy_bg": _fma(_sum_channels(d("sb_cycles")),
-                              cfg.energy_standby,
-                              _sum_channels(d("pd_cycles"))
-                              * float(np.float32(cfg.energy_pd))),
+            # sb * standby + pd * pd_power, contracted by XLA into one
+            # multiply-add
+            "energy_bg": engine.fma_f32(
+                _sum_channels(d("sb_cycles")), cfg.energy_standby,
+                _sum_channels(d("pd_cycles"))
+                * float(np.float32(cfg.energy_pd))),
             "energy_wake": _sum_channels(d("e_wake")),
             "pd_cycles": _sum_channels(d("pd_cycles")),
         })
     return out
-
-
-def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
-    """f32 a * b + c with one rounding, as XLA contracts the reference's
-    `energy_bg` (sb * standby + pd * pd_power). Exact through float64: a is
-    a cycle count (integer-valued, < 2^24), b and c float32, so a * b + c
-    fits a double's mantissa and only the final cast rounds."""
-    b = float(np.float32(b))
-    return (a.to(torch.float64) * b + c.to(torch.float64)).to(torch.float32)
 
 
 def _sum_channels(x: torch.Tensor) -> torch.Tensor:
@@ -245,15 +245,19 @@ def prepare_pool(pool: Dict[str, Any], shape, device=None
     return out
 
 
+def _pool_and_active(pool_batch, active_batch, dev):
+    active = _host(active_batch)
+    pool = prepare_pool(pool_batch, active.shape, dev)
+    return pool, torch.as_tensor(active.astype(bool)).to(dev)
+
+
 def prepare_run(cfg: SimConfig, policy: str, pool_batch: Dict[str, Any],
                 active_batch, *, device=None):
     """(bound cfg, step, carry) of a batched run, nothing simulated yet: the
     pool and the zero state on the device. Every host-to-device copy of a
     run happens here; the cycle loop that follows makes none."""
     dev = resolve_device(device)
-    active = _host(active_batch)
-    pool = prepare_pool(pool_batch, active.shape, dev)
-    active = torch.as_tensor(active.astype(bool)).to(dev)
+    pool, active = _pool_and_active(pool_batch, active_batch, dev)
     cfg, pol, carry = _init(cfg, policy, active.shape[0], dev)
     return cfg, policy_api.make_step(cfg, pol, pool, active), carry
 
@@ -300,6 +304,173 @@ def simulate_debug(cfg: SimConfig, policy: str, pool: Dict[str, Any],
     carry = _run_cycles(step, carry, 0, n_cycles)
     return tuple({k: v[0] for k, v in _export_state(tree).items()}
                  for tree in carry)
+
+
+# ---------------------------------------------------------------------------
+# folded drivers: P slices (policies, knob points, or both) as P·W rows of
+# one run. Each slice equals its solo run in every metric; `sim_steps` is
+# the family's (every cycle, ticked).
+# ---------------------------------------------------------------------------
+
+def stackable_names(cfg: SimConfig, policies=None) -> Tuple[str, ...]:
+    """The subset of `policies` (default: the whole registry) that joins the
+    stacked cross-policy step under this config."""
+    names = policy_api.names() if policies is None else policies
+    return tuple(n for n in names if policy_api.is_stackable(n, cfg))
+
+
+def _grid_slices(cfg: SimConfig, slices):
+    """Slices (a policy name, or (name, overrides) mixing period-like and
+    value-like knobs) as (names, per-slice configs with the period
+    overrides, per-slice bound views)."""
+    names, cfgs, bound = [], [], []
+    for sl in slices:
+        name, ov = (sl, {}) if isinstance(sl, str) else sl
+        per, val = params.split_overrides(dict(ov))
+        c = cfg.replace(**per)
+        kn = params.Knobs.from_cfg(cfg, **val)
+        names.append(name)
+        cfgs.append(c)
+        bound.append(params.bind(c, policy_api.resolve_knobs(
+            c, policy_api.get(name), kn)))
+    return names, cfgs, bound
+
+
+def _fold(cfg: SimConfig, pols, W: int, dev):
+    """The folded zero carry: the slices' scheduler states padded to the
+    union schema, policy-major, beside P·W rows of engine state."""
+    bufs = schedulers.stacked_union_state(cfg, pols, W, dev)
+    R = len(pols) * W
+    return (engine.source_state(cfg, R, dev), schedulers.fold_rows(bufs),
+            engine.dram_state(cfg, R, dev))
+
+
+def prepare_stacked_run(cfg: SimConfig, slices, pool_batch: Dict[str, Any],
+                        active_batch, *, device=None):
+    """(cfg, step, carry) of a stacked run over `slices` (policy names, or
+    (name, overrides) pairs; policies may repeat), nothing simulated yet.
+    Every slice must be stackable under its config."""
+    dev = resolve_device(device)
+    pool, active = _pool_and_active(pool_batch, active_batch, dev)
+    W = active.shape[0]
+    names, cfgs, bound = _grid_slices(cfg, slices)
+    bad = [n for n, c in zip(names, cfgs)
+           if not policy_api.is_stackable(n, c)]
+    if bad:
+        raise ValueError(f"not stackable under this config: {bad}")
+    pols = [policy_api.get(n) for n in names]
+    # period overrides never touch a shape: one union schema for the family
+    carry = _fold(cfg, pols, W, dev)
+    step = schedulers.make_stacked_step(
+        cfg, pols, pool, active, bound, params.row_config(cfg, bound, W, dev))
+    return cfg, step, carry
+
+
+def prepare_grid_run(cfg: SimConfig, policy: str, points,
+                     pool_batch: Dict[str, Any], active_batch, *,
+                     device=None):
+    """(cfg, step, carry) of one policy at V knob points (value-knob
+    override dicts or `Knobs`), nothing simulated yet. A stackable
+    centralized policy takes the stacked step with V slices of itself; any
+    other (sms) the folded step, its `tick` and `select` per slice."""
+    dev = resolve_device(device)
+    pool, active = _pool_and_active(pool_batch, active_batch, dev)
+    W = active.shape[0]
+    pol = policy_api.get(policy)
+    cfg = pol.configure(cfg)
+    bound = [params.bind(cfg, policy_api.resolve_knobs(cfg, pol, kn))
+             for kn in params.knob_points(cfg, points)]
+    V = len(bound)
+    row_cfg = params.row_config(cfg, bound, W, dev)
+    if isinstance(pol, schedulers.CentralizedPolicy) and pol.stackable:
+        step = schedulers.make_stacked_step(cfg, [pol] * V, pool, active,
+                                            bound, row_cfg)
+    else:
+        step = policy_api.make_folded_step(cfg, pol, pool, active, bound,
+                                           row_cfg)
+    return cfg, step, _fold(cfg, [pol] * V, W, dev)
+
+
+def _measure_slices(cfg, step, carry, n, n_cycles, warmup, W) -> list:
+    """Run and measure a folded run; per-slice (W, ...) numpy metrics."""
+    out = _scan_and_measure(cfg, step, carry, n_cycles, warmup)
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    return [{k: v[i * W:(i + 1) * W] for k, v in host.items()}
+            for i in range(n)]
+
+
+def simulate_stacked(cfg: SimConfig, policies, pool_batch: Dict[str, Any],
+                     active_batch, n_cycles: int = 20_000,
+                     warmup: int = 2_000, skip: bool = None, *,
+                     device=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """Per-policy (W, ...) metrics of a stacked family, keyed by name. Each
+    slice equals the policy's own `simulate` run; `sim_steps` is the
+    family's."""
+    policies = tuple(policies)
+    return dict(zip(policies, simulate_stacked_grid(
+        cfg, policies, pool_batch, active_batch, n_cycles, warmup, skip,
+        device=device)))
+
+
+def simulate_grid(cfg: SimConfig, policy: str, points,
+                  pool_batch: Dict[str, Any], active_batch,
+                  n_cycles: int = 20_000, warmup: int = 2_000,
+                  skip: bool = None, *, device=None) -> list:
+    """Per-point (W, ...) metric dicts of one policy at the knob `points`
+    (value-knob override dicts or `Knobs`), parallel to `points`. Each
+    equals a `simulate` run with the same values baked into SimConfig;
+    period-like knobs are refused here (see `simulate_stacked_grid`)."""
+    _check_skip(skip)
+    points = list(points)
+    cfg, step, carry = prepare_grid_run(cfg, policy, points, pool_batch,
+                                        active_batch, device=device)
+    W = _host(active_batch).shape[0]
+    return _measure_slices(cfg, step, carry, len(points), n_cycles, warmup,
+                           W)
+
+
+def simulate_stacked_grid(cfg: SimConfig, slices,
+                          pool_batch: Dict[str, Any], active_batch,
+                          n_cycles: int = 20_000, warmup: int = 2_000,
+                          skip: bool = None, *, device=None) -> list:
+    """Per-slice (W, ...) metric dicts of a (policy x knob point) grid,
+    parallel to `slices`: policy names or (policy, overrides) pairs, the
+    overrides mixing value-like knobs and period-like ones (each slice's
+    hooks keep their own period as a Python int). Policies may repeat. Each
+    slice equals a solo `simulate` run with its overrides baked into
+    SimConfig, but for the family's `sim_steps`."""
+    _check_skip(skip)
+    slices = list(slices)
+    cfg, step, carry = prepare_stacked_run(cfg, slices, pool_batch,
+                                           active_batch, device=device)
+    W = _host(active_batch).shape[0]
+    return _measure_slices(cfg, step, carry, len(slices), n_cycles, warmup,
+                           W)
+
+
+def simulate_debug_stacked(cfg: SimConfig, policies, pool: Dict[str, Any],
+                           active, n_cycles: int = 2_000, skip: bool = None,
+                           *, device=None):
+    """Stacked analog of `simulate_debug`: one workload, the family stacked.
+
+    Returns {policy: (src_state, sched_state, dram_state)} numpy trees in
+    the reference's dtypes: each policy's slice of the final stacked state,
+    its scheduler state restricted to the policy's own (unpadded) keys.
+    """
+    _check_skip(skip)
+    policies = tuple(policies)
+    dev = resolve_device(device)
+    _check_pool(pool, (cfg.n_src,))
+    batch = {k: _host(v)[None] for k, v in pool.items()}
+    cfg, step, carry = prepare_stacked_run(
+        cfg, policies, batch, _host(active).astype(bool)[None], device=dev)
+    carry = _run_cycles(step, carry, 0, n_cycles)
+    st_f, sched_f, dram_f = (_export_state(tree) for tree in carry)
+    own = [set(policy_api.get(p).init_state(cfg, 1, dev)) for p in policies]
+    take = lambda tree, i, keys=None: {
+        k: v[i] for k, v in tree.items() if keys is None or k in keys}
+    return {pol: (take(st_f, i), take(sched_f, i, own[i]), take(dram_f, i))
+            for i, pol in enumerate(policies)}
 
 
 def perf_vector(cfg: SimConfig, metrics: Dict[str, np.ndarray],

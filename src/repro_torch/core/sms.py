@@ -13,7 +13,7 @@ decoupled stages, all simple FIFOs:
 
 Stages 1+2 form the registered policy's `tick`, stage 3 its `select`. The
 stage-2 rng (`rng2`) is a uint32 LCG held in int64, like the source rng.
-The skip witnesses and the sanitizer hooks come with slice B.
+The skip witnesses and the sanitizer hooks come with slice B2.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 `tests/golden_policy_states.json` holds per-key sha1 digests of the
 reference's `simulate_debug` final raw state (dtype, shape, bytes). The
 port's `simulate_debug` (its batched path at W = 1, exported to the
-reference dtypes) must reproduce them for the policies it has; the energy
+reference dtypes) must reproduce them for every policy they hold; the energy
 and qos counters, which the goldens predate, must equal a live reference
 run array for array.
 """
@@ -28,7 +28,7 @@ KW = dict(n_cpu=3, n_gpu=1, n_channels=2, buf_entries=24, fifo_size=5,
           dcs_size=3)
 CFG = SimConfig(**KW)
 N_CYCLES = 1_500
-PORTED = ("frfcfs", "sms", "sms_dash")
+PORTED = ("frfcfs", "atlas", "parbs", "tcm", "sms", "sms_dash")
 ESSENTIAL_SCHED = {
     "sms": ("f_len", "f_row", "d_len", "d_src", "drain_left", "rr_bank"),
     "centralized": ("valid", "src", "bank", "row", "birth", "marked"),

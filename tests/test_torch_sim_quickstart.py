@@ -19,6 +19,8 @@ from repro_torch.core import policy as tpolicy  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 N_CYCLES, WARMUP = 300, 100
+ROWS = ("frfcfs", "atlas", "parbs", "tcm", "sms", "sms_dash", "bliss",
+        "squash_prio", "oldest")
 
 
 def _load(name, path):
@@ -69,10 +71,12 @@ def test_same_configuration_and_policies(examples):
     port, _ = examples
     assert port.CFG.replace() == port.SimConfig(
         n_cpu=4, n_channels=2, buf_entries=72, fifo_size=8, dcs_size=4)
-    assert tpolicy.names() == ("frfcfs", "sms", "sms_dash", "oldest")
+    # the reference quickstart's nine rows, in the reference's order
+    assert tpolicy.names() == ROWS
+    assert tpolicy.names() == jpolicy.names()
 
 
-@pytest.mark.parametrize("pol", ["frfcfs", "sms", "sms_dash", "oldest"])
+@pytest.mark.parametrize("pol", ROWS)
 def test_printed_row_equals_the_reference_row(examples, pol, capsys):
     port, ref = examples
     out = port.main(["--device", "cpu", "--policies", pol,

@@ -110,16 +110,22 @@ def test_prepare_pool_completes_the_schema():
 
 
 def test_registry_enumerations():
-    assert tpolicy.baseline_names()[:2] == ("frfcfs", "sms")
+    # the reference's registration order, which is every sweep's order
+    assert tpolicy.baseline_names()[:7] == (
+        "frfcfs", "atlas", "parbs", "tcm", "sms", "bliss", "squash_prio")
+    assert tpolicy.names()[:8] == (
+        "frfcfs", "atlas", "parbs", "tcm", "sms", "sms_dash", "bliss",
+        "squash_prio")
+    from repro.core import policy as jpolicy
+    assert tpolicy.names()[:8] == jpolicy.names()[:8]
     assert tsim.POLICIES == tpolicy.baseline_names()
     assert tsim.ALL_POLICIES == tpolicy.names()
-    assert {"frfcfs", "sms", "sms_dash"} <= set(tsim.ALL_POLICIES)
     assert tpolicy.get("sms_dash").variant_of == "sms"
     assert "sms_dash" not in tsim.POLICIES
     with pytest.raises(ValueError, match="duplicate"):
         tpolicy.POLICY_REGISTRY.register("sms")(object())
     with pytest.raises(KeyError, match="unknown memory policy"):
-        tpolicy.get("atlas-not-ported")
+        tpolicy.get("atlas-not-registered")
     kn = tpolicy.resolve_knobs(SimConfig(), tpolicy.get("sms_dash"))
     assert bool(kn.dash) and not bool(
         tpolicy.resolve_knobs(SimConfig(), tpolicy.get("sms")).dash)
