@@ -73,8 +73,8 @@ Phases (any failure exits non-zero):
              a stacked grid with period and value overrides equals its run
              alone. Then the paper's 16 CPUs + 1 GPU on 4 channels of 8
              banks (the buffer at SMS's entry parity, 134 entries) over 14
-             workloads and the 23 alone runs in one batch (W = 37), 1,000
-             warm-up and 4,000 measured cycles: the six stackable policies
+             workloads and the 23 alone runs in one batch (W = 37), 500
+             warm-up and 2,500 measured cycles: the six stackable policies
              in ONE stacked run on P*W = 222 rows, sms and sms_dash alone,
              and frfcfs alone, which must equal its stacked slice. Every
              result equals the same call on the CPU (a second process, run
@@ -83,7 +83,27 @@ Phases (any failure exits non-zero):
              slowdown, cpuWS and gpuSU per policy, SMS's WS gain and
              fairness over TCM beside the paper's Fig 4, slice-cycles/s on
              the card and the CPU, and kernels per cycle and the device
-             idle share from a torch.profiler window.
+             idle share from a torch.profiler window. The variable-step
+             driver, the sanitizer and the recorder: at the goldens'
+             configuration the golden policies alone and the family
+             stacked through skip=True (the sanitizer on, the stacked run
+             the recorder too) reproduce the digests; all 15 counters stay
+             0 for every policy ticked and skipping, solo and stacked; each
+             of the five faults (core/faults.py) flips one of its TARGETS
+             counters; the family stacked with the recorder on equals the
+             run without in every other array, its invariant channels
+             equal ticked and skipping. Then the paper's widths with two
+             HWAs (16 CPUs + 1 GPU + 2 HWAs, 4 channels, 146 entries) under
+             workloads.bursty_batch's four archetypes, 500 + 2,500 cycles:
+             the stacked family and sms ticked (the archetypes as one W = 4
+             batch, under the sync check) and skipping (each archetype a W
+             = 1 batch; one host read per processed step, so timed without
+             the sync check), one skipping run with the sanitizer and the
+             recorder on. Skipping equals ticking in every metric but
+             sim_steps, every run (sim_steps too) equals the CPU's, host
+             reads equal processed steps. Per archetype it prints the skip
+             ratio, processed steps, slice-cycles/s ticked and skipping,
+             kernels per processed step and the idle share.
 
 The kernel phase also holds K3 (mLSTM scan, csrc/mlstm_scan_sm90.cu: a
 scalar pass, the state entering each chunk, the outputs; 3xTF32 tensor-core
@@ -127,8 +147,11 @@ from benchmarks_torch.kernel_bench import device_ms as _device_ms
 from benchmarks_torch.kernel_bench import time_ms as _time_ms
 from repro_torch.configs.base import RunConfig, reduced
 from repro_torch.configs.registry import get_config
+from repro_torch.core import faults as sim_faults
 from repro_torch.core import metrics as sim_met
 from repro_torch.core import simulator as sim
+from repro_torch.core import telemetry as sim_tel
+from repro_torch.core import validate as sim_val
 from repro_torch.core import workloads as sim_wl
 from repro_torch.core.params import SimConfig
 from repro_torch.kernels import _build
@@ -1267,8 +1290,17 @@ SIM_STACKED_GRID = (("atlas", {"atlas_epoch": 100, "atlas_alpha": 0.75}),
                     ("bliss", {"bliss_clear_interval": 150}),
                     ("tcm", {}))
 SIM_N_CPU, SIM_CHANNELS, SIM_PER_CAT = 16, 4, 2
-SIM_WARMUP, SIM_CYCLES = 1_000, 4_000
+# far short of fig6's 12,000 cycles, so that the whole script stays near
+# ten minutes
+SIM_WARMUP, SIM_CYCLES = 500, 2_500
 SIM_PROFILE_CYCLES = 20
+# the variable-step driver, the sanitizer and the recorder at the goldens'
+# configuration: the sanitizer's clean runs and the faults at a short depth
+SIM_CLEAN_CYCLES, SIM_FAULT_CYCLES = 300, 300
+# the paper's widths with two accelerators under the bursty archetypes
+# (workloads.bursty_batch), one W = 1 batch each, ticked and skipping
+SIM_BURSTY_WARMUP, SIM_BURSTY_CYCLES = 300, 1_700
+SIM_BURSTY_PROFILE_STEPS = 12        # processed steps in a profiler window
 # benchmarks/fig4_perf_fairness.py:25-30: SMS's WS gain over TCM and TCM's
 # max slowdown over SMS's, from the paper (8 CPUs, 2 channels, 16,000 cycles)
 SIM_FIG4_PAPER = "+41.2% / 4.8x"
@@ -1306,11 +1338,12 @@ def _sim_digest(tree):
     return out
 
 
-def _sim_parity_config(n_cpu, n_channels, fifo_size=6, dcs_size=4):
+def _sim_parity_config(n_cpu, n_channels, fifo_size=6, dcs_size=4,
+                       n_hwa=0):
     """The centralized buffer sized to SMS's entry parity (the paper's
     comparison, benchmarks/common.parity_config)."""
     cfg = SimConfig(n_cpu=n_cpu, n_channels=n_channels, fifo_size=fifo_size,
-                    dcs_size=dcs_size)
+                    dcs_size=dcs_size, n_hwa=n_hwa)
     return cfg.replace(buf_entries=cfg.n_src * cfg.fifo_size
                        + cfg.n_banks * cfg.dcs_size)
 
@@ -1369,7 +1402,191 @@ def _sim_small_runs(device):
     for name, slices in runs.items():
         for i, m in enumerate(slices):
             res.update({f"{name}/{i}/{k}": v for k, v in m.items()})
+    res.update(_sim_skip_runs(gcfg, gpool, on, device))
     return res
+
+
+def _sim_trees(prefix, trees):
+    return {f"{prefix}/{part}/{k}": v
+            for part, tree in zip(("src", "sched", "dram"), trees)
+            for k, v in tree.items()}
+
+
+def _sim_skip_runs(gcfg, gpool, on, device):
+    """The goldens' configuration through the variable-step driver, the
+    sanitizer and the recorder: every golden policy alone, skipping,
+    sanitizer on, and the family stacked, skipping, recorder on; at
+    a short depth, every policy ticked with the sanitizer on, bliss and
+    squash_prio skipping, and the family stacked ticked and skipping with
+    both on; each fault, as tests/test_validate.py drives it. One flat
+    dict of numpy arrays."""
+    res = {}
+    vcfg = gcfg.replace(validate_enabled=True)
+    for pol in SIM_GOLDEN_POLICIES:
+        res.update(_sim_trees(f"gskip/{pol}", sim.simulate_debug(
+            vcfg, pol, gpool, on, SIM_GOLDEN_CYCLES, skip=True,
+            device=device)))
+    for pol, trees in sim.simulate_debug_stacked(
+            gcfg.replace(telemetry_enabled=True), SIM_FAMILY, gpool, on,
+            SIM_GOLDEN_CYCLES, skip=True, device=device).items():
+        res.update(_sim_trees(f"gskipstack/{pol}", trees))
+    for pol in sim.ALL_POLICIES:
+        res[f"clean/tick/{pol}"] = sim.simulate_debug(
+            vcfg, pol, gpool, on, SIM_CLEAN_CYCLES, device=device)[2]["viol"]
+    for pol in ("bliss", "squash_prio"):
+        res[f"clean/skip/{pol}"] = sim.simulate_debug(
+            vcfg, pol, gpool, on, SIM_CLEAN_CYCLES, skip=True,
+            device=device)[2]["viol"]
+    tcfg = vcfg.replace(telemetry_enabled=True)
+    for mode in ("tick", "skip"):
+        for pol, trees in sim.simulate_debug_stacked(
+                tcfg, SIM_FAMILY, gpool, on, SIM_CLEAN_CYCLES,
+                skip=mode == "skip", device=device).items():
+            res.update(_sim_trees(f"{mode}stack/{pol}", trees))
+    for name in sorted(sim_faults.FAULTS):
+        skip = name in sim_faults.SKIP_ONLY
+        pool = _sim_fault_pool(vcfg.n_src, idle=skip)
+        with sim_faults.inject(name):
+            if name in sim_faults.STACKED_ONLY:
+                viol = sim.simulate_debug_stacked(
+                    vcfg, ("frfcfs", "parbs"), pool, on, SIM_FAULT_CYCLES,
+                    device=device)["parbs"][2]["viol"]
+            else:
+                viol = sim.simulate_debug(vcfg, "frfcfs", pool, on,
+                                          SIM_FAULT_CYCLES, skip=skip,
+                                          device=device)[2]["viol"]
+        res[f"fault/{name}"] = viol
+    return res
+
+
+def _sim_fault_pool(S, idle=False, seed=7):
+    """tests/test_validate.py's sanitizer pool (seed 7; idle-heavy for the
+    faults of the span machinery)."""
+    rs = np.random.RandomState(seed)
+    pool = {
+        "mpki": (np.full((S,), 0.5, np.float32) if idle
+                 else rs.uniform(1.0, 40.0, S).astype(np.float32)),
+        "inst_per_miss": rs.uniform(30.0, 300.0, S).astype(np.float32),
+        "rbl": rs.uniform(0.1, 0.95, S).astype(np.float32),
+        "blp": rs.randint(1, 5, S).astype(np.int32),
+        "is_gpu": np.zeros((S,), bool),
+        "dl_period": np.zeros((S,), np.int32),
+        "dl_reqs": np.zeros((S,), np.int32),
+        "dl_jitter": np.zeros((S,), np.int32),
+    }
+    if not idle:
+        pool["is_gpu"][-1] = True
+    pool["dl_period"][0] = int(rs.randint(200, 600))
+    pool["dl_reqs"][0] = int(rs.randint(5, 40))
+    return pool
+
+
+def _sim_bursty():
+    """The paper's widths with two accelerators: 16 CPUs + 1 GPU + 2 HWAs
+    on 4 channels, the buffer at SMS's entry parity, and the four bursty
+    archetypes (one row each)."""
+    cfg = _sim_parity_config(SIM_N_CPU, SIM_CHANNELS, n_hwa=2)
+    pool, active = sim_wl.bursty_batch(cfg)
+    return cfg, pool, active
+
+
+class _Counted:
+    """A step that counts the cycles it processes."""
+
+    def __init__(self, step):
+        self.step, self.n = step, 0
+
+    def __call__(self, carry, t, own=None):
+        self.n += 1
+        return self.step(carry, t, own)
+
+
+def _sim_bursty_run(prep, device):
+    """Run and measure a prepared bursty run: (metrics as numpy, seconds,
+    processed steps, host reads). A ticked run on the card runs under the
+    sync check; a skipping run cannot (it reads one int64 per processed
+    step) and is timed without it."""
+    cfg, step, body, carry = prep
+    if body is None and device == "cuda":
+        m, sec = _sim_timed(prep, SIM_BURSTY_CYCLES, SIM_BURSTY_WARMUP)
+        return ({k: v.cpu().numpy() for k, v in m.items()}, sec,
+                SIM_BURSTY_WARMUP + SIM_BURSTY_CYCLES, 0)
+    step = _Counted(step)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reads0 = sim.host_reads
+    t0 = time.perf_counter()
+    m = sim._scan_and_measure(cfg, step, body, carry, SIM_BURSTY_CYCLES,
+                              SIM_BURSTY_WARMUP)
+    m = {k: v.cpu().numpy() for k, v in m.items()}
+    sec = time.perf_counter() - t0
+    return m, sec, step.n, sim.host_reads - reads0
+
+
+def _sim_bursty_runs(device):
+    """The bursty archetypes at the paper's widths: the stacked family and
+    sms ticked (the four archetypes in one W = 4 batch: rows never
+    interact) and skipping (each archetype a W = 1 batch of its own: a
+    batch pays for the union of its rows' events); one skipping run (the
+    family on mixed_bursty) with the sanitizer and the recorder on.
+    {name: (metrics, seconds, processed steps, host reads)}."""
+    cfg, pool, active = _sim_bursty()
+    out = {"tick/stacked": _sim_bursty_run(sim.prepare_stacked_run(
+               cfg, SIM_FAMILY, pool, active, device=device), device),
+           "tick/sms": _sim_bursty_run(sim.prepare_run(
+               cfg, "sms", pool, active, device=device), device)}
+    for a, arch in enumerate(sim_wl.BURSTY_ARCHETYPES):
+        row = {k: v[a:a + 1] for k, v in pool.items()}
+        act = active[a:a + 1]
+        out[f"stacked/{arch}"] = _sim_bursty_run(sim.prepare_stacked_run(
+            cfg, SIM_FAMILY, row, act, skip=True, device=device), device)
+        out[f"sms/{arch}"] = _sim_bursty_run(sim.prepare_run(
+            cfg, "sms", row, act, skip=True, device=device), device)
+    a = sim_wl.BURSTY_ARCHETYPES.index("mixed_bursty")
+    on = cfg.replace(validate_enabled=True, telemetry_enabled=True)
+    out["stacked_on/mixed_bursty"] = _sim_bursty_run(sim.prepare_stacked_run(
+        on, SIM_FAMILY, {k: v[a:a + 1] for k, v in pool.items()},
+        active[a:a + 1], skip=True, device=device), device)
+    return out
+
+
+def _sim_profile_skip(prep):
+    """Kernels per processed step and the device idle share from a
+    torch.profiler window (device activity only) over the first
+    SIM_BURSTY_PROFILE_STEPS processed steps of a prepared skipping run on
+    the card (fewer where the run has fewer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    class Enough(Exception):
+        pass
+
+    def stop(carry, t):
+        if sim.host_reads - reads0 >= SIM_BURSTY_PROFILE_STEPS:
+            raise Enough
+    _, step, body, carry = prep
+    step(carry, 0)              # one warm-up cycle
+    torch.cuda.synchronize()
+    reads0 = sim.host_reads
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        try:
+            sim._run_cycles(step, body, carry, 0,
+                            SIM_BURSTY_WARMUP + SIM_BURSTY_CYCLES, stop)
+        except Enough:
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    n = max(sim.host_reads - reads0, 1)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if e.name.lower().startswith("memcpy")]
+    busy_us = sum(e.device_time_total for e in dev)
+    return {"profiled_steps": n,
+            "kernels_per_step": (len(dev) - len(copies)) / n,
+            "memcpy_per_step": len(copies) / n,
+            "device_us_per_step": busy_us / n,
+            "wall_us_per_step_profiled": 1e6 * wall / n,
+            "device_idle_share": 1.0 - busy_us / (1e6 * wall)}
 
 
 def _split_slices(metrics, names, W):
@@ -1396,6 +1613,10 @@ def sim_cpu_worker(out_path, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
     res["seconds/stacked"] = np.float64(time.perf_counter() - t0)
     for pol, m in stk.items():
         res.update({f"pstack/{pol}/{k}": v for k, v in m.items()})
+    for name, (m, sec, n, _) in _sim_bursty_runs("cpu").items():
+        res.update({f"bursty/{name}/{k}": v for k, v in m.items()})
+        res[f"seconds/bursty/{name}"] = np.float64(sec)
+        res[f"steps/bursty/{name}"] = np.int64(n)
     np.savez(out_path, **res)
 
 
@@ -1443,14 +1664,16 @@ def _sim_profile(step, carry):
 
 
 def _sim_timed(prep, cycles, warmup):
-    """Run a prepared (cfg, step, carry) under the sync check; (metrics,
-    seconds)."""
-    cfg, step, carry = prep
+    """Run a prepared ticked (cfg, step, None, carry) under the sync check;
+    (metrics, seconds)."""
+    cfg, step, body, carry = prep
+    if body is not None:
+        raise ValueError("the sync check times ticked runs only")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        m = sim._scan_and_measure(cfg, step, carry, cycles, warmup)
+        m = sim._scan_and_measure(cfg, step, None, carry, cycles, warmup)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1463,9 +1686,14 @@ def _sim_same(a, b):
 
 def _sim_check_goldens(golden, card):
     """The card's goldens' runs against tests/golden_policy_states.json:
-    every golden policy alone, and the stacked family slice by slice."""
+    every golden policy alone, and the stacked family slice by slice,
+    ticked and skipping (the skipping runs with the sanitizer on, the
+    stacked one with the recorder too)."""
+    stacked = [p for p in SIM_FAMILY if p in golden]
     for prefix, pols in (("golden", SIM_GOLDEN_POLICIES),
-                         ("gstack", [p for p in SIM_FAMILY if p in golden])):
+                         ("gstack", stacked),
+                         ("gskip", SIM_GOLDEN_POLICIES),
+                         ("gskipstack", stacked)):
         for pol in pols:
             g = golden[pol]
             essential = SIM_GOLDEN_SCHED[
@@ -1483,6 +1711,135 @@ def _sim_check_goldens(golden, card):
                 if bad:
                     raise AssertionError(f"sim {prefix} {pol} {part}: "
                                          f"digests differ on card: {bad}")
+
+
+def _sim_run(card, prefix):
+    pre = prefix + "/"
+    return {k[len(pre):]: v for k, v in card.items() if k.startswith(pre)}
+
+
+def _sim_check_skip_small(card):
+    """On one device, the goldens' configuration: every sanitizer counter
+    zero on the clean runs (every policy ticked, the skipping runs solo and
+    stacked); each fault flips one of its TARGETS counters; the family
+    stacked, skipping with the recorder on, equals the ticked run with it
+    off in every other array; the ticked and skipping runs with the
+    sanitizer and the recorder on have equal rings but for the `steps`
+    channel.
+    Returns {fault: nonzero counters}."""
+    clean = {k: v for k, v in card.items() if k.startswith("clean/")
+             or k.endswith("/dram/viol")}
+    dirty = sorted(k for k, v in clean.items() if np.any(v))
+    if len(clean) < 2 * len(sim.ALL_POLICIES) or dirty:
+        raise AssertionError(f"sim sanitizer: counters on clean runs "
+                             f"{dirty} of {len(clean)}")
+    flips = {}
+    for name, targets in sim_faults.TARGETS.items():
+        summary = sim_val.summarize(card[f"fault/{name}"])
+        flips[name] = {k: v for k, v in summary.items() if v}
+        if not sum(summary[k] for k in targets):
+            raise AssertionError(f"sim fault {name}: no target counter "
+                                 f"flipped ({flips[name]})")
+    own = {f"dram/{k}" for k in sim_tel.STATE_KEYS}
+    n = sim_tel.N_INVARIANT
+    for pol in SIM_FAMILY:
+        off, on = (_sim_run(card, f"{p}/{pol}") for p in ("gstack",
+                                                          "gskipstack"))
+        if set(on) - set(off) != own or not all(
+                _sim_same(on[k], off[k]) for k in off):
+            raise AssertionError(f"sim recorder: {pol} skipping with the "
+                                 f"recorder != ticked without")
+        tick, skip = (_sim_run(card, f"{p}stack/{pol}") for p in ("tick",
+                                                                  "skip"))
+        same = all(_sim_same(tick[k], skip[k]) for k in tick
+                   if k != "dram/tl_ring")
+        if not same or not _sim_same(tick["dram/tl_ring"][:, :n],
+                                     skip["dram/tl_ring"][:, :n]):
+            raise AssertionError(f"sim recorder: {pol} ring differs ticked "
+                                 f"vs skipping")
+    return flips
+
+
+def _sim_check_bursty(cfg, bursty, bprof, cpu, smi_line, seconds):
+    """The bursty archetypes on the card: every skipping run equals its
+    archetype's row of the ticked batch in every metric but `sim_steps`;
+    every run (its `sim_steps` too) equals the CPU's; host reads equal
+    processed steps; the sanitizer and recorder run is clean, equals the
+    run with both off, and its ring equals the CPU's. Prints, per
+    archetype, the skip ratio, processed steps, slice-cycles/s ticked and
+    skipping, kernels per processed step and the idle share."""
+    P, n_cyc = len(SIM_FAMILY), SIM_BURSTY_WARMUP + SIM_BURSTY_CYCLES
+    for name, (m, _, n, reads) in bursty.items():
+        for k, v in m.items():
+            if not _sim_same(v, cpu[f"bursty/{name}/{k}"]):
+                raise AssertionError(f"sim bursty {name} {k}: card != cpu")
+        if name.startswith("tick/"):
+            continue
+        if reads != n or n != int(cpu[f"steps/bursty/{name}"]):
+            raise AssertionError(f"sim bursty {name}: {reads} host reads, "
+                                 f"{n} processed steps (cpu "
+                                 f"{int(cpu[f'steps/bursty/{name}'])})")
+    W = len(sim_wl.BURSTY_ARCHETYPES)
+    tick = {"stacked": {pol: {k: v[i * W:(i + 1) * W] for k, v in
+                              bursty["tick/stacked"][0].items()}
+                        for i, pol in enumerate(SIM_FAMILY)},
+            "sms": {"sms": bursty["tick/sms"][0]}}
+    rec = {}
+    for a, arch in enumerate(sim_wl.BURSTY_ARCHETYPES):
+        for run in ("stacked", "sms"):
+            m, sec, n, reads = bursty[f"{run}/{arch}"]
+            pols = SIM_FAMILY if run == "stacked" else ("sms",)
+            for i, pol in enumerate(pols):
+                want = tick[run][pol]
+                got = {k: v[i:i + 1] for k, v in m.items()}
+                bad = [k for k in want if k != "sim_steps"
+                       and not _sim_same(got[k], want[k][a:a + 1])]
+                if bad or not (want["sim_steps"] == SIM_BURSTY_CYCLES).all():
+                    raise AssertionError(f"sim bursty {arch} {pol}: "
+                                         f"skipping != ticked on {bad}")
+            steps = float(m["sim_steps"][0])
+            n_sl = len(pols)
+            tick_s = bursty[f"tick/{run}"][1]
+            pr = bprof[f"{run}/{arch}"]
+            r = {"skip_ratio": 1.0 - steps / SIM_BURSTY_CYCLES,
+                 "sim_steps": steps, "processed_steps": n,
+                 "host_reads_per_step": reads / n,
+                 "slice_cycles_per_s_skip": n_sl * n_cyc / sec,
+                 "slice_cycles_per_s_tick": n_sl * n_cyc / tick_s,
+                 "seconds_skip": sec, "seconds_tick_w4": tick_s,
+                 "seconds_skip_cpu": float(
+                     cpu[f"seconds/bursty/{run}/{arch}"]), **pr}
+            rec[f"{run}/{arch}"] = r
+            print(f"[sim] bursty {arch:12s} {run:7s}: skip ratio "
+                  f"{r['skip_ratio']:.4f} ({steps:.0f} of "
+                  f"{SIM_BURSTY_CYCLES} measured cycles; {n} processed "
+                  f"steps of {n_cyc}, {r['host_reads_per_step']:g} host "
+                  f"read each); slice-cycles/s "
+                  f"skipping {r['slice_cycles_per_s_skip']:.1f} (cpu "
+                  f"{n_sl * n_cyc / r['seconds_skip_cpu']:.1f}), ticked "
+                  f"{r['slice_cycles_per_s_tick']:.1f} (the W=4 batch); "
+                  f"{pr['kernels_per_step']:.1f} kernels per processed step "
+                  f"over {pr['profiled_steps']} steps, device "
+                  f"{pr['device_us_per_step']:.1f} of "
+                  f"{pr['wall_us_per_step_profiled']:.1f} us, idle share "
+                  f"{pr['device_idle_share']:.3f}; {smi_line}")
+    m_on = bursty["stacked_on/mixed_bursty"][0]
+    m_off = bursty["stacked/mixed_bursty"][0]
+    if np.any(m_on["violations"]) or not all(
+            _sim_same(m_on[k], v) for k, v in m_off.items()):
+        raise AssertionError("sim bursty: the sanitizer and recorder run is "
+                             "not clean or differs from the run without")
+    print(f"[sim] bursty at the paper's widths: {cfg.n_cpu} CPUs + 1 GPU + "
+          f"{cfg.n_hwa} HWAs on {cfg.n_channels} channels, "
+          f"{cfg.buf_entries} buffer entries; {SIM_BURSTY_WARMUP} warm-up + "
+          f"{SIM_BURSTY_CYCLES} measured cycles; {', '.join(SIM_FAMILY)} "
+          f"stacked and sms: skipping == ticked in every metric but "
+          f"sim_steps, card == cpu (sim_steps too), host reads == processed "
+          f"steps; the family on mixed_bursty with the sanitizer and the "
+          f"recorder: {sim_val.NV} counters 0, == the run without, ring == "
+          f"cpu; ticked runs under the sync check, skipping runs without "
+          f"it ({seconds:.1f} s)")
+    return rec
 
 
 def _sim_check_grids(card):
@@ -1531,15 +1888,26 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
         card_small = _sim_small_runs("cuda")
         _sim_check_goldens(golden, card_small)
         _sim_check_grids(card_small)
+        flips = _sim_check_skip_small(card_small)
         t_small = time.perf_counter() - t_small
         print(f"[sim] goldens on the card: {', '.join(SIM_GOLDEN_POLICIES)} "
               f"alone and {', '.join(SIM_FAMILY)} stacked at "
-              f"{SIM_GOLDEN_CYCLES} cycles reproduce every src, dram and "
-              f"sched digest of tests/golden_policy_states.json (the "
-              f"stacked slices of every golden policy); sms at knob points "
+              f"{SIM_GOLDEN_CYCLES} cycles, ticked and skip=True (the "
+              f"skipping runs with the sanitizer on, the stacked one with "
+              f"the recorder too), reproduce every src, dram and sched "
+              f"digest of tests/golden_policy_states.json (the stacked "
+              f"slices of every golden policy); sms at knob points "
               f"{list(SIM_GRID_POINTS)} == sms, sms_dash alone; each slice "
               f"of the stacked grid {[list(s) for s in SIM_STACKED_GRID]} "
               f"== its run alone, overrides baked ({t_small:.1f} s)")
+        print(f"[sim] sanitizer: all {sim_val.NV} counters 0 for "
+              f"{', '.join(sim.ALL_POLICIES)} ticked ({SIM_CLEAN_CYCLES} "
+              f"cycles) and skipping, solo and stacked; faults on the card "
+              f"({SIM_FAULT_CYCLES} cycles, SKIP_ONLY through skip=True, "
+              f"stacked_writeset stacked): {json.dumps(flips)}; recorder: "
+              f"the family stacked, skipping with it on, == ticked with it "
+              f"off in every other array; its first "
+              f"{sim_tel.N_INVARIANT} channels equal ticked and skipping")
 
         cfg, wls, pool, both, active, amap = _sim_batch()
         W = active.shape[0]
@@ -1554,12 +1922,26 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
                                     device="cuda"), cycles, warmup)
         stacked = _split_slices(m, SIM_FAMILY, W)
         for pol in SIM_SOLO:
-            _, step, carry = sim.prepare_run(cfg, pol, both, active,
-                                             device="cuda")
+            _, step, _, carry = sim.prepare_run(cfg, pol, both, active,
+                                                device="cuda")
             prof[pol] = _sim_profile(step, carry)
-        _, step, carry = sim.prepare_stacked_run(cfg, SIM_FAMILY, both,
-                                                 active, device="cuda")
+        _, step, _, carry = sim.prepare_stacked_run(cfg, SIM_FAMILY, both,
+                                                    active, device="cuda")
         prof["stacked"] = _sim_profile(step, carry)
+        t_b = time.perf_counter()
+        bursty = _sim_bursty_runs("cuda")
+        bcfg, bpool, bactive = _sim_bursty()
+        bprof = {}
+        for a, arch in enumerate(sim_wl.BURSTY_ARCHETYPES):
+            row = {k: v[a:a + 1] for k, v in bpool.items()}
+            act = bactive[a:a + 1]
+            bprof[f"stacked/{arch}"] = _sim_profile_skip(
+                sim.prepare_stacked_run(bcfg, SIM_FAMILY, row, act, skip=True,
+                                        device="cuda"))
+            bprof[f"sms/{arch}"] = _sim_profile_skip(
+                sim.prepare_run(bcfg, "sms", row, act, skip=True,
+                                device="cuda"))
+        t_b = time.perf_counter() - t_b
         launched = {fn.__name__: fn.launches for fn in
                     (ops.paged_attention, fa_ops.flash_attention,
                      ml_ops.mlstm_scan)}
@@ -1583,6 +1965,7 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
                     if not _sim_same(v, cpu[f"{prefix}/{pol}/{k}"]):
                         raise AssertionError(f"sim {prefix} {pol} {k}: "
                                              f"card != cpu")
+        rec_b = _sim_check_bursty(bcfg, bursty, bprof, cpu, smi_line, t_b)
         n_cyc = warmup + cycles
         S = active.shape[1]
         P = len(SIM_FAMILY)
@@ -1646,6 +2029,7 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
                   f"cycle (idle share {pr['device_idle_share']:.3f}); "
                   f"{smi_line}")
         rec["speed"] = speed
+        rec["bursty"] = rec_b
         print(f"[sim] {json.dumps({'sim': rec})}")
         print(f"[sim] phase {time.perf_counter() - t_phase:.1f} s")
     finally:

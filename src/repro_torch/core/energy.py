@@ -11,8 +11,8 @@ contract: no counter feeds back into eligibility, scoring or timing.
     held as integer cycle counters (`sb_cycles`, `pd_cycles`);
   * a wake-up penalty when a powered-down channel next issues.
 
-The closed-form accrual of a skipped span (`skip_accrue`) comes with the
-variable-step driver in slice B2.
+`skip_accrue` charges a skipped span in closed form: the integer cycle
+counters make one add bit-identical to the per-cycle accrual.
 """
 from __future__ import annotations
 
@@ -56,6 +56,30 @@ def background_tick(cfg: SimConfig, dram: Dict[str, Any], t: int
     dram["pd_down"] = pd
     dram["sb_cycles"] = dram["sb_cycles"] + (~pd).to(torch.int32)
     dram["pd_cycles"] = dram["pd_cycles"] + pd.to(torch.int32)
+    return dram
+
+
+def skip_accrue(cfg: SimConfig, dram: Dict[str, Any], t: int, t_new: int
+                ) -> Dict[str, Any]:
+    """Charge background cycles for the skipped span t+1 .. t_new-1 in one
+    add, exactly what k = t_new-1-t calls of `background_tick` would do.
+
+    No issue lands inside a span (the witness contract), so `busy_until` is
+    frozen and the only transition is standby -> power-down at `enter =
+    busy_until + energy_pd_idle`; the closed form splits the span there.
+    t, t_new: host ints; `cfg.energy_pd_idle` may be a per-row tensor.
+    """
+    if not cfg.energy_enabled:
+        return dram
+    dram = dict(dram)
+    k = t_new - 1 - t
+    enter = dram["busy_until"] + cfg.energy_pd_idle
+    n_pd = torch.where(
+        dram["pd_down"], k,
+        torch.clamp(t_new - torch.clamp(enter, min=t + 1), 0, k))
+    dram["pd_cycles"] = dram["pd_cycles"] + n_pd
+    dram["sb_cycles"] = dram["sb_cycles"] + (k - n_pd)
+    dram["pd_down"] = dram["pd_down"] | (t_new - 1 >= enter)
     return dram
 
 

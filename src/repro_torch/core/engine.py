@@ -11,41 +11,37 @@ accumulators float32, as in the reference. The reference's uint32 streams
 (the source rng, the frame hash) run in int64 holding the uint32 value,
 masked to 32 bits after every multiply and add, and export as uint32.
 
-Skip witnesses (``next_*``, ``skip_sources``, ``lcg_skip``) come with the
-variable-step driver in slice B2.
+The variable-step driver's witnesses (``next_source_event``,
+``next_completion``) return one int64 cycle per row; ``skip_sources`` and
+``lcg_skip`` replay a skipped span in closed form. The span length is a host
+int common to every row (see ``simulator._run_cycles``).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Tuple
+import math
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import energy, qos
+from repro_torch.core import energy, qos, telemetry, validate
 from repro_torch.core.params import (CLS_CPU, CLS_GPU, CLS_HWA, SimConfig,
                                      SourcePool)
 
 RING = 64
 NEG_T = -100_000
+# "no event" sentinel of the variable-step driver's witnesses: far beyond any
+# simulated horizon
 INF_T = 1 << 30
 U32 = 0xFFFFFFFF
+LCG_A, LCG_C = 1664525, 1013904223
 
 # source_state keys added by the N-class requester model (the golden digests
 # predate them)
 NCLASS_SRC_KEYS = ("frames_released",)
 # state keys holding uint32 streams (int64 here; uint32 on export)
 U32_KEYS = ("rng", "rng2", "sq_rng")
-
-
-def check_ported(cfg: SimConfig) -> None:
-    """Refuse the measurement subsystems the port does not have yet."""
-    if cfg.telemetry_enabled:
-        raise NotImplementedError(
-            "telemetry_enabled: the flight recorder comes with slice B2")
-    if cfg.validate_enabled:
-        raise NotImplementedError(
-            "validate_enabled: the invariant sanitizer comes with slice B2")
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,9 +147,37 @@ def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
 
 def lcg_step(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: int64 holding a uint32 state. Returns (new_state, u01 float32)."""
-    x = (x * 1664525 + 1013904223) & U32
+    x = (x * LCG_A + LCG_C) & U32
     u = (x >> 8).to(torch.float32) / float(1 << 24)
     return x, u
+
+
+@functools.lru_cache(maxsize=4096)
+def lcg_power(k: int) -> Tuple[int, int]:
+    """(A_k, C_k) with f^k(x) = A_k·x + C_k (mod 2^32) for the LCG step f:
+    binary exponentiation over the bits of k mod 2^32, in Python integers,
+    as the reference composes it in uint32."""
+    k &= U32
+    acc_a, acc_c = 1, 0
+    pow_a, pow_c = LCG_A, LCG_C
+    while k:
+        if k & 1:
+            acc_a, acc_c = (pow_a * acc_a) & U32, (pow_a * acc_c + pow_c) & U32
+        pow_a, pow_c = (pow_a * pow_a) & U32, (pow_a * pow_c + pow_c) & U32
+        k >>= 1
+    return acc_a, acc_c
+
+
+def lcg_skip(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Advance LCG states (int64 holding uint32) by a host int number of
+    steps k >= 0 in closed form: the affine pair is composed on the host
+    (`lcg_power`) and applied on the device. A_k·x can reach 2^64, so A_k is
+    split into 16-bit halves: no product exceeds 2^48 before the mask."""
+    a, c = lcg_power(k)
+    if (a, c) == (1, 0):
+        return x
+    hi = ((x * (a >> 16)) & 0xFFFF) << 16
+    return (hi + x * (a & 0xFFFF) + c) & U32
 
 
 def u32_init(n: int, mul: int, add: int, device) -> torch.Tensor:
@@ -198,6 +222,10 @@ def dram_state(cfg: SimConfig, W: int, device) -> Dict[str, Any]:
         "issued": torch.zeros((W, S), **i32),
         **energy.energy_state(cfg, W, device),
         **qos.qos_state(cfg, W, device),
+        # invariant-sanitizer counters (empty when cfg.validate_enabled off)
+        **validate.validate_state(cfg, W, device),
+        # flight-recorder ring (empty when cfg.telemetry_enabled off)
+        **telemetry.telemetry_state(cfg, W, device),
     }
 
 
@@ -349,6 +377,141 @@ def deadline_tick(cfg: SimConfig, pool: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# variable-step driver witnesses (ROADMAP "Variable-step driver contract").
+#
+# Each witness returns, per row, the earliest cycle > t at which its part of
+# the cycle could do anything beyond the closed-form accruals of a skipped
+# span, evaluated on post-cycle-t state: conservative-early, never late.
+# INF_T means "no event". A witness is an int tensor with one value per row,
+# or a host int where it depends on t alone; `earliest` combines them into
+# one int64 tensor per row.
+# ---------------------------------------------------------------------------
+
+class SkipBody(NamedTuple):
+    """The variable-step half of a run, beside its ticked step.
+
+    witness(carry, t) -> (R,) int64: each row's next event after cycle t;
+    accrue(carry, t, t_new) -> carry: the closed-form accruals of the
+    skipped cycles t+1 .. t_new-1 (called only when there is one);
+    fold: rows per clock group. The R rows are `fold` slices of R / fold
+    clock groups, policy-major: a stacked family shares one clock per
+    workload across its slices, a solo or grid run has one per row;
+    meter: the step takes a per-row mask of the rows whose own cycle this
+    is (the telemetry `steps` channel counts only those).
+    """
+
+    witness: Callable
+    accrue: Callable
+    fold: int = 1
+    meter: bool = False
+
+
+def earliest(a, b):
+    """The earlier of two witnesses (an int tensor per row, a host int, or
+    None for none); a tensor result is int64."""
+    if b is None:
+        return a
+    if a is None:
+        return b
+    if not isinstance(a, torch.Tensor):
+        a, b = b, a
+    if not isinstance(a, torch.Tensor):
+        return min(a, b)
+    a = a.to(torch.int64)
+    if not isinstance(b, torch.Tensor):
+        return torch.clamp(a, max=b)
+    return torch.minimum(a, b.to(torch.int64))
+
+
+def row_min(x: torch.Tensor) -> torch.Tensor:
+    """Minimum over every axis but the leading row axis."""
+    return torch.amin(x.reshape(x.shape[0], -1), dim=-1)
+
+
+def row_any(x: torch.Tensor) -> torch.Tensor:
+    """Any over every axis but the leading row axis."""
+    return torch.any(x.reshape(x.shape[0], -1), dim=-1)
+
+
+def source_mshr(cfg: SimConfig, cls: torch.Tensor) -> torch.Tensor:
+    """Each source's outstanding-request limit, by class."""
+    return torch.where(cls == CLS_GPU, cfg.gpu_mshr,
+                       torch.where(cls == CLS_HWA, cfg.hwa_mshr,
+                                   cfg.cpu_mshr))
+
+
+def next_source_event(cfg: SimConfig, pool: Dict[str, torch.Tensor],
+                      st: Dict[str, Any], active: torch.Tensor, t: int
+                      ) -> torch.Tensor:
+    """(R,) earliest cycle > t at which `source_tick` could emit a request or
+    `deadline_tick` could settle a frame boundary, assuming no completion
+    or issue lands first (their own witnesses cover those)."""
+    S = cfg.n_src
+    cls = pool["src_class"]
+    is_gpu = cls == CLS_GPU
+    is_hwa = cls == CLS_HWA
+    is_cpu = cls == CLS_CPU
+    free = active & ~st["pend_valid"] & \
+        (st["outstanding"] < source_mshr(cfg, cls))
+    t1 = t + 1
+    # GPU: wants every cycle while its pending register is free
+    w_gpu = torch.where(torch.any(free & is_gpu, dim=-1), t1, INF_T)
+    # CPU: the next inter-miss crossing, floor((ipm - acc)/ipc) cycles on
+    # (conservative-early). A span's batch accrual k*ipc is exact only for a
+    # power-of-two ipc, so any other ipc pins the witness at t+1.
+    can_run = free & is_cpu
+    ipc = float(cfg.cpu_ipc)
+    if ipc > 0.0 and math.log2(ipc).is_integer():
+        kf = (pool["inst_per_miss"] - st["insts_acc"]) / ipc
+        k = torch.clamp(torch.floor(kf).to(torch.int32), min=1)
+        w_cpu = torch.amin(torch.where(can_run, t + k, INF_T), dim=-1)
+    else:
+        w_cpu = torch.where(torch.any(can_run, dim=-1), t1, INF_T)
+    # HWA: the current frame's jittered release point, at least t+1
+    period = torch.clamp(pool["dl_period"], min=1)
+    frame = t1 // period
+    rel = frame * period + frame_release_offset(S, frame, pool["dl_jitter"])
+    demand = st["period_done"] + st["outstanding"] < pool["dl_reqs"]
+    hwa_ok = free & is_hwa & demand & (pool["dl_period"] > 0)
+    w_hwa = torch.amin(torch.where(hwa_ok, torch.clamp(rel, min=t1), INF_T),
+                       dim=-1)
+    # frame boundary: `deadline_tick` settles every deadline source of the
+    # pool at its boundary, whatever `active` says
+    has_dl = pool["dl_period"] > 0
+    w_bnd = torch.amin(torch.where(has_dl, (t // period + 1) * period, INF_T),
+                       dim=-1)
+    return torch.minimum(torch.minimum(w_gpu, w_cpu),
+                         torch.minimum(w_hwa, w_bnd)).to(torch.int64)
+
+
+def next_completion(dram: Dict[str, Any], t: int) -> torch.Tensor:
+    """(R,) earliest cycle > t whose completion-ring slot holds a request:
+    every request lands within RING cycles of its issue."""
+    pend = torch.any(dram["ring"] > 0, dim=-1)                 # (R, RING)
+    dt = (arange(RING, pend.device) - (t + 1)) % RING
+    return torch.amin(torch.where(pend, t + 1 + dt, INF_T), dim=-1)
+
+
+def skip_sources(cfg: SimConfig, pool: Dict[str, torch.Tensor],
+                 st: Dict[str, Any], active: torch.Tensor, k: int
+                 ) -> Dict[str, Any]:
+    """Replay k skipped (event-free) cycles of `source_tick` in closed form:
+    the two rng draws per cycle and the CPU instruction accrual; the rest is
+    frozen by the witness contract. k: a host int."""
+    st = dict(st)
+    st["rng"] = lcg_skip(st["rng"], 2 * k)
+    cls = pool["src_class"]
+    can_run = active & (cls == CLS_CPU) & \
+        (st["outstanding"] < source_mshr(cfg, cls)) & ~st["pend_valid"]
+    # f32(k) * f32(ipc), rounded once in float32 as the reference's product
+    add = torch.where(can_run, float(np.float32(k) * np.float32(cfg.cpu_ipc)),
+                      0.0).to(torch.float32)
+    st["insts_acc"] = st["insts_acc"] + add
+    st["insts_done"] = st["insts_done"] + add
+    return st
+
+
+# ---------------------------------------------------------------------------
 # DRAM eligibility + issue
 # ---------------------------------------------------------------------------
 
@@ -386,6 +549,10 @@ def issue_channels(cfg: SimConfig, dram: Dict[str, Any], st: Dict[str, Any],
     tm = cfg.timing
     dram = dict(dram)
     st = dict(st)
+    if cfg.validate_enabled:
+        # timing compliance is checked against the PRE-update DRAM state
+        dram["viol"] = dram["viol"] + validate.issue_counts(
+            cfg, dram, do_issue, bank, lat, is_hit, t)
     done = t + lat + tm.t_burst                                 # (W, C)
     dram["bank_free"] = masked_set(dram["bank_free"], bank, done, do_issue)
     dram["open_row"] = masked_set(dram["open_row"], bank, row, do_issue)

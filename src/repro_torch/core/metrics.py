@@ -1,8 +1,8 @@
 """System metrics: weighted speedup, max slowdown, harmonic speedup (§5),
 per-class QoS (deadline-met rate, tail latency, class-masked fairness).
 
-A numpy copy of ``repro/core/metrics.py``. `timeline_breakdown` reads the
-flight recorder and comes with it in slice B2."""
+A numpy copy of ``repro/core/metrics.py``; `timeline_breakdown` reads the
+flight recorder's ring (`repro_torch.core.telemetry`)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -121,6 +121,60 @@ def qos_breakdown(cfg: SimConfig, m: Dict[str, np.ndarray],
     out["frames_released"] = rel
     out["dl_met_rate"] = met / np.maximum(rel, 1.0)
     return out
+
+
+def timeline_breakdown(cfg: SimConfig, m: Dict[str, np.ndarray],
+                       total_cycles: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Time-resolved per-epoch series from the flight-recorder ring.
+
+    m: metrics with `telemetry` (..., W, K) and `telemetry_epoch` (...)
+    (cfg.telemetry_enabled); leading axes are flattened to one row axis.
+    Slots are reordered into ascending epochs; `valid` masks slots never
+    written, and with `total_cycles` (warm-up + measured) the per-epoch
+    denominators account for a partial final epoch.
+
+    Returns (..., W) series: `epoch`, `valid`, `occ_<class>` mean queue
+    depth, `adm_<class>`/`iss_<class>` per-cycle rates, `lat_<class>` the
+    occupancy over issues (Little's law, cycles per request),
+    `row_hit_rate`, `batch_marks`, `pd_frac` power-down residency and
+    `skip_ratio` (1 - processed steps / epoch cycles, a driver property).
+    """
+    from repro_torch.core import telemetry
+    E, W = cfg.telemetry_epoch, cfg.telemetry_window
+    ring = np.asarray(m["telemetry"], np.float64)
+    lead = ring.shape[:-2]
+    ring = ring.reshape((-1,) + ring.shape[-2:])               # (R, W, K)
+    e_f = np.asarray(m["telemetry_epoch"]).reshape(-1).astype(np.int64)
+    R = ring.shape[0]
+    epochs = np.stack([telemetry.ring_epochs(W, e) for e in e_f])  # (R, W)
+    order = np.argsort(epochs, axis=1)
+    epochs = np.take_along_axis(epochs, order, axis=1)
+    ring = np.take_along_axis(ring, order[:, :, None], axis=1)
+    valid = epochs >= 0
+    if total_cycles is not None:
+        width = np.clip(total_cycles - epochs * E, 0, E).astype(np.float64)
+    else:
+        width = np.full((R, W), float(E))
+    width = np.maximum(width, 1.0)
+    ch = lambda name: ring[:, :, telemetry.CH[name]]
+    out: Dict[str, np.ndarray] = {"epoch": epochs, "valid": valid}
+    iss_tot = np.zeros((R, W))
+    for kname in CLASS_NAMES:
+        occ, adm, iss = ch(f"occ_{kname}"), ch(f"adm_{kname}"), \
+            ch(f"iss_{kname}")
+        iss_tot = iss_tot + iss
+        out[f"occ_{kname}"] = occ / width
+        out[f"adm_{kname}"] = adm / width
+        out[f"iss_{kname}"] = iss / width
+        # Little's law: mean in-flight / completion rate ~ mean latency
+        out[f"lat_{kname}"] = occ / np.maximum(iss, 1.0)
+    out["row_hit_rate"] = ch("row_hits") / np.maximum(iss_tot, 1.0)
+    out["batch_marks"] = ch("batch_marks")
+    out["pd_frac"] = ch("pd_chan") / (width * max(cfg.n_channels, 1))
+    out["skip_ratio"] = 1.0 - ch("steps") / width
+    restore = lambda a: a.reshape(lead + (W,))
+    return {k: restore(v) for k, v in out.items()}
 
 
 def energy_breakdown(cfg: SimConfig, m: Dict[str, np.ndarray],

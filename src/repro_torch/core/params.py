@@ -102,14 +102,14 @@ class SimConfig:
     energy_pd_idle: int = 48         # all-banks-idle cycles before power-down
     # per-source request-latency histogram (core.qos): measurement-only
     qos_enabled: bool = True
-    # invariant sanitizer: not ported yet (slice B2); must stay off
+    # invariant sanitizer (core.validate): measurement-only, a debug mode
     validate_enabled: bool = False
     lat_bins: int = 32               # histogram bins per source
     lat_bin_width: int = 64          # cycles per bin (last bin open-ended)
-    # flight recorder: not ported yet (slice B2); must stay off
+    # windowed flight recorder (core.telemetry): measurement-only
     telemetry_enabled: bool = False
-    telemetry_window: int = 32
-    telemetry_epoch: int = 256
+    telemetry_window: int = 32       # ring slots (the last epochs retained)
+    telemetry_epoch: int = 256       # cycles per epoch
     timing: Timing = Timing()
 
     @property

@@ -48,3 +48,8 @@ class ATLAS(CentralizedPolicy):
         buf["served_epoch"] = engine.accum_by_index(
             buf["served_epoch"], src, 1.0, do)
         return buf
+
+    def next_boundary(self, cfg, pool, st, buf, t):
+        # epoch boundaries always run (the decay changes `attained` even in
+        # an idle epoch): the next epoch multiple
+        return (t // cfg.atlas_epoch + 1) * cfg.atlas_epoch

@@ -57,3 +57,8 @@ class BLISS(CentralizedPolicy):
         buf["blacklist"] = buf["blacklist"] | hit
         buf["pri_src"] = (~buf["blacklist"]).to(torch.int32) * POL_BIT
         return buf
+
+    def next_boundary(self, cfg, pool, st, buf, t):
+        # the streak machine lives in on_issue (issues are witnessed); only
+        # the interval clear is time-driven
+        return (t // cfg.bliss_clear_interval + 1) * cfg.bliss_clear_interval

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import engine, policy
+from repro_torch.core import engine, policy, validate
 from repro_torch.core.schedulers import CentralizedPolicy, POL_BIT, RANK_SHIFT
 
 
@@ -113,3 +113,33 @@ class PARBS(CentralizedPolicy):
     def score(self, cfg, pool, buf, is_hit, t):
         return buf["marked"].to(torch.int32) * POL_BIT + \
             super().score(cfg, pool, buf, is_hit, t)
+
+    def check_invariants(self, cfg, pool, st, buf, t):
+        # the base buffer invariants and the two mirror counters: `grank`
+        # equals a pairwise age-rank recount within each (source, bank)
+        # group (births are distinct in a group, so strict < is exact), and
+        # `msub` a recount of the would-be-marked set. The corrupted
+        # write-set fault trips the second on the stacked path.
+        bad = super().check_invariants(cfg, pool, st, buf, t)
+        v = buf["valid"]
+        same = v[..., :, None] & v[..., None, :] & \
+            (buf["src"][..., :, None] == buf["src"][..., None, :]) & \
+            (buf["bank"][..., :, None] == buf["bank"][..., None, :])
+        birth = buf["birth"]
+        older = same & (birth[..., None, :] < birth[..., :, None])
+        rank = torch.sum(older, dim=-1, dtype=torch.int32)       # (W, C, E)
+        bad = bad + validate.nbool(v & (rank != buf["grank"]))
+        below = v & (buf["grank"] < cfg.parbs_cap)
+        mine = (engine.arange(cfg.n_src, v.device)
+                == buf["src"][..., None]) & below[..., None]     # (W,C,E,S)
+        cnt = torch.sum(mine.flatten(1, 2), dim=1, dtype=torch.int32)
+        return bad + validate.nbool(cnt != buf["msub"])
+
+    def next_boundary(self, cfg, pool, st, buf, t):
+        # pre_tick changes state next cycle iff a deferred decrement is
+        # pending or a fresh batch would form; otherwise every term it
+        # writes is a fixed point and a span may skip it
+        pend = torch.any(buf["pend_dec"] != 0, dim=-1)
+        reform = ~engine.row_any(buf["valid"] & buf["marked"]) & \
+            engine.row_any(buf["valid"])
+        return torch.where(pend | reform, t + 1, engine.INF_T)

@@ -7,6 +7,8 @@ the deadline-aware stage-2 preemption pinned on by `configure_knobs` (the
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import policy, sms as sms_lib
 
 
@@ -30,6 +32,24 @@ class SMS:
 
     def select(self, cfg, pool, st, sched, dram, t):
         return sms_lib.stage3_issue(cfg, st, sched, dram, t)
+
+    # -- variable-step driver witness (see `policy.make_skip_step`) ---------
+    def next_event(self, cfg, pool, st, sched, dram, t):
+        return sms_lib.next_stage_event(cfg, st, sched, dram, t)
+
+    def on_skip(self, cfg, sched, k):
+        return sms_lib.skip_cycles(sched, k)
+
+    # -- invariant-sanitizer hooks (repro_torch.core.validate) --------------
+    def queued_requests(self, cfg, sched):
+        held = lambda x: torch.sum(x.flatten(1), dim=-1, dtype=torch.int32)
+        return held(sched["f_len"]) + held(sched["d_len"])
+
+    def check_invariants(self, cfg, pool, st, sched, t):
+        return sms_lib.check_invariants(cfg, sched, t)
+
+    def audit_skip(self, cfg, pool, st, sched, dram, t, t_new):
+        return sms_lib.audit_skip(cfg, st, sched, dram, t, t_new)
 
 
 @policy.register

@@ -91,3 +91,25 @@ class SquashPrio(CentralizedPolicy):
         # an urgent source's pending request admits ahead of anything
         # merely older
         return st["pend_birth"] - buf["sq_urgent"].to(torch.int32) * (1 << 20)
+
+    def next_boundary(self, cfg, pool, st, buf, t):
+        # `policy_tick` runs every cycle, so a span may skip only cycles
+        # where its writes are fixed points: between epoch draws urgency is
+        # monotone within a frame (`period_done` is frozen until a witnessed
+        # completion or frame boundary while the pace grows with the
+        # phase), so the one time-driven change is the first phase at which
+        # a non-urgent deadline source turns urgent
+        nb = (t // cfg.squash_epoch + 1) * cfg.squash_epoch
+        period = pool["dl_period"]
+        is_accel = (pool["src_class"] == CLS_HWA) & (period > 0)
+        reqs = torch.clamp(pool["dl_reqs"], min=1)
+        remaining = torch.clamp(pool["dl_reqs"] - st["period_done"], min=0)
+        # the smallest integer phase with done*period < (phase + lead)*reqs
+        phase_on = torch.div(st["period_done"] * period
+                             - cfg.squash_lead * reqs, reqs,
+                             rounding_mode="floor") + 1
+        tau = (t - t % torch.clamp(period, min=1)) + phase_on
+        cand = is_accel & (remaining > 0) & ~buf["sq_urgent"]
+        w_flip = torch.amin(torch.where(cand, torch.clamp(tau, min=t + 1),
+                                        engine.INF_T), dim=-1)
+        return engine.earliest(w_flip, nb)

@@ -69,3 +69,7 @@ class TCM(CentralizedPolicy):
         buf["served_quant"] = engine.accum_by_index(
             buf["served_quant"], src, 1.0, do)
         return buf
+
+    def next_boundary(self, cfg, pool, st, buf, t):
+        # the shuffle counter advances every quantum, even when idle
+        return (t // cfg.tcm_quantum + 1) * cfg.tcm_quantum

@@ -19,8 +19,8 @@ policy object the registry hands back. `t` is a Python int.
 second instance, so the serving engine and the cycle sim enumerate policies
 the same way. `is_stackable` says which policies join the stacked
 cross-policy step (`schedulers.make_stacked_step`); `make_folded_step` runs
-knob points of any other policy the same folded way. The variable-step
-witnesses (`make_skip_step`) come with slice B2.
+knob points of any other policy the same folded way. `make_skip_step` and
+`make_folded_skip_step` are the variable-step driver's bodies beside them.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ from typing import (Any, Callable, Dict, Iterator, Optional, Protocol,
 
 import torch
 
-from repro_torch.core import energy, engine, params, schedulers
+from repro_torch.core import (energy, engine, params, schedulers, telemetry,
+                              validate)
 from repro_torch.core.params import Knobs, SimConfig
 
 
@@ -169,20 +170,67 @@ def is_stackable(name: str, cfg: SimConfig) -> bool:
 def make_step(cfg: SimConfig, pol: MemoryPolicy, pool, active):
     """One simulator cycle for every workload of the batch, generic over the
     policy object. `pool`/`active` are read-only (W, S) tensors closed over
-    here; the carry holds only cycle-varying state."""
-    engine.check_ported(cfg)
+    here; the carry holds only cycle-varying state. `own`: the rows whose
+    own cycle this is (the variable-step driver's telemetry meter)."""
 
-    def step(carry, t: int):
+    def step(carry, t: int, own=None):
         st, sched, dram = carry
+        if cfg.telemetry_enabled:
+            snap = telemetry.snapshot(st, sched, dram)
         st, dram = engine.completions_tick(st, dram, t)
         dram = energy.background_tick(cfg, dram, t)
         st = engine.deadline_tick(cfg, pool, st, t)
         st = engine.source_tick(cfg, pool, st, active, t)
         st, sched = pol.tick(cfg, pool, st, sched, t)
         st, sched, dram = pol.select(cfg, pool, st, sched, dram, t)
+        if cfg.telemetry_enabled:
+            dram = telemetry.tick_accrue(cfg, pool, snap, st, sched, dram, t,
+                                         own)
+        if cfg.validate_enabled:
+            # conservation laws hold as end-of-cycle identities
+            dram = schedulers.add_violations(dram, validate.tick_counts(
+                cfg, pool, pol, st, sched, dram, t))
         return (st, sched, dram), None
 
     return step
+
+
+def make_skip_step(cfg: SimConfig, pol: MemoryPolicy, pool, active):
+    """The variable-step body beside `make_step` (ROADMAP "Variable-step
+    driver contract"): `witness` asks the engine and the policy for each
+    row's earliest cycle > t at which anything could happen; `accrue`
+    replays a skipped span's closed-form accruals (source rng and
+    instruction progress, background energy, the policy's `on_skip`). Hooks
+    never observe the step size. None when `pol` has no `next_event`: the
+    driver then ticks every cycle."""
+    if not hasattr(pol, "next_event"):
+        return None
+    on_skip = getattr(pol, "on_skip", None)
+
+    def witness(carry, t: int):
+        st, sched, dram = carry
+        te = engine.next_source_event(cfg, pool, st, active, t)
+        te = engine.earliest(te, engine.next_completion(dram, t))
+        return engine.earliest(te, pol.next_event(cfg, pool, st, sched, dram,
+                                                  t))
+
+    def accrue(carry, t: int, t_new: int):
+        st, sched, dram = carry
+        k = t_new - t - 1
+        st = engine.skip_sources(cfg, pool, st, active, k)
+        if cfg.telemetry_enabled:
+            # before energy.skip_accrue: reads the pre-span pd_down
+            dram = telemetry.skip_accrue(cfg, pool, st, dram, t, t_new)
+        dram = energy.skip_accrue(cfg, dram, t, t_new)
+        if on_skip is not None:
+            sched = on_skip(cfg, sched, k)
+        if cfg.validate_enabled:
+            # lateness audit of the jumped span, on post-accrual state
+            dram = schedulers.add_violations(dram, validate.span_counts(
+                cfg, pool, pol, st, sched, dram, active, t, t_new))
+        return st, sched, dram
+
+    return engine.SkipBody(witness, accrue, 1, cfg.telemetry_enabled)
 
 
 def make_folded_step(cfg: SimConfig, pol: MemoryPolicy, pool, active, cfgs,
@@ -194,14 +242,15 @@ def make_folded_step(cfg: SimConfig, pol: MemoryPolicy, pool, active, cfgs,
     own bound config `cfgs[i]`. `row_cfg` serves the shared work's two
     value knobs (`params.row_config`). Only tensors some slice replaced
     are re-concatenated."""
-    engine.check_ported(cfg)
     V, W = len(cfgs), active.shape[0]
     rpool, ractive = schedulers.shared_inputs(pool, active, V)
     views = lambda tree: schedulers.row_views(tree, V, W)
     merge = schedulers.merge_rows
 
-    def step(carry, t: int):
+    def step(carry, t: int, own=None):
         st, sched, dram = carry
+        if cfg.telemetry_enabled:
+            snap = telemetry.snapshot(st, sched, dram)
         st, dram = engine.completions_tick(st, dram, t)
         dram = energy.background_tick(row_cfg, dram, t)
         st = engine.deadline_tick(cfg, rpool, st, t)
@@ -216,6 +265,58 @@ def make_folded_step(cfg: SimConfig, pol: MemoryPolicy, pool, active, cfgs,
         st = merge(st, sv, [n[0] for n in new], st.keys())
         sched = merge(sched, cv, [n[1] for n in new], sched.keys())
         dram = merge(dram, dv, [n[2] for n in new], dram.keys())
+        if cfg.telemetry_enabled:
+            dram = telemetry.tick_accrue(cfg, rpool, snap, st, sched, dram, t,
+                                         own)
+        if cfg.validate_enabled:
+            dram = schedulers.add_violations(dram, schedulers.slice_counts(
+                [pol] * V, lambda i, p, s_, c_, d_: validate.tick_counts(
+                    cfgs[i], pool, p, s_, c_, d_, t), st, sched, dram, W))
         return (st, sched, dram), None
 
     return step
+
+
+def make_folded_skip_step(cfg: SimConfig, pol: MemoryPolicy, pool, active,
+                          cfgs, row_cfg):
+    """The variable-step body beside `make_folded_step`: the engine's
+    witnesses and accruals once over every row, the policy's `next_event`,
+    `on_skip` and span audit per slice. Each row keeps its own clock, as
+    each knob point of the reference's grid does. None when `pol` has no
+    `next_event`."""
+    if not hasattr(pol, "next_event"):
+        return None
+    V, W = len(cfgs), active.shape[0]
+    rpool, ractive = schedulers.shared_inputs(pool, active, V)
+    views = lambda tree: schedulers.row_views(tree, V, W)
+    on_skip = getattr(pol, "on_skip", None)
+
+    def witness(carry, t: int):
+        st, sched, dram = carry
+        te = engine.next_source_event(cfg, rpool, st, ractive, t)
+        te = engine.earliest(te, engine.next_completion(dram, t))
+        sv, cv, dv = views(st), views(sched), views(dram)
+        return torch.cat([engine.earliest(part, pol.next_event(
+            cfgs[i], pool, sv[i], cv[i], dv[i], t))
+            for i, part in enumerate(te.split(W))])
+
+    def accrue(carry, t: int, t_new: int):
+        st, sched, dram = carry
+        k = t_new - t - 1
+        st = engine.skip_sources(cfg, rpool, st, ractive, k)
+        if cfg.telemetry_enabled:
+            dram = telemetry.skip_accrue(row_cfg, rpool, st, dram, t, t_new)
+        dram = energy.skip_accrue(row_cfg, dram, t, t_new)
+        if on_skip is not None:
+            cv = views(sched)
+            sched = schedulers.merge_rows(
+                sched, cv, [on_skip(cfgs[i], cv[i], k) for i in range(V)],
+                sched.keys())
+        if cfg.validate_enabled:
+            dram = schedulers.add_violations(dram, schedulers.slice_counts(
+                [pol] * V, lambda i, p, s_, c_, d_: validate.span_counts(
+                    cfgs[i], pool, p, s_, c_, d_, active, t, t_new),
+                st, sched, dram, W))
+        return st, sched, dram
+
+    return engine.SkipBody(witness, accrue, 1, cfg.telemetry_enabled)

@@ -23,8 +23,10 @@ Scores are lexicographic integers:
 
 The stacked cross-policy step (`make_stacked_step`) folds a family of P
 policies into the leading row axis, policy-major: P·W rows, slice i on rows
-[i·W, (i+1)·W). The skip witnesses (`next_admission`, `next_issue_ready`)
-come with slice B2.
+[i·W, (i+1)·W). The variable-step witnesses of the substrate
+(`next_admission`, `next_issue_ready`, each policy's `next_boundary`) give
+every policy `next_event`; `make_stacked_skip_step` is the stacked family's
+skip body.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.core import energy, engine
+from repro_torch.core import energy, engine, telemetry, validate
 from repro_torch.core.params import SimConfig
 
 AGE_CAP = (1 << 14) - 1
@@ -177,6 +179,65 @@ class CentralizedPolicy:
         """(W, S) admission ordering key, lowest first (default: oldest)."""
         return st["pend_birth"]
 
+    def next_boundary(self, cfg: SimConfig, pool, st, buf, t):
+        """Earliest cycle > t at which `boundary_pred` could fire or other
+        per-cycle policy state could change in a way the generic witnesses
+        do not cover: a host int (a t-only boundary), a (W,) int tensor, or
+        None (no boundary machinery). Early is safe, late is a bug."""
+        return None
+
+    # -- variable-step driver witness (see `policy.make_skip_step`) ---------
+    def next_event(self, cfg: SimConfig, pool, st, buf, dram, t):
+        """(W,) earliest cycle > t at which this policy's half of the cycle
+        could do anything: admit, issue, or run boundary maintenance.
+        Evaluated on post-cycle-t state."""
+        te = engine.earliest(next_admission(cfg, pool, st, buf, t),
+                             next_issue_ready(cfg, buf, dram, t))
+        return engine.earliest(te, self.next_boundary(cfg, pool, st, buf, t))
+
+    # -- invariant-sanitizer hooks (repro_torch.core.validate; run only when
+    # cfg.validate_enabled) ------------------------------------------------
+    def queued_requests(self, cfg: SimConfig, buf):
+        """(W,) requests held in the buffer (total-flow conservation)."""
+        return validate.nbool(buf["valid"])
+
+    def check_invariants(self, cfg: SimConfig, pool, st, buf, t):
+        """(W,) count of violated buffer invariants: the `gpu_occ` mirror
+        matches a recount of GPU-held entries, occupancy stays within
+        [0, E], and marks sit only on valid entries."""
+        src = buf["src"]
+        held_gpu = torch.gather(pool["is_gpu"], -1, src.reshape(
+            src.shape[0], -1).to(torch.int64)).reshape(src.shape)
+        occ = torch.sum(buf["valid"] & held_gpu, dim=-1, dtype=torch.int32)
+        bad = validate.nbool(occ != buf["gpu_occ"])
+        bad = bad + validate.nbool((buf["gpu_occ"] < 0)
+                                   | (buf["gpu_occ"] > cfg.buf_entries))
+        return bad + validate.nbool(buf["marked"] & ~buf["valid"])
+
+    def audit_skip(self, cfg: SimConfig, pool, st, buf, dram, t, t_new):
+        """Would-fire lateness predicates of a jumped span: admission and
+        issue readiness re-derived inline (never the witness formulas) at
+        the last skipped cycle u, valid because readiness is monotone over
+        a frozen span; `next_boundary` evaluated at t may be reused."""
+        if t_new - t <= 1:
+            return {}
+        u = t_new - 1
+        ch = engine.channel_of(cfg, st["pend_bank"]).to(torch.int64)
+        gpu_ok = buf["gpu_occ"] < cfg.gpu_cap
+        has_free = ~torch.all(buf["valid"], dim=-1)
+        adm = torch.any(st["pend_valid"] & torch.gather(has_free, -1, ch)
+                        & (torch.gather(gpu_ok, -1, ch) | ~pool["is_gpu"]),
+                        dim=-1)
+        elig, _, _ = eligibility_grid(cfg, buf, dram, u)
+        out = {"late_admission": adm.to(torch.int32),
+               "late_issue": engine.row_any(elig).to(torch.int32)}
+        nb = self.next_boundary(cfg, pool, st, buf, t)
+        if isinstance(nb, torch.Tensor):
+            out["late_boundary"] = (nb < t_new).to(torch.int32)
+        elif nb is not None:
+            out["late_boundary"] = int(nb < t_new)
+        return out
+
     # -- MemoryPolicy protocol ---------------------------------------------
     def configure(self, cfg: SimConfig) -> SimConfig:
         return cfg
@@ -251,6 +312,45 @@ def clear_picked(cfg: SimConfig, pool, buf, do, pick, src):
         (do & torch.gather(pool["is_gpu"], -1, src.to(torch.int64))
          ).to(torch.int32)
     return buf
+
+
+# ---------------------------------------------------------------------------
+# variable-step witnesses of the centralized substrate (conservative-early,
+# evaluated on post-cycle state; see ROADMAP "Variable-step driver contract")
+# ---------------------------------------------------------------------------
+
+def next_admission(cfg: SimConfig, pool, st, buf, t):
+    """(R,) t+1 where a pending request could be admitted next cycle, else
+    INF_T. Admissibility changes only through events other witnesses cover
+    (a new pending request, a freed slot or a GPU-occupancy drop).
+    `cfg.gpu_cap` may be a per-row (R, 1) tensor."""
+    ch = engine.channel_of(cfg, st["pend_bank"]).to(torch.int64)  # (R, S)
+    gpu_ok = buf["gpu_occ"] < cfg.gpu_cap                         # (R, C)
+    has_free = ~torch.all(buf["valid"], dim=-1)                   # (R, C)
+    ok = st["pend_valid"] & torch.gather(has_free, -1, ch) & \
+        (torch.gather(gpu_ok, -1, ch) | ~pool["is_gpu"])
+    return torch.where(torch.any(ok, dim=-1), t + 1, engine.INF_T)
+
+
+def next_issue_ready(cfg: SimConfig, buf, dram, t):
+    """(R,) earliest cycle > t at which a buffered entry becomes
+    issue-eligible: `engine.eligibility`'s three timing gates (bank ready,
+    tFAW window, bus ready) inverted per entry, their inputs frozen while no
+    issue lands."""
+    tm = cfg.timing
+    bank = buf["bank"].to(torch.int64)
+    take = lambda a: torch.gather(a, -1, bank)                   # (R, C, E)
+    openv = take(dram["open_valid"])
+    is_hit = openv & (take(dram["open_row"]) == buf["row"])
+    lat = torch.where(is_hit, tm.lat_hit,
+                      torch.where(openv, tm.lat_conflict, tm.lat_closed)
+                      ).to(torch.int32)
+    faw_ready = torch.amin(dram["act_ring"], dim=-1)[..., None] + tm.t_faw
+    tau = torch.maximum(take(dram["bank_free"]),
+                        torch.where(is_hit, engine.NEG_T, faw_ready))
+    tau = torch.maximum(tau, dram["bus_free"][..., None] - lat)
+    tau = torch.clamp(tau, min=t + 1)
+    return engine.row_min(torch.where(buf["valid"], tau, engine.INF_T))
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +430,6 @@ def make_stacked_step(cfg: SimConfig, pols, pool, active, cfgs, row_cfg):
     of the two value knobs it reads, admission's `gpu_cap` and the
     power-down `energy_pd_idle` (`params.row_config`).
     """
-    engine.check_ported(cfg)
     P = len(pols)
     W = active.shape[0]
     rpool, ractive = shared_inputs(pool, active, P)
@@ -340,8 +439,10 @@ def make_stacked_step(cfg: SimConfig, pols, pool, active, cfgs, row_cfg):
     issue_union = sorted(set().union(*(p.stacked_issue_keys for p in pols)))
     split = lambda x: x.split(W)
 
-    def step(carry, t: int):
+    def step(carry, t: int, own=None):
         st, buf, dram = carry
+        if cfg.telemetry_enabled:
+            snap = telemetry.snapshot(st, buf, dram)
         st, dram = engine.completions_tick(st, dram, t)
         dram = energy.background_tick(row_cfg, dram, t)
         st = engine.deadline_tick(cfg, rpool, st, t)
@@ -370,6 +471,80 @@ def make_stacked_step(cfg: SimConfig, pols, pool, active, cfgs, row_cfg):
                               src_[i], t) for i, p in enumerate(pols)]
             buf = merge_rows(buf, bv, new, issue_union)
         buf = clear_picked(cfg, rpool, buf, do, pick, src)
+        if cfg.telemetry_enabled:
+            dram = telemetry.tick_accrue(cfg, rpool, snap, st, buf, dram, t,
+                                         own)
+        if cfg.validate_enabled:
+            # conservation laws per slice: policy invariants differ
+            dram = add_violations(dram, slice_counts(
+                pols, lambda i, p, sv, bv, dv: validate.tick_counts(
+                    cfgs[i], pool, p, sv, bv, dv, t), st, buf, dram, W))
         return (st, buf, dram), None
 
     return step
+
+
+def slice_counts(pols, fn, st, buf, dram, W: int) -> torch.Tensor:
+    """fn(i, pol, st, buf, dram) on each slice's row views, re-folded."""
+    P = len(pols)
+    sv, bv, dv = (row_views(x, P, W) for x in (st, buf, dram))
+    return torch.cat([fn(i, p, sv[i], bv[i], dv[i])
+                      for i, p in enumerate(pols)])
+
+
+def add_violations(dram, counts) -> Dict[str, Any]:
+    return {**dram, "viol": dram["viol"] + counts}
+
+
+def with_slices(te: torch.Tensor, nbs, W: int) -> torch.Tensor:
+    """Per-row witnesses `te` folded with each slice's own witness `nbs[i]`
+    (a host int, a (W,) tensor, or None) on its rows."""
+    if all(nb is None for nb in nbs):
+        return te
+    if all(not isinstance(nb, torch.Tensor) for nb in nbs) and \
+            len({nb for nb in nbs}) == 1:
+        return engine.earliest(te, nbs[0])
+    return torch.cat([engine.earliest(part, nb)
+                      for part, nb in zip(te.split(W), nbs)])
+
+
+def make_stacked_skip_step(cfg: SimConfig, pols, pool, active, cfgs,
+                           row_cfg, fold: int):
+    """The stacked family's skip body (see `policy.make_skip_step` for the
+    solo one): the shared witnesses and accruals once over every row, each
+    slice's `next_boundary` and the sanitizer's span audit per slice.
+    `fold`: the slices share one clock per workload (fold = P, the stacked
+    drivers) or each row has its own (fold = 1, a knob grid). None when a
+    slice has no `next_event`."""
+    if not all(hasattr(p, "next_event") for p in pols):
+        return None
+    P = len(pols)
+    W = active.shape[0]
+    rpool, ractive = shared_inputs(pool, active, P)
+
+    def witness(carry, t: int):
+        st, buf, dram = carry
+        te = engine.next_source_event(cfg, rpool, st, ractive, t)
+        te = engine.earliest(te, engine.next_completion(dram, t))
+        te = engine.earliest(te, next_admission(row_cfg, rpool, st, buf, t))
+        te = engine.earliest(te, next_issue_ready(cfg, buf, dram, t))
+        sv, bv = row_views(st, P, W), row_views(buf, P, W)
+        return with_slices(te, [p.next_boundary(cfgs[i], pool, sv[i], bv[i],
+                                                t)
+                                for i, p in enumerate(pols)], W)
+
+    def accrue(carry, t: int, t_new: int):
+        st, buf, dram = carry
+        st = engine.skip_sources(cfg, rpool, st, ractive, t_new - t - 1)
+        if cfg.telemetry_enabled:
+            # before energy.skip_accrue: reads the pre-span pd_down
+            dram = telemetry.skip_accrue(row_cfg, rpool, st, dram, t, t_new)
+        dram = energy.skip_accrue(row_cfg, dram, t, t_new)
+        if cfg.validate_enabled:
+            dram = add_violations(dram, slice_counts(
+                pols, lambda i, p, sv, bv, dv: validate.span_counts(
+                    cfgs[i], pool, p, sv, bv, dv, active, t, t_new),
+                st, buf, dram, W))
+        return st, buf, dram
+
+    return engine.SkipBody(witness, accrue, fold, cfg.telemetry_enabled)

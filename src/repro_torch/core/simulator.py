@@ -1,6 +1,6 @@
 """Simulation drivers: a loop over cycles, a leading axis over workloads.
 
-Port of the ticked drivers of ``repro/core/simulator.py``.
+Port of ``repro/core/simulator.py``.
 ``simulate(cfg, policy, pool_batch, active_batch, n_cycles, warmup)`` runs a
 batch of W workloads through one scheduler and returns per-source metrics,
 delta-measured after a warm-up. Every state tensor carries the workload
@@ -13,12 +13,17 @@ The stacked and grid drivers (``simulate_stacked``, ``simulate_grid``,
 P slices of W workloads are P·W rows of one run, each slice equal to its
 solo run (`schedulers.make_stacked_step`, `policy.make_folded_step`).
 
+Every driver takes ``skip``: ticked (every cycle) or the variable-step
+driver (``skip=True``), which processes a cycle and jumps to the earliest
+witnessed next event, bit-identical to ticking. The reference runs one
+`while_loop` per workload under `vmap`; here one host cycle counter drives
+every row, and each clock group (a row; a workload across its slices on
+the stacked drivers) keeps its own next event, so every group processes
+exactly the cycles the reference's loop does (see `_run_cycles`).
+
 The entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise. Policies resolve by name
 through `repro_torch.core.policy.POLICY_REGISTRY`.
-
-Not ported yet (slice B2): the variable-step driver (``skip=True``), the
-sanitizer and the flight recorder.
 """
 from __future__ import annotations
 
@@ -65,10 +70,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_skip(skip) -> None:
-    if skip:
-        raise NotImplementedError(
-            "skip=True: the variable-step driver comes with slice B2")
+# Variable-step driver default. skip=True jumps idle spans (bit-identical to
+# ticking) but pays the witnesses on every processed step, so it is opt-in:
+# a win on bursty, idle-heavy traffic, a loss on saturated sweeps.
+DEFAULT_SKIP = False
+
+# host reads of the variable-step driver: one per processed step
+host_reads = 0
 
 
 def _init(cfg: SimConfig, policy: str, W: int, device):
@@ -82,20 +90,68 @@ def _init(cfg: SimConfig, policy: str, W: int, device):
     return params.bind(cfg, kn), pol, carry
 
 
-def _run_cycles(step, carry, t0: int, t1: int):
-    """Run cycles [t0, t1): the one driver loop of every `simulate*`."""
-    for t in range(t0, t1):
-        carry, _ = step(carry, t)
-    return carry
+def _run_cycles(step, skip, carry, t0: int, t1: int, check=None):
+    """Run cycles [t0, t1): the one driver loop of every `simulate*`.
+
+    Ticked (`skip` None): every cycle, with no host read. Skipping (`skip`
+    an `engine.SkipBody`): each clock group g keeps `own_next[g]`, the next
+    cycle of its own trajectory, starting at t0. Each processed step runs
+    the ticked step at t = min(own_next) for every row, then asks every
+    row's witnesses; a group whose own cycle t is sets its next one to the
+    minimum witness over its rows (at most t1) and counts the step. The
+    minimum over groups, read on the host once per step, is the next
+    processed cycle; the skipped span between them is accrued in closed
+    form for every row. A group woken by another group's event processes a
+    cycle at which nothing happens, which is ticked-identical (contract
+    rule 1), and its own pending witness still binds: every group processes
+    exactly the reference's trajectory and counts exactly its steps.
+
+    `check(carry, t)`, if given, runs after each processed cycle t.
+    Returns (carry, steps): steps is t1 - t0 when ticked, else the (G,)
+    int32 processed steps of each group.
+    """
+    global host_reads
+    if skip is None:
+        for t in range(t0, t1):
+            carry, _ = step(carry, t)
+            if check is not None:
+                check(carry, t)
+        return carry, t1 - t0
+    st = carry[0]
+    R, dev = st["outstanding"].shape[0], st["outstanding"].device
+    G = R // skip.fold
+    own_next = torch.full((G,), t0, dtype=torch.int64, device=dev)
+    steps = torch.zeros((G,), dtype=torch.int32, device=dev)
+    t = t0
+    while t < t1:
+        mine = own_next == t
+        own = mine.repeat(skip.fold) if skip.meter else None
+        carry, _ = step(carry, t, own)
+        w = skip.witness(carry, t)
+        if skip.fold > 1:
+            w = torch.amin(w.reshape(skip.fold, G), dim=0)
+        own_next = torch.where(mine, torch.clamp(w, max=t1), own_next)
+        steps = steps + mine.to(torch.int32)
+        t_new = int(own_next.min())
+        host_reads += 1
+        if t_new <= t:
+            raise RuntimeError(f"a witness returned cycle {t_new} at cycle "
+                               f"{t}; witnesses must lie after t")
+        if t_new > t + 1:
+            carry = skip.accrue(carry, t, t_new)
+        if check is not None:
+            check(carry, t)
+        t = t_new
+    return carry, steps
 
 
-def _scan_and_measure(cfg: SimConfig, step, carry, n_cycles: int,
+def _scan_and_measure(cfg: SimConfig, step, skip, carry, n_cycles: int,
                       warmup: int) -> Dict[str, torch.Tensor]:
     """Warm-up run, stat snapshot, measured run, delta metrics ((W, ...)).
 
     The state is never written in place, so the snapshot keeps the
     warm-up's tensors by reference."""
-    carry = _run_cycles(step, carry, 0, warmup)
+    carry, _ = _run_cycles(step, skip, carry, 0, warmup)
     st_w, sched_w, dram_w = carry
     energy_on = all(k in dram_w for k in _ENERGY_SNAP)
     qos_on = all(k in dram_w for k in _QOS_SNAP)
@@ -106,7 +162,7 @@ def _scan_and_measure(cfg: SimConfig, step, carry, n_cycles: int,
     if qos_on:
         snap.update({k: dram_w[k] for k in _QOS_SNAP})
     sched_snap = {k: sched_w[k] for k in _SCHED_SNAP if k in sched_w}
-    carry = _run_cycles(step, carry, warmup, warmup + n_cycles)
+    carry, steps = _run_cycles(step, skip, carry, warmup, warmup + n_cycles)
     st_f, sched_f, dram_f = carry
 
     f32 = torch.float32
@@ -131,13 +187,25 @@ def _scan_and_measure(cfg: SimConfig, step, carry, n_cycles: int,
         "dl_met": d("dl_met"),
         "dl_missed": d("dl_missed"),
         "frames_released": d("frames_released"),
-        # processed cycles in the measured window (every cycle: ticked)
-        "sim_steps": torch.full(st_f["completed"].shape[:-1],
-                                float(n_cycles), dtype=f32,
-                                device=completed.device),
+        # processed cycles in the measured window: n_cycles when ticked,
+        # each row's clock group's own steps when skipping (the skip ratio
+        # is 1 - sim_steps / n_cycles); a driver property
+        "sim_steps": (torch.full(st_f["completed"].shape[:-1],
+                                 float(n_cycles), dtype=f32,
+                                 device=completed.device) if skip is None
+                      else steps.repeat(skip.fold).to(f32)),
     }
     if qos_on:
         out["lat_hist"] = d("lat_hist")               # (W, S, BINS) counts
+    if "viol" in dram_f:
+        # sanitizer counters are cumulative, not delta-measured: a warm-up
+        # violation is still one. (W, NV); `validate.summarize` names them
+        out["violations"] = dram_f["viol"].to(f32)
+    if "tl_ring" in dram_f:
+        # the flight-recorder ring is windowed, not delta-measured: (W,
+        # window, K) and the final epoch (W,) that maps slots to epochs
+        out["telemetry"] = dram_f["tl_ring"].to(f32)
+        out["telemetry_epoch"] = dram_f["tl_epoch"].to(f32)
     for k, name in _SCHED_SNAP.items():
         if k in sched_snap:
             out[name] = sched_f[k].to(f32) - sched_snap[k].to(f32)
@@ -251,15 +319,23 @@ def _pool_and_active(pool_batch, active_batch, dev):
     return pool, torch.as_tensor(active.astype(bool)).to(dev)
 
 
+def _skip(skip) -> bool:
+    return DEFAULT_SKIP if skip is None else bool(skip)
+
+
 def prepare_run(cfg: SimConfig, policy: str, pool_batch: Dict[str, Any],
-                active_batch, *, device=None):
-    """(bound cfg, step, carry) of a batched run, nothing simulated yet: the
-    pool and the zero state on the device. Every host-to-device copy of a
-    run happens here; the cycle loop that follows makes none."""
+                active_batch, skip: bool = None, *, device=None):
+    """(bound cfg, step, skip body, carry) of a batched run, nothing
+    simulated yet: the pool and the zero state on the device. Every
+    host-to-device copy of a run happens here; the cycle loop that follows
+    makes none (the skipping loop reads one int64 per processed step). The
+    skip body is None for a ticked run."""
     dev = resolve_device(device)
     pool, active = _pool_and_active(pool_batch, active_batch, dev)
     cfg, pol, carry = _init(cfg, policy, active.shape[0], dev)
-    return cfg, policy_api.make_step(cfg, pol, pool, active), carry
+    body = policy_api.make_skip_step(cfg, pol, pool, active) \
+        if _skip(skip) else None
+    return cfg, policy_api.make_step(cfg, pol, pool, active), body, carry
 
 
 def simulate(cfg: SimConfig, policy: str, pool_batch: Dict[str, Any],
@@ -267,10 +343,9 @@ def simulate(cfg: SimConfig, policy: str, pool_batch: Dict[str, Any],
              skip: bool = None, *, device=None) -> Dict[str, np.ndarray]:
     """pool_batch: dict of (W, S) arrays; active_batch: (W, S) bool.
     Returns (W, ...) numpy metrics."""
-    _check_skip(skip)
-    cfg, step, carry = prepare_run(cfg, policy, pool_batch, active_batch,
-                                   device=device)
-    out = _scan_and_measure(cfg, step, carry, n_cycles, warmup)
+    out = _scan_and_measure(*prepare_run(cfg, policy, pool_batch,
+                                         active_batch, skip, device=device),
+                            n_cycles, warmup)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -293,23 +368,27 @@ def simulate_debug(cfg: SimConfig, policy: str, pool: Dict[str, Any],
     pool: dict of (S,) arrays; active: (S,) bool.
     Returns (src_state, sched_state, dram_state) as numpy trees.
     """
-    _check_skip(skip)
-    dev = resolve_device(device)
+    return _debug_run(cfg, policy, pool, active, n_cycles, skip, device)
+
+
+def _debug_run(cfg, policy, pool, active, n_cycles, skip, device,
+               check=None):
+    """`simulate_debug`, with `check(carry, t)` after each processed cycle
+    (`validate.debug_check`)."""
     _check_pool(pool, (cfg.n_src,))
-    pool = prepare_pool({k: _host(v)[None] for k, v in pool.items()},
-                        (1, cfg.n_src), dev)
-    active = torch.as_tensor(_host(active).astype(bool)[None]).to(dev)
-    cfg, pol, carry = _init(cfg, policy, 1, dev)
-    step = policy_api.make_step(cfg, pol, pool, active)
-    carry = _run_cycles(step, carry, 0, n_cycles)
+    batch = {k: _host(v)[None] for k, v in pool.items()}
+    _, step, body, carry = prepare_run(cfg, policy, batch,
+                                       _host(active).astype(bool)[None],
+                                       skip, device=device)
+    carry, _ = _run_cycles(step, body, carry, 0, n_cycles, check)
     return tuple({k: v[0] for k, v in _export_state(tree).items()}
                  for tree in carry)
 
 
 # ---------------------------------------------------------------------------
 # folded drivers: P slices (policies, knob points, or both) as P·W rows of
-# one run. Each slice equals its solo run in every metric; `sim_steps` is
-# the family's (every cycle, ticked).
+# one run. Each slice equals its solo run in every metric; on the stacked
+# drivers `sim_steps` is the family's, per workload (one clock per workload).
 # ---------------------------------------------------------------------------
 
 def stackable_names(cfg: SimConfig, policies=None) -> Tuple[str, ...]:
@@ -346,10 +425,11 @@ def _fold(cfg: SimConfig, pols, W: int, dev):
 
 
 def prepare_stacked_run(cfg: SimConfig, slices, pool_batch: Dict[str, Any],
-                        active_batch, *, device=None):
-    """(cfg, step, carry) of a stacked run over `slices` (policy names, or
-    (name, overrides) pairs; policies may repeat), nothing simulated yet.
-    Every slice must be stackable under its config."""
+                        active_batch, skip: bool = None, *, device=None):
+    """(cfg, step, skip body, carry) of a stacked run over `slices` (policy
+    names, or (name, overrides) pairs; policies may repeat), nothing
+    simulated yet. Every slice must be stackable under its config; the
+    slices share one clock per workload."""
     dev = resolve_device(device)
     pool, active = _pool_and_active(pool_batch, active_batch, dev)
     W = active.shape[0]
@@ -361,18 +441,24 @@ def prepare_stacked_run(cfg: SimConfig, slices, pool_batch: Dict[str, Any],
     pols = [policy_api.get(n) for n in names]
     # period overrides never touch a shape: one union schema for the family
     carry = _fold(cfg, pols, W, dev)
-    step = schedulers.make_stacked_step(
-        cfg, pols, pool, active, bound, params.row_config(cfg, bound, W, dev))
-    return cfg, step, carry
+    row_cfg = params.row_config(cfg, bound, W, dev)
+    step = schedulers.make_stacked_step(cfg, pols, pool, active, bound,
+                                        row_cfg)
+    body = schedulers.make_stacked_skip_step(
+        cfg, pols, pool, active, bound, row_cfg, len(pols)) \
+        if _skip(skip) else None
+    return cfg, step, body, carry
 
 
 def prepare_grid_run(cfg: SimConfig, policy: str, points,
-                     pool_batch: Dict[str, Any], active_batch, *,
-                     device=None):
-    """(cfg, step, carry) of one policy at V knob points (value-knob
-    override dicts or `Knobs`), nothing simulated yet. A stackable
-    centralized policy takes the stacked step with V slices of itself; any
-    other (sms) the folded step, its `tick` and `select` per slice."""
+                     pool_batch: Dict[str, Any], active_batch,
+                     skip: bool = None, *, device=None):
+    """(cfg, step, skip body, carry) of one policy at V knob points
+    (value-knob override dicts or `Knobs`), nothing simulated yet. A
+    stackable centralized policy takes the stacked step with V slices of
+    itself; any other (sms) the folded step, its `tick` and `select` per
+    slice. Every row keeps its own clock, as each point of the reference's
+    grid does."""
     dev = resolve_device(device)
     pool, active = _pool_and_active(pool_batch, active_batch, dev)
     W = active.shape[0]
@@ -382,18 +468,25 @@ def prepare_grid_run(cfg: SimConfig, policy: str, points,
              for kn in params.knob_points(cfg, points)]
     V = len(bound)
     row_cfg = params.row_config(cfg, bound, W, dev)
+    body = None
     if isinstance(pol, schedulers.CentralizedPolicy) and pol.stackable:
         step = schedulers.make_stacked_step(cfg, [pol] * V, pool, active,
                                             bound, row_cfg)
+        if _skip(skip):
+            body = schedulers.make_stacked_skip_step(
+                cfg, [pol] * V, pool, active, bound, row_cfg, 1)
     else:
         step = policy_api.make_folded_step(cfg, pol, pool, active, bound,
                                            row_cfg)
-    return cfg, step, _fold(cfg, [pol] * V, W, dev)
+        if _skip(skip):
+            body = policy_api.make_folded_skip_step(cfg, pol, pool, active,
+                                                    bound, row_cfg)
+    return cfg, step, body, _fold(cfg, [pol] * V, W, dev)
 
 
-def _measure_slices(cfg, step, carry, n, n_cycles, warmup, W) -> list:
+def _measure_slices(prep, n, n_cycles, warmup, W) -> list:
     """Run and measure a folded run; per-slice (W, ...) numpy metrics."""
-    out = _scan_and_measure(cfg, step, carry, n_cycles, warmup)
+    out = _scan_and_measure(*prep, n_cycles, warmup)
     host = {k: v.cpu().numpy() for k, v in out.items()}
     return [{k: v[i * W:(i + 1) * W] for k, v in host.items()}
             for i in range(n)]
@@ -404,8 +497,8 @@ def simulate_stacked(cfg: SimConfig, policies, pool_batch: Dict[str, Any],
                      warmup: int = 2_000, skip: bool = None, *,
                      device=None) -> Dict[str, Dict[str, np.ndarray]]:
     """Per-policy (W, ...) metrics of a stacked family, keyed by name. Each
-    slice equals the policy's own `simulate` run; `sim_steps` is the
-    family's."""
+    slice equals the policy's own `simulate` run but for `sim_steps`, which
+    is the family's: the slices share one clock per workload."""
     policies = tuple(policies)
     return dict(zip(policies, simulate_stacked_grid(
         cfg, policies, pool_batch, active_batch, n_cycles, warmup, skip,
@@ -420,13 +513,11 @@ def simulate_grid(cfg: SimConfig, policy: str, points,
     (value-knob override dicts or `Knobs`), parallel to `points`. Each
     equals a `simulate` run with the same values baked into SimConfig;
     period-like knobs are refused here (see `simulate_stacked_grid`)."""
-    _check_skip(skip)
     points = list(points)
-    cfg, step, carry = prepare_grid_run(cfg, policy, points, pool_batch,
-                                        active_batch, device=device)
+    prep = prepare_grid_run(cfg, policy, points, pool_batch, active_batch,
+                            skip, device=device)
     W = _host(active_batch).shape[0]
-    return _measure_slices(cfg, step, carry, len(points), n_cycles, warmup,
-                           W)
+    return _measure_slices(prep, len(points), n_cycles, warmup, W)
 
 
 def simulate_stacked_grid(cfg: SimConfig, slices,
@@ -439,13 +530,11 @@ def simulate_stacked_grid(cfg: SimConfig, slices,
     hooks keep their own period as a Python int). Policies may repeat. Each
     slice equals a solo `simulate` run with its overrides baked into
     SimConfig, but for the family's `sim_steps`."""
-    _check_skip(skip)
     slices = list(slices)
-    cfg, step, carry = prepare_stacked_run(cfg, slices, pool_batch,
-                                           active_batch, device=device)
+    prep = prepare_stacked_run(cfg, slices, pool_batch, active_batch, skip,
+                               device=device)
     W = _host(active_batch).shape[0]
-    return _measure_slices(cfg, step, carry, len(slices), n_cycles, warmup,
-                           W)
+    return _measure_slices(prep, len(slices), n_cycles, warmup, W)
 
 
 def simulate_debug_stacked(cfg: SimConfig, policies, pool: Dict[str, Any],
@@ -457,14 +546,14 @@ def simulate_debug_stacked(cfg: SimConfig, policies, pool: Dict[str, Any],
     the reference's dtypes: each policy's slice of the final stacked state,
     its scheduler state restricted to the policy's own (unpadded) keys.
     """
-    _check_skip(skip)
     policies = tuple(policies)
     dev = resolve_device(device)
     _check_pool(pool, (cfg.n_src,))
     batch = {k: _host(v)[None] for k, v in pool.items()}
-    cfg, step, carry = prepare_stacked_run(
-        cfg, policies, batch, _host(active).astype(bool)[None], device=dev)
-    carry = _run_cycles(step, carry, 0, n_cycles)
+    cfg, step, body, carry = prepare_stacked_run(
+        cfg, policies, batch, _host(active).astype(bool)[None], skip,
+        device=dev)
+    carry, _ = _run_cycles(step, body, carry, 0, n_cycles)
     st_f, sched_f, dram_f = (_export_state(tree) for tree in carry)
     own = [set(policy_api.get(p).init_state(cfg, 1, dev)) for p in policies]
     take = lambda tree, i, keys=None: {

@@ -13,7 +13,8 @@ decoupled stages, all simple FIFOs:
 
 Stages 1+2 form the registered policy's `tick`, stage 3 its `select`. The
 stage-2 rng (`rng2`) is a uint32 LCG held in int64, like the source rng.
-The skip witnesses and the sanitizer hooks come with slice B2.
+`next_stage_event` and `skip_cycles` are the variable-step driver's witness
+and span replay; `check_invariants` and `audit_skip` the sanitizer's hooks.
 """
 from __future__ import annotations
 
@@ -246,3 +247,113 @@ def stage3_issue(cfg: SimConfig, st, sms, dram, t):
     sms["rr_bank"] = torch.where(do, (pick + 1) % B,
                                  sms["rr_bank"]).to(torch.int32)
     return st, sms, dram
+
+
+# ---------------------------------------------------------------------------
+# variable-step driver witnesses (ROADMAP "Variable-step driver contract")
+# ---------------------------------------------------------------------------
+
+def _stage_ready(cfg: SimConfig, st, sms, t):
+    """(W,) stage 1 (a pending register with FIFO room) and stage 2 (an
+    active drain, or an idle channel with a ready batch) at cycle t."""
+    ch = engine.channel_of(cfg, st["pend_bank"])
+    room = _at_channel(sms["f_len"], ch) < cfg.fifo_size
+    s1 = torch.any(st["pend_valid"] & room, dim=-1)
+    _, ready = batch_info(cfg, sms, t)
+    idle = sms["drain_left"] <= 0
+    s2 = torch.any(~idle, dim=-1) | \
+        torch.any(idle & torch.any(ready, dim=-1), dim=-1)
+    return s1, s2, ready
+
+
+def _dcs_heads(cfg: SimConfig, sms, dram, t):
+    """Issue eligibility of every per-bank DCS head at cycle t, (W, C, B)."""
+    head = sms["d_head"]
+    banks = engine.arange(cfg.n_banks, head.device).expand(head.shape)
+    row = engine.take(sms["d_row"], head)
+    return engine.eligibility(cfg, dram, banks, row, sms["d_len"] > 0, t)[0]
+
+
+def next_stage_event(cfg: SimConfig, st, sms, dram, t):
+    """(W,) earliest cycle > t at which any of the three stages could act:
+    stage 1 while a pending register has FIFO room; stage 2 while a channel
+    drains or could start a batch, and the age at which a quiet front batch
+    turns ready; stage 3 the DRAM timing gates of the DCS heads, inverted.
+    The dash pick needs no witness: it is consulted only when a drain
+    starts, which is witnessed."""
+    tm = cfg.timing
+    INF = engine.INF_T
+    t1 = t + 1
+    s1, s2, ready = _stage_ready(cfg, st, sms, t)
+    w1 = torch.where(s1, t1, INF)
+    w2 = torch.where(s2, t1, INF)
+    # aging: a nonempty, not-yet-ready FIFO turns ready at head_birth + cap
+    head_birth = engine.take(sms["f_birth"], sms["f_head"])      # (W, C, S)
+    w_age = engine.row_min(torch.where(
+        (sms["f_len"] > 0) & ~ready,
+        torch.clamp(head_birth + cfg.batch_age_cap, min=t1), INF))
+    # stage 3: the DCS heads' issue-eligibility times
+    row = engine.take(sms["d_row"], sms["d_head"])               # (W, C, B)
+    openv = dram["open_valid"]
+    is_hit = openv & (dram["open_row"] == row)
+    lat = torch.where(is_hit, tm.lat_hit,
+                      torch.where(openv, tm.lat_conflict, tm.lat_closed)
+                      ).to(torch.int32)
+    faw_ready = torch.amin(dram["act_ring"], dim=-1)[..., None] + tm.t_faw
+    tau = torch.maximum(dram["bank_free"],
+                        torch.where(is_hit, engine.NEG_T, faw_ready))
+    tau = torch.maximum(tau, dram["bus_free"][..., None] - lat)
+    tau = torch.clamp(tau, min=t1)
+    w3 = engine.row_min(torch.where(sms["d_len"] > 0, tau, INF))
+    return torch.minimum(torch.minimum(w1, w2),
+                         torch.minimum(w_age, w3).to(torch.int64))
+
+
+def skip_cycles(sms: Dict[str, Any], k: int) -> Dict[str, Any]:
+    """Replay k skipped cycles of stage-2 state in closed form: the batch
+    scheduler draws `rng2` once per cycle."""
+    return {**sms, "rng2": engine.lcg_skip(sms["rng2"], k)}
+
+
+# ---------------------------------------------------------------------------
+# invariant-sanitizer hooks (repro_torch.core.validate)
+# ---------------------------------------------------------------------------
+
+def check_invariants(cfg: SimConfig, sms: Dict[str, Any], t):
+    """(W,) count of violated staged-structure invariants: FIFO/DCS
+    occupancy within bounds, heads in range, `front_run` equal to a full
+    recount, a non-negative drain counter, and the stage-2 rng stream at
+    its closed-form position (one draw per cycle, ticked or skipped)."""
+    from repro_torch.core.validate import nbool
+    C, F, D = cfg.n_channels, cfg.fifo_size, cfg.dcs_size
+    bad = nbool((sms["f_len"] < 0) | (sms["f_len"] > F))
+    bad = bad + nbool((sms["f_head"] < 0) | (sms["f_head"] >= F))
+    bad = bad + nbool((sms["d_len"] < 0) | (sms["d_len"] > D))
+    bad = bad + nbool((sms["d_head"] < 0) | (sms["d_head"] >= D))
+    bad = bad + nbool(sms["drain_left"] < 0)
+    bad = bad + nbool((sms["front_run"] < 0)
+                      | (sms["front_run"] > sms["f_len"]))
+    bad = bad + nbool((sms["f_len"] > 0) & (sms["front_run"] == 0))
+    run = _run_from_head(sms["f_row"], sms["f_bank"], sms["f_head"],
+                         sms["f_len"], F)
+    bad = bad + nbool((sms["f_len"] > 0) & (run != sms["front_run"]))
+    dev = sms["rng2"].device
+    rng0 = engine.device_const(
+        ("rng2_0", C), dev, lambda: engine.u32_init(C, 40503, 40503, dev))
+    return bad + nbool(sms["rng2"] != engine.lcg_skip(rng0, t + 1))
+
+
+def audit_skip(cfg: SimConfig, st, sms: Dict[str, Any], dram, t, t_new):
+    """Would-fire lateness predicates of a jumped span, from the stage
+    conditions at the last skipped cycle u (stage state is frozen over a
+    span; only the age predicate depends on t, monotonically). Stage-1
+    pushes report as late_admission, stage-2 batch events as late_boundary,
+    stage-3 DCS-head eligibility as late_issue."""
+    if t_new - t <= 1:
+        return {}
+    u = t_new - 1
+    s1, s2, _ = _stage_ready(cfg, st, sms, u)
+    elig = _dcs_heads(cfg, sms, dram, u)
+    return {"late_admission": s1.to(torch.int32),
+            "late_boundary": s2.to(torch.int32),
+            "late_issue": engine.row_any(elig).to(torch.int32)}

@@ -39,6 +39,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert "repro_torch.serving.paged_lm" in mods
     assert "repro_torch.kernels.flash_attention.ops" in mods
     assert "repro_torch.core.simulator" in mods
+    for name in ("validate", "faults", "telemetry"):
+        assert f"repro_torch.core.{name}" in mods
     r = subprocess.run([sys.executable, "-c", code, *mods], cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                        capture_output=True, text=True, timeout=120)

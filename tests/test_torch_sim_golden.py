@@ -129,14 +129,3 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsim.simulate(CFG, "sms", batch, np.ones((1, CFG.n_src), bool), 5, 1)
     assert tsim.resolve_device("cpu").type == "cpu"
-
-
-@pytest.mark.parametrize("what", ["skip", "validate_enabled",
-                                  "telemetry_enabled"])
-def test_unported_drivers_name_slice_b(what):
-    pool = _golden_pool(CFG)
-    cfg = CFG if what == "skip" else CFG.replace(**{what: True})
-    kw = {"skip": True} if what == "skip" else {}
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tsim.simulate_debug(cfg, "frfcfs", pool, np.ones(CFG.n_src, bool),
-                            n_cycles=5, device="cpu", **kw)

@@ -149,13 +149,6 @@ def test_stackable_surface():
     with pytest.raises(ValueError, match="not stackable"):
         tsim.simulate_stacked(CFG, ("frfcfs", "sms"), *_batch(1), 5, 1,
                               device="cpu")
-    for what in ("telemetry_enabled", "validate_enabled"):
-        with pytest.raises(NotImplementedError, match="slice B"):
-            tsim.simulate_stacked(CFG.replace(**{what: True}), FAMILY,
-                                  *_batch(1), 5, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tsim.simulate_stacked(CFG, FAMILY, *_batch(1), 5, 1, skip=True,
-                              device="cpu")
 
 
 def test_undeclared_write_is_dropped():
