@@ -62,7 +62,31 @@ Phases (any failure exits non-zero):
              layer 1's own q, k, v and gates against the layer's chunk
              scan; ``prefill`` of S-1 tokens and 8 greedy ``decode_step``s,
              the first held against the forward's last position.
-8. sim     — the cycle simulator's main path (src/repro_torch/core), which
+8. train   — the training path (src/repro_torch/{data,optim,train,
+             checkpoint}, launch/train.py), which runs no hand-written
+             kernel (K1-K3 launch 0 times in it): (a) reduced xLSTM (5
+             layers) and Qwen (2 layers), f32: three train steps on the card
+             against the same steps on the CPU from one set of weights and
+             batches, then one microbatched and one top-k step; losses, grad
+             norms, lr, every parameter, moment and error-feedback leaf (the
+             parameters at atol 2e-5 + 0.1 lr per update, the reason
+             printed); (b) xLSTM-125m at full width and depth through the
+             reference launcher's settings (``launch/train.py``: B=8,
+             S=512, f32, remat none, lr 3e-4), 8 steps with a checkpoint
+             every 4: finite losses, the first within 0.5 of ln V, the last
+             below it; a second Trainer restores step 4 and runs 4 more, its
+             state must equal the continuous run's bit for bit (else at the
+             parameter tolerance, the reason printed); median step ms,
+             tokens/s, peak memory, and kernels per step and the idle share
+             from a torch.profiler window over one step; (c) Qwen1.5-4B at
+             full width, 8 of its 40 layers (f32 AdamW state at 40 layers
+             is 63 GB before activations), B=1, S=2048, f32, remat full, 4
+             steps: losses, step ms, tokens/s, peak memory, model TFLOP/s
+             (6 N tokens per step) beside the f32 peak, kernels and idle
+             share over one profiled step; then a step with use_pallas must
+             raise the kernels' refusal of a gradient. It
+             prints a JSON ``train`` record.
+9. sim     — the cycle simulator's main path (src/repro_torch/core), which
              runs no hand-written kernel (every kernel count stays 0). At
              the goldens' configuration: frfcfs, atlas, parbs, tcm, sms and
              sms_dash alone, and the stackable family (frfcfs, atlas,
@@ -120,10 +144,12 @@ kernel, csrc/mlstm_scan.cu) it times that kernel beside it on the same
 inputs. The small phase also runs a reduced 5-layer xLSTM on the card
 against the CPU.
 
-It prints a JSON ``kernels`` line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``. TF32 is off throughout.
+It prints the whole run's wall time, a JSON ``kernels`` line, the card's
+name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``. TF32 is off throughout.
 """
 import argparse
+import dataclasses
 import gc
 import hashlib
 import importlib.util
@@ -131,9 +157,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -145,7 +173,8 @@ import torch
 from benchmarks_torch import kernel_bench
 from benchmarks_torch.kernel_bench import device_ms as _device_ms
 from benchmarks_torch.kernel_bench import time_ms as _time_ms
-from repro_torch.configs.base import RunConfig, reduced
+from repro_torch import tree as tree_lib
+from repro_torch.configs.base import RunConfig, ShapeConfig, reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.core import faults as sim_faults
 from repro_torch.core import metrics as sim_met
@@ -161,14 +190,18 @@ from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.launch import train as launch_train
 from repro_torch.models import lm, xlstm
 from repro_torch.models.common import rms_norm, softmax_xent
 from repro_torch.models.registry import get_model
+from repro_torch.optim import adamw
 from repro_torch.roofline.analysis import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
                                            bound_ms)
 from repro_torch.serving import paged_lm
 from repro_torch.serving.engine import generate_requests
 from repro_torch.serving.types import default_clients
+from repro_torch.train import steps as train_steps
+from repro_torch.train.trainer import Trainer
 
 F32_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_kernels.py
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)
@@ -1267,6 +1300,308 @@ def phase_xlstm():
     return model_launches["mlstm_scan"]
 
 
+# the training phase: the reduced models card against CPU, then the
+# reference launcher's xLSTM-125m run and Qwen1.5-4B at full width
+TRAIN_DEVICE = "cuda"
+TRAIN_SMALL = (("xlstm-125m", 5), ("qwen1.5-4b", 2))
+TRAIN_SMALL_B, TRAIN_SMALL_S, TRAIN_SMALL_LR = 4, 64, 1e-3
+TRAIN_XLSTM_ARGS = ["--arch", "xlstm-125m", "--steps", "8", "--seq", "512",
+                    "--batch", "8", "--lr", "3e-4", "--ckpt-every", "4"]
+TRAIN_QWEN_LAYERS, TRAIN_QWEN_B, TRAIN_QWEN_S, TRAIN_QWEN_STEPS = 8, 1, 2048, 4
+
+
+def _train_tree_close(name, got, want, atol, *, strays=False,
+                      stray_atol=None):
+    """Every leaf of ``got`` (a tree on any device) against ``want`` (on the
+    CPU) elementwise at (atol, rtol 2e-4); with ``strays`` at most
+    max(2, 0.1%) of a leaf's elements may lie outside, and with
+    ``stray_atol`` those within (stray_atol, rtol 2e-4). Returns the largest
+    |err| over the elements inside and over the strays."""
+    worst, worst_stray = 0.0, 0.0
+    for (k, w), g in zip(tree_lib.flatten_with_path(want),
+                         tree_lib.leaves(got)):
+        w = w.float()
+        err = (g.detach().cpu().float() - w).abs()
+        off = err > atol + F32_TOL["rtol"] * w.abs()
+        n_off = int(off.sum())
+        far = (stray_atol is not None and bool(
+            (err > stray_atol + F32_TOL["rtol"] * w.abs()).any()))
+        if n_off > (max(2, w.numel() // 1000) if strays else 0) or far:
+            raise AssertionError(f"{name} {k}: {n_off} of {w.numel()} "
+                                 f"elements off, max |err| "
+                                 f"{float(err.max()):.3e}")
+        if err.numel():
+            worst = max(worst, float(err.masked_fill(off, 0).max()))
+            worst_stray = max(worst_stray, float(err.max()))
+    return worst, worst_stray
+
+
+def _train_small_case(cfg, run, steps):
+    """``steps`` train steps on the card and on the CPU from one set of
+    weights and batches; returns {device: (metrics, params, opt, err)}."""
+    shape = ShapeConfig("train", "train", TRAIN_SMALL_S, TRAIN_SMALL_B)
+    fn = train_steps.build_train_step(cfg, run, shape)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batches = []
+    for _ in steps:
+        toks = torch.randint(0, cfg.vocab_size,
+                             (TRAIN_SMALL_B, TRAIN_SMALL_S + 1), generator=gen)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    out = {}
+    for dev in (TRAIN_DEVICE, "cpu"):
+        p = tree_lib.tree_map(lambda t: t.to(dev, copy=True), params)
+        opt = adamw.init(p)
+        err = (tree_lib.tree_map(torch.zeros_like, p)
+               if run.grad_compression == "topk"
+               else torch.zeros((), device=dev))
+        mets = []
+        for s, b in zip(steps, batches):
+            p, opt, err, m = fn(p, opt, err, _tree_to(b, dev), s)
+            mets.append({k: float(v) for k, v in m.items()})
+        out[dev] = (mets, p, opt, err)
+    return out
+
+
+def _train_small():
+    """(a) Reduced xLSTM (5 layers) and Qwen (2 layers), f32: three train
+    steps on the card against the CPU, then one microbatched and one top-k
+    step; losses, grad norms, lr, every parameter, moment and error-feedback
+    leaf."""
+    base = RunConfig(compute_dtype="float32", remat="none", lr=TRAIN_SMALL_LR,
+                     warmup_steps=1, total_steps=10)
+    cases = []
+    for arch, n_layers in TRAIN_SMALL:
+        cfg = reduced(get_config(arch), n_layers=n_layers)
+        cases += [(f"{arch} {n_layers}L", cfg, base, (0, 1, 2)),
+                  (f"{arch} {n_layers}L microbatch 2", cfg,
+                   base.replace(microbatch=2), (1,)),
+                  (f"{arch} {n_layers}L top-k 0.2", cfg,
+                   base.replace(grad_compression="topk", topk_ratio=0.2),
+                   (1,))]
+    recs = []
+    for name, cfg, run, steps in cases:
+        out = _train_small_case(cfg, run, steps)
+        (mc, pc, oc, ec), (mh, ph, oh, eh) = out[TRAIN_DEVICE], out["cpu"]
+        topk = run.grad_compression == "topk"
+        for s, a, b in zip(steps, mc, mh):
+            for k in a:
+                if abs(a[k] - b[k]) > F32_TOL["atol"] + \
+                        F32_TOL["rtol"] * abs(b[k]):
+                    raise AssertionError(f"train small {name} step {s} {k}: "
+                                         f"card {a[k]} cpu {b[k]}")
+        updates = sum(m["lr"] > 0 for m in mh)
+        p_atol = F32_TOL["atol"] + 0.1 * run.lr * updates
+        p_err, p_stray = _train_tree_close(
+            name + " params", pc, ph, p_atol, strays=True,
+            stray_atol=F32_TOL["atol"] + 2 * run.lr * updates)
+        m_err = max(_train_tree_close(name + " " + k, getattr(oc, k),
+                                      getattr(oh, k), F32_TOL["atol"],
+                                      strays=topk)[0] for k in ("mu", "nu"))
+        rec = {"case": name, "steps": list(steps),
+               "loss": [m["loss"] for m in mc],
+               "loss_cpu": [m["loss"] for m in mh],
+               "grad_norm": [m["grad_norm"] for m in mc],
+               "params_max_abs_err": p_err, "params_atol": p_atol,
+               "params_max_abs_err_strays": p_stray,
+               "moments_max_abs_err": m_err}
+        if topk:
+            rec["err_max_abs_err"] = _train_tree_close(
+                name + " err", ec, eh, F32_TOL["atol"], strays=True)[0]
+        recs.append(rec)
+        print(f"[train] small {name}: steps {list(steps)}, card loss "
+              f"{rec['loss']} (cpu {rec['loss_cpu']}), grad norm "
+              f"{rec['grad_norm']}; params max|err| {p_err:.3e} (atol "
+              f"{p_atol:.1e}; with the strays {p_stray:.3e}), moments "
+              f"{m_err:.3e}" + (f", error feedback {rec['err_max_abs_err']:.3e}"
+                                if topk else ""))
+    print("[train] small: parameters are held at atol 2e-5 + 0.1 lr per "
+          "update, but for at most max(2, 0.1%) elements of a leaf, held at "
+          "2e-5 + 2 lr per update: AdamW normalises each element's step "
+          "(lr m_hat / (sqrt(v_hat) + eps)), so an element whose gradient "
+          "sits at float32 rounding or near eps moves by a share of lr, up to "
+          "2 lr, that the two devices' last bits decide; the moments meet "
+          "the f32 bar. Top-k: at most max(2, 0.1%) elements of a leaf, "
+          "those at the k-th magnitude, may be sent on one device and kept "
+          "on the other.")
+    return recs
+
+
+def _train_profile(trainer, state):
+    """One train step under a torch.profiler window (device activity):
+    kernels and copies per step, device busy ms, wall ms, idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        state = trainer.train(1, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.lower().startswith(("memcpy", "memset"))
+                 for e in dev)
+    busy_us = sum(e.device_time_total for e in dev)
+    return state, {"kernels_per_step": len(dev) - copies,
+                   "copies_per_step": copies,
+                   "device_ms": busy_us / 1e3,
+                   "wall_ms_profiled": 1e3 * wall,
+                   "device_idle_share": 1.0 - busy_us / (1e6 * wall)}
+
+
+def _steps_summary(trainer, tokens):
+    times = trainer.step_times[1:]            # the first step warms up
+    ms = 1e3 * statistics.median(times)
+    return {"step_ms_median": ms,
+            "step_ms": [1e3 * t for t in trainer.step_times],
+            "tokens_per_s": tokens / (ms / 1e3)}
+
+
+def _train_xlstm(tmp):
+    """(b) The reference launcher's xLSTM-125m run through
+    ``launch/train.py`` (12 layers, B=8, S=512, f32, remat none, lr 3e-4):
+    8 steps with a checkpoint every 4, then a second Trainer restored from
+    step 4 runs steps 5-8; its state must equal the continuous run's."""
+    d1, d2 = os.path.join(tmp, "run"), os.path.join(tmp, "resume")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr, st = launch_train.main(TRAIN_XLSTM_ARGS + ["--ckpt", d1,
+                                                   "--device", TRAIN_DEVICE])
+    peak = torch.cuda.max_memory_allocated()
+    cfg, shape = tr.cfg, tr.shape
+    n_params = sum(t.numel() for t in tree_lib.leaves(st.params))
+    losses = [m["loss"] for m in tr.metrics_log]
+    ln_v = math.log(cfg.vocab_size)
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - ln_v) > 0.5 or not losses[-1] < losses[0]:
+        raise AssertionError(f"train xlstm: losses {losses} (ln V {ln_v:.3f})")
+    summary = _steps_summary(tr, shape.tokens)
+    shutil.copytree(os.path.join(d1, "step_00000004"),
+                    os.path.join(d2, "step_00000004"))
+    tr2 = launch_train.make_trainer(launch_train.parse_args(
+        TRAIN_XLSTM_ARGS + ["--ckpt", d2, "--device", TRAIN_DEVICE]))
+    st2 = tr2.train(4)
+    if tr2.events[:1] != ["restored step 4"] or st2.step != 8:
+        raise AssertionError(f"train xlstm resume: {tr2.events}, step "
+                             f"{st2.step}")
+    resumed = [m["loss"] for m in tr2.metrics_log]
+    same = resumed == losses[4:] and all(
+        torch.equal(a, b) for a, b in zip(tree_lib.leaves((st.params, st.opt)),
+                                          tree_lib.leaves((st2.params,
+                                                           st2.opt))))
+    resume_err = 0.0
+    if not same:
+        resume_err = _train_tree_close(
+            "train xlstm resume params", st2.params,
+            tree_lib.tree_map(lambda t: t.cpu(), st.params),
+            F32_TOL["atol"] + 0.1 * 3e-4 * 4, strays=True,
+            stray_atol=F32_TOL["atol"] + 2 * 3e-4 * 4)[1]
+        print("[train] xlstm: the resumed run is not bit-identical to the "
+              "continuous one (an operation on the path reduces in no fixed "
+              "order); held at the small cases' parameter rule")
+    del st, tr
+    _, prof = _train_profile(tr2, st2)
+    rec = {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "batch": shape.global_batch, "seq": shape.seq_len,
+           "dtype": "float32", "remat": "none", "losses": losses,
+           "resumed_losses": resumed, "resume_bit_identical": same,
+           "resume_max_abs_err": resume_err,
+           "peak_memory_gib": peak / 2**30, **summary, **prof}
+    print(f"[train] xlstm: {cfg.name} {cfg.n_layers} layers d {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M params f32, B={shape.global_batch} "
+          f"S={shape.seq_len}: losses {[round(x, 4) for x in losses]} (ln V "
+          f"{ln_v:.4f}); median step {summary['step_ms_median']:.1f} ms, "
+          f"{summary['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; resumed from step 4: "
+          f"{'bit-identical' if same else 'max|err| %.3e' % resume_err}; "
+          f"profiled step: {prof['kernels_per_step']} kernels, "
+          f"{prof['copies_per_step']} copies, device {prof['device_ms']:.1f} "
+          f"of {prof['wall_ms_profiled']:.1f} ms, idle "
+          f"{prof['device_idle_share']:.3f}")
+    return rec
+
+
+def _train_qwen():
+    """(c) Qwen1.5-4B at full width, 8 of its 40 layers (f32 AdamW state at
+    all 40 is 63 GB before activations): B=1, S=2048, f32, remat full,
+    4 steps through ``Trainer``; then a step with use_pallas must raise."""
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"),
+                              n_layers=TRAIN_QWEN_LAYERS)
+    run = RunConfig(seq_len=TRAIN_QWEN_S, global_batch=TRAIN_QWEN_B, lr=3e-4,
+                    warmup_steps=1, total_steps=TRAIN_QWEN_STEPS,
+                    compute_dtype="float32", remat="full")
+    shape = ShapeConfig("train", "train", TRAIN_QWEN_S, TRAIN_QWEN_B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, run, shape, device=TRAIN_DEVICE)
+    st = tr.train(TRAIN_QWEN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_lib.leaves(st.params))
+    losses = [m["loss"] for m in tr.metrics_log]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train qwen: losses {losses}")
+    summary = _steps_summary(tr, shape.tokens)
+    tflops = 6 * n_params * shape.tokens / (summary["step_ms_median"] / 1e3)
+    st, prof = _train_profile(tr, st)
+    refused = None
+    try:
+        Trainer(cfg, run.replace(use_pallas=True), shape,
+                device=TRAIN_DEVICE).train(1, state=st)
+    except RuntimeError as e:
+        refused = str(e)
+    if not refused or "no backward" not in refused:
+        raise AssertionError(f"train qwen: a use_pallas step did not raise "
+                             f"the kernel's refusal ({refused!r})")
+    rec = {"config": f"{cfg.name} ({cfg.n_layers} of 40 layers)",
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "batch": shape.global_batch, "seq": shape.seq_len,
+           "dtype": "float32", "remat": "full", "losses": losses,
+           "peak_memory_gib": peak / 2**30, **summary,
+           "model_tflops_per_s": tflops / 1e12,
+           "f32_peak_tflops_per_s": F32_FLOPS_PER_S / 1e12,
+           "use_pallas_step": refused, **prof}
+    print(f"[train] qwen: {rec['config']}, {n_params / 1e9:.3f} B params "
+          f"f32, B={shape.global_batch} S={shape.seq_len}, remat full: losses "
+          f"{[round(x, 4) for x in losses]}; median step "
+          f"{summary['step_ms_median']:.1f} ms, {summary['tokens_per_s']:.1f} "
+          f"tokens/s, {tflops / 1e12:.2f} TFLOP/s (6 N tokens per step; f32 "
+          f"peak {F32_FLOPS_PER_S / 1e12:.0f}), peak memory "
+          f"{peak / 2**30:.2f} GiB; profiled step: "
+          f"{prof['kernels_per_step']} kernels, device "
+          f"{prof['device_ms']:.1f} of {prof['wall_ms_profiled']:.1f} ms, "
+          f"idle {prof['device_idle_share']:.3f}; use_pallas step raised: "
+          f"{refused}")
+    return rec
+
+
+def phase_train():
+    """The training path (no kernel on it: K1-K3 launch 0 times)."""
+    t0 = time.perf_counter()
+    _zero_counts()
+    small = _train_small()
+    with tempfile.TemporaryDirectory() as tmp:
+        xl = _train_xlstm(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qw = _train_qwen()
+    launches = {fn.__name__: fn.launches for fn in
+                (ops.paged_attention, fa_ops.flash_attention,
+                 ml_ops.mlstm_scan)}
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"small": small, "xlstm_125m": xl, "qwen1_5_4b_8_layers": qw,
+           "kernel_launches": launches,
+           "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"train": rec}))
+    return launches
+
+
 # the simulator phase: the goldens' configuration (tests/test_policy_registry
 # and tests/golden_policy_states.json), then the paper's 16 CPUs + 1 GPU on
 # 4 memory channels (benchmarks/fig6_core_scaling.py: "paper: 4 MCs")
@@ -2095,14 +2430,14 @@ def main(argv=None):
     # K2's f32 route runs on the kernel bench (all its flash calls are f32)
     rec_fa["routes"]["simt"]["launches"] = bench["flash_attention"]
     rec_ml["model_path_launches"] = phase_xlstm()
+    phase_train()
     for rec in (rec_pa, rec_fa, rec_ml):
         rec["kernel_bench_launches"] = bench[rec["name"]]
     smi_line = _smi()
     phase_sim(smi_line)
+    print(f"[chip_smoke] wall {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [rec_pa, rec_fa, rec_ml]}))
     print(smi_line)
-    print(f"[chip_smoke] wall {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

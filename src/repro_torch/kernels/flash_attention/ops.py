@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -120,7 +121,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d), one dtype (float32 or
-    bfloat16). Returns (B, Hq, Sq, d). See ``ref.py`` for the semantics."""
+    bfloat16). Returns (B, Hq, Sq, d). See ``ref.py`` for the semantics.
+    Raises where a gradient is needed (``refuse_grad``)."""
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,

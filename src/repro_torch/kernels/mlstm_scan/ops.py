@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -108,7 +109,9 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                chunk: int = 128) -> torch.Tensor:
     """q, k, v: (B, H, S, dh), float32 or bfloat16; lf, li: (B, H, S)
     float32 log-forget and log-input gates. The scan starts from a zero
-    state. Returns h (B, H, S, dh) in q's dtype; see ``ref.py``."""
+    state. Returns h (B, H, S, dh) in q's dtype; see ``ref.py``. Raises
+    where a gradient is needed (``refuse_grad``)."""
+    refuse_grad("mlstm_scan", q, k, v, lf, li)
     chunk = _check(q, k, v, lf, li, chunk)
     if q.device.type == "cpu":
         return mlstm_scan_ref(q, k, v, lf, li, chunk=chunk)

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -139,8 +140,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B, Hq, d); pages: (P, Hkv, page, d) of q's dtype (float32 or
     bfloat16); page_table: (B, n_slots) int32; lengths: (B,) int32.
 
-    Returns (B, Hq, d). See ``ref.py`` for the semantics.
+    Returns (B, Hq, d). See ``ref.py`` for the semantics. Raises where a
+    gradient is needed (``refuse_grad``).
     """
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, page_table, lengths)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,

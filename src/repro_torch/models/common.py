@@ -10,12 +10,14 @@ call sites.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 PyTree = Any
 
@@ -80,6 +82,40 @@ def stack_defs(defs: PyTree, n: int, axis_name: Optional[str] = None) -> PyTree:
         return ParamDef((n,) + defs.shape, (axis_name,) + defs.axes,
                         defs.init, defs.scale)
     return {k: stack_defs(v, n, axis_name) for k, v in defs.items()}
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+# the products without batch dimensions: what the reference's
+# dots_with_no_batch_dims_saveable keeps (a 3-D x @ 2-D w folds into mm;
+# the einsums over heads are bmm and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, mode: str, *args):
+    """``fn(*args)`` under the reference's checkpoint policies: "none" runs
+    it; "full" saves only its inputs (``nothing_saveable``) and recomputes
+    the rest in the backward; "dots" also saves the outputs of its
+    matrix products (``dots_with_no_batch_dims_saveable``). Values and
+    gradients are the same in every mode; only what the backward keeps
+    differs. Without autograd every mode just runs ``fn``."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if mode == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if mode == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat: unknown mode {mode!r} (none, full, dots)")
 
 
 # ---------------------------------------------------------------------------

@@ -18,13 +18,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import (ParamDef, act_fn, apply_rope,
                                        attention, gqa_attention, init_params,
-                                       init_stacked, rms_norm, softcap,
-                                       softmax_xent, stack_defs)
+                                       init_stacked, remat, rms_norm,
+                                       softcap, softmax_xent, stack_defs)
 # re-exported: the tests and older callers take it from here
 from repro_torch.models.common import params_from_numpy  # noqa: F401
 
@@ -262,6 +263,14 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
+def _unbind(tree: PyTree, n: int) -> list:
+    """The ``n`` layers of a tree stacked on a leading layer axis."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def init(gen: torch.Generator, cfg: ModelConfig,
          dtype=torch.float32) -> PyTree:
     """Random weights on ``gen``'s device, drawn in ``dtype``."""
@@ -273,7 +282,9 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 def _embed(params, cfg: ModelConfig, run: RunConfig, batch) -> torch.Tensor:
     dt = getattr(torch, run.compute_dtype)
     emb = params["lm"]["embed"]
-    x = emb[batch["tokens"].long()].to(dt)
+    # F.embedding: its backward sums a row's gradients in a fixed order
+    # (indexing's backward accumulates in no fixed order, on either device)
+    x = F.embedding(batch["tokens"].long(), emb).to(dt)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.n_image_tokens and "image_embeds" in batch:
@@ -296,8 +307,11 @@ def forward_train(params, cfg: ModelConfig, run: RunConfig, batch, *,
     """Full-sequence forward. batch: tokens (B, S) [, image_embeds].
 
     Returns (logits (B, S, V), aux loss). The aux loss is MoE's; the dense
-    families give 0. Run it under ``torch.no_grad()``: the kernel has no
-    backward, as the reference kernel has none.
+    families give 0. Under ``run.use_pallas`` a call that needs a gradient
+    raises (``kernels.refuse_grad``): the kernel has no backward, as the
+    reference kernel has none, so a training step takes use_pallas=False.
+    ``run.remat`` checkpoints each block (``common.remat``), as the
+    reference's ``jax.checkpoint`` over its layer scan does.
     """
     x = _embed(params, cfg, run, batch)
     win = layer_windows(cfg)
@@ -306,9 +320,11 @@ def forward_train(params, cfg: ModelConfig, run: RunConfig, batch, *,
         # local/global layers; a traced window keeps its flash kernel off,
         # so gemma2 runs the plain attention. So does the port.
         run = run.replace(use_pallas=False)
+    # one unbind per stacked leaf: its backward stacks the layers' grads once
+    layers = _unbind(params["blocks"], cfg.n_layers)
     for i in range(cfg.n_layers):
-        x, _ = apply_block(_layer(params["blocks"], i), cfg, run, x,
-                           window=int(win[i]), flash=flash)
+        x = remat(lambda p, h, w=int(win[i]): apply_block(
+            p, cfg, run, h, window=w, flash=flash)[0], run.remat, layers[i], x)
     x = rms_norm(x, params["lm"]["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), torch.zeros((), device=x.device)
 

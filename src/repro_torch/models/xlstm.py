@@ -10,7 +10,7 @@ State is stabilized in log space: the carried (C, n) have the running max
 m factored out (true C = C * e^m). The state math is float32 exactly where
 the reference casts. Like the reference, the model keeps its own chunk
 scan; the mLSTM scan kernel (``kernels/mlstm_scan``) is a standalone op.
-``run.remat`` is ignored, as in ``models/lm.py``.
+``forward_train`` checkpoints each block under ``run.remat``.
 
 The parameter tree is ``{"embed", "final_norm", "blocks": [...]}`` with
 ``blocks`` a list of per-layer dicts (sLSTM or mLSTM), the reference's
@@ -25,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.common import (ParamDef, init_params, rms_norm,
-                                       softmax_xent)
+from repro_torch.models.common import (ParamDef, init_params, remat,
+                                       rms_norm, softmax_xent)
 
 PyTree = Any
 
@@ -279,7 +279,7 @@ def _slstm_out(p, cfg: ModelConfig, x, hs, z):
 
 def slstm_block(p, cfg: ModelConfig, x, state=None):
     """x: (B,S,d). Returns (x_out, state)."""
-    B, S, d = x.shape
+    B, _, d = x.shape
     H = cfg.mlstm_heads
     dh = d // H
     xw, z = _slstm_in(p, cfg, x)
@@ -292,8 +292,9 @@ def slstm_block(p, cfg: ModelConfig, x, state=None):
     # the cell's casts of the recurrent weights, once for every step
     pc = dict(p, wr=p["wr"].to(state[2].dtype), b=p["b"].to(state[2].dtype))
     hs = []
-    for t in range(S):
-        state, h = slstm_cell(pc, cfg, xw[:, t], state)
+    # one unbind: its backward stacks the steps' gradients once
+    for xt in xw.unbind(1):
+        state, h = slstm_cell(pc, cfg, xt, state)
         hs.append(h)
     return _slstm_out(p, cfg, x, torch.stack(hs, dim=1), z), state
 
@@ -303,7 +304,9 @@ def slstm_block(p, cfg: ModelConfig, x, state=None):
 # ---------------------------------------------------------------------------
 
 def _embed(params, run: RunConfig, tokens) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(getattr(torch, run.compute_dtype))
+    # F.embedding: a deterministic backward, as in models/lm.py
+    return F.embedding(tokens.long(), params["embed"]).to(
+        getattr(torch, run.compute_dtype))
 
 
 def _unembed(params, cfg: ModelConfig, x) -> torch.Tensor:
@@ -314,11 +317,18 @@ def _unembed(params, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def forward_train(params, cfg: ModelConfig, run: RunConfig, batch):
-    """batch: tokens (B, S). Returns (logits (B, S, V), aux loss 0)."""
+    """batch: tokens (B, S). Returns (logits (B, S, V), aux loss 0).
+
+    With ``run.remat`` other than "none" each block is checkpointed with
+    nothing saved but its inputs, for "dots" too: the reference wraps each
+    block in ``jax.checkpoint`` without a policy either way.
+    """
     x = _embed(params, run, batch["tokens"])
+    mode = "none" if run.remat == "none" else "full"
     for i in range(cfg.n_layers):
         blk = slstm_block if is_slstm(cfg, i) else mlstm_block
-        x, _ = blk(params["blocks"][i], cfg, x)
+        x = remat(lambda p, h, b=blk: b(p, cfg, h)[0], mode,
+                  params["blocks"][i], x)
     return _unembed(params, cfg, x), torch.zeros((), device=x.device)
 
 

@@ -14,7 +14,8 @@ PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + sorted((ROOT / "benchmarks_torch").glob("*.py"))
               + [ROOT / "chip_smoke.py",
                  ROOT / "examples" / "serve_heterogeneous_torch.py",
-                 ROOT / "examples" / "quickstart_torch.py"])
+                 ROOT / "examples" / "quickstart_torch.py",
+                 ROOT / "examples" / "train_lm_torch.py"])
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s)"
     r"|.*import_module\(\s*['\"](jax|repro)[.'\"])", re.M)
@@ -41,6 +42,10 @@ def test_every_port_module_imports_with_jax_blocked():
     assert "repro_torch.core.simulator" in mods
     for name in ("validate", "faults", "telemetry"):
         assert f"repro_torch.core.{name}" in mods
+    for name in ("data.pipeline", "optim.adamw", "train.steps",
+                 "train.trainer", "checkpoint.checkpointer", "launch.train",
+                 "tree"):
+        assert f"repro_torch.{name}" in mods
     r = subprocess.run([sys.executable, "-c", code, *mods], cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                        capture_output=True, text=True, timeout=120)
