@@ -85,8 +85,37 @@ Phases (any failure exits non-zero):
              (6 N tokens per step) beside the f32 peak, kernels and idle
              share over one profiled step; then a step with use_pallas must
              raise the kernels' refusal of a gradient. It
-             prints a JSON ``train`` record.
-9. sim     — the cycle simulator's main path (src/repro_torch/core), which
+             prints a JSON ``train`` record. The small runs (a) also take
+             three steps of reduced moonshot (its loss adds 0.01 x the MoE
+             aux) and hymba, card against CPU.
+9. families — the model families (src/repro_torch/models/{moe,ssm,hymba,
+             whisper}.py): the reduced moonshot, llama4-scout (top-1),
+             hymba and whisper, f32, card against CPU (logits, aux, loss
+             with use_pallas: K2's f32 route for MoE and for whisper's 64
+             frames; prefill and 4 greedy decode steps, same tokens); K2 at
+             moonshot's attention shape (B=1, H=16, S=4096, d=128, bf16,
+             causal) beside its bound, the plain version and SDPA; then at
+             full width and depth with random bf16 weights from a seed:
+             moonshot-v1-16b-a3b (28.47 B parameters), B=1, S=4096,
+             train_loss with use_pallas (K2 once per layer, bf16 route);
+             K2 against its plain version on every layer's own q, k, v;
+             every block, and so the logits, with the plain attention on
+             the kernel forward's own input and expert choices at the bf16
+             tolerance (rtol of the largest |value|): random weights grow
+             the residual stream and amplify any rounding difference, and
+             top-k routing flips at near ties, so free-running logits meet
+             no bf16 bar; a free-running plain-attention forward: the loss
+             at the bf16 tolerance, layer 0's chosen experts (equal
+             wherever the router's k-th and (k+1)-th logits are more than
+             1e-2 apart), the stream's drift per layer; hymba-1.5b, B=2,
+             S=4096, use_pallas (K2 never launches); whisper-large-v3, 1,500
+             frames and 448 decoder tokens, B=2, without use_pallas, then
+             with it: the reference's block assertion at the first
+             cross-attention, after one K2 launch. Each prints forward+loss
+             ms (median of 3 after a warm-up), scored tokens/s, peak
+             memory, a profiled forward (kernels, device ms, idle share),
+             prefill ms and greedy decode ms per step over 8 steps.
+10. sim    — the cycle simulator's main path (src/repro_torch/core), which
              runs no hand-written kernel (every kernel count stays 0). At
              the goldens' configuration: frfcfs, atlas, parbs, tcm, sms and
              sms_dash alone, and the stackable family (frfcfs, atlas,
@@ -97,8 +126,8 @@ Phases (any failure exits non-zero):
              a stacked grid with period and value overrides equals its run
              alone. Then the paper's 16 CPUs + 1 GPU on 4 channels of 8
              banks (the buffer at SMS's entry parity, 134 entries) over 14
-             workloads and the 23 alone runs in one batch (W = 37), 500
-             warm-up and 2,500 measured cycles: the six stackable policies
+             workloads and the 23 alone runs in one batch (W = 37), 100
+             warm-up and 600 measured cycles: the six stackable policies
              in ONE stacked run on P*W = 222 rows, sms and sms_dash alone,
              and frfcfs alone, which must equal its stacked slice. Every
              result equals the same call on the CPU (a second process, run
@@ -118,7 +147,7 @@ Phases (any failure exits non-zero):
              run without in every other array, its invariant channels
              equal ticked and skipping. Then the paper's widths with two
              HWAs (16 CPUs + 1 GPU + 2 HWAs, 4 channels, 146 entries) under
-             workloads.bursty_batch's four archetypes, 500 + 2,500 cycles:
+             workloads.bursty_batch's four archetypes, 100 + 500 cycles:
              the stacked family and sms ticked (the archetypes as one W = 4
              batch, under the sync check) and skipping (each archetype a W
              = 1 batch; one host read per processed step, so timed without
@@ -191,7 +220,8 @@ from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.launch import train as launch_train
-from repro_torch.models import lm, xlstm
+from repro_torch.models import hymba, lm, whisper, xlstm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import rms_norm, softmax_xent
 from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw
@@ -1304,6 +1334,8 @@ def phase_xlstm():
 # reference launcher's xLSTM-125m run and Qwen1.5-4B at full width
 TRAIN_DEVICE = "cuda"
 TRAIN_SMALL = (("xlstm-125m", 5), ("qwen1.5-4b", 2))
+# the MoE (its loss adds 0.01 * aux) and hybrid families: three plain steps
+TRAIN_SMALL_FAMILIES = (("moonshot-v1-16b-a3b", 2), ("hymba-1.5b", 2))
 TRAIN_SMALL_B, TRAIN_SMALL_S, TRAIN_SMALL_LR = 4, 64, 1e-3
 TRAIN_XLSTM_ARGS = ["--arch", "xlstm-125m", "--steps", "8", "--seq", "512",
                     "--batch", "8", "--lr", "3e-4", "--ckpt-every", "4"]
@@ -1366,8 +1398,9 @@ def _train_small_case(cfg, run, steps):
 def _train_small():
     """(a) Reduced xLSTM (5 layers) and Qwen (2 layers), f32: three train
     steps on the card against the CPU, then one microbatched and one top-k
-    step; losses, grad norms, lr, every parameter, moment and error-feedback
-    leaf."""
+    step; reduced moonshot (its loss with the MoE aux term) and hymba (2
+    layers each): three steps; losses, grad norms, lr, every parameter,
+    moment and error-feedback leaf."""
     base = RunConfig(compute_dtype="float32", remat="none", lr=TRAIN_SMALL_LR,
                      warmup_steps=1, total_steps=10)
     cases = []
@@ -1379,6 +1412,10 @@ def _train_small():
                   (f"{arch} {n_layers}L top-k 0.2", cfg,
                    base.replace(grad_compression="topk", topk_ratio=0.2),
                    (1,))]
+    for arch, n_layers in TRAIN_SMALL_FAMILIES:
+        cases.append((f"{arch} {n_layers}L",
+                      reduced(get_config(arch), n_layers=n_layers), base,
+                      (0, 1, 2)))
     recs = []
     for name, cfg, run, steps in cases:
         out = _train_small_case(cfg, run, steps)
@@ -1428,25 +1465,15 @@ def _train_small():
 
 
 def _train_profile(trainer, state):
-    """One train step under a torch.profiler window (device activity):
+    """One train step under a torch.profiler window (``_profile_once``):
     kernels and copies per step, device busy ms, wall ms, idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        state = trainer.train(1, state=state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - w0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = sum(e.name.lower().startswith(("memcpy", "memset"))
-                 for e in dev)
-    busy_us = sum(e.device_time_total for e in dev)
-    return state, {"kernels_per_step": len(dev) - copies,
-                   "copies_per_step": copies,
-                   "device_ms": busy_us / 1e3,
-                   "wall_ms_profiled": 1e3 * wall,
-                   "device_idle_share": 1.0 - busy_us / (1e6 * wall)}
+    out = []
+    prof = _profile_once(lambda: out.append(trainer.train(1, state=state)))
+    return out[0], {"kernels_per_step": prof["kernels"],
+                    "copies_per_step": prof["copies"],
+                    "device_ms": prof["device_ms"],
+                    "wall_ms_profiled": prof["wall_ms_profiled"],
+                    "device_idle_share": prof["device_idle_share"]}
 
 
 def _steps_summary(trainer, tokens):
@@ -1602,6 +1629,543 @@ def phase_train():
     return launches
 
 
+# the model families phase (slice M): the reduced configs card against
+# CPU, then moonshot (MoE, K2 in every layer), hymba and whisper at full width
+FAM_SMALL = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "hymba-1.5b",
+             "whisper-large-v3")
+FAM_SMALL_B, FAM_SMALL_S, FAM_SMALL_DECODE = 2, 64, 4
+FAM_MOE_B, FAM_MOE_S = 1, 4096
+FAM_HYMBA_B, FAM_HYMBA_S = 2, 4096
+FAM_WHISPER_B, FAM_WHISPER_S = 2, 448    # whisper's longest decoder input
+FAM_TIMED, FAM_DECODE = 3, 8
+FAM_TIE = 1e-2     # router-logit gap below which an expert choice may flip
+_FAM_LIB = {"moe": lm, "hybrid": hymba, "audio": whisper}
+
+
+def _fam_batch(cfg, B, S, gen, device, dtype=torch.float32):
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.randn(
+            B, cfg.encoder_seq, cfg.d_model, generator=gen,
+            device=device).to(dtype)
+    return batch
+
+
+def _fam_greedy(bundle, params, run, batch, n_prompt, n_decode, dtype):
+    """``prefill`` of the first ``n_prompt`` tokens, then ``n_decode``
+    greedy ``decode_step``s. Returns (tokens (B, 1 + n_decode), prefill ms,
+    decode ms per step)."""
+    toks = batch["tokens"][:, :n_prompt]
+    B, dev = toks.shape[0], toks.device
+    extra = ({"audio_embeds": batch["audio_embeds"]}
+             if "audio_embeds" in batch else None)
+    cache = bundle.init_cache(B, n_prompt + n_decode, dtype, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache, lens = bundle.prefill(params, run, cache, toks, extra=extra)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    out, step_ms = [lg.argmax(-1)], []
+    for _ in range(n_decode):
+        t0 = time.perf_counter()
+        lg, cache = bundle.decode_step(params, run, cache, out[-1], lens)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{bundle.cfg.name} decode: non-finite "
+                                 f"logits")
+        lens = lens + 1
+        out.append(lg.argmax(-1))
+    return torch.stack(out, 1), prefill_ms, step_ms
+
+
+def _logits_close_f32(name, got, want):
+    """The f32 bar with its atol taken times the largest |logit|
+    (tests/test_torch_hymba.py's rule for logits)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return _assert_close(name, got, want,
+                         dict(atol=F32_TOL["atol"] * scale,
+                              rtol=F32_TOL["rtol"]))
+
+
+def _fam_small():
+    """The reduced configs (llama4-scout's top-1 routing beside moonshot's),
+    f32, card against CPU from one set of weights: the logits, aux and loss
+    with use_pallas (K2's f32 route on the card: the MoE self-attention,
+    whisper's encoder at 64 frames and its decoder's self- and
+    cross-attention; hymba none), then prefill and 4 greedy decode steps.
+    Returns K2's launches on the card."""
+    run = RunConfig(compute_dtype="float32", use_pallas=True)
+    total = 0
+    for arch in FAM_SMALL:
+        cfg = reduced(get_config(arch))
+        bundle, lib = get_model(cfg), _FAM_LIB[cfg.family]
+        params = bundle.init(torch.Generator().manual_seed(0))
+        batch = _fam_batch(cfg, FAM_SMALL_B, FAM_SMALL_S,
+                           torch.Generator().manual_seed(1), "cpu")
+        # per forward (twice: the logits, the loss), and whisper's encoder
+        # once more at prefill
+        per_fwd = {"moe": cfg.n_layers, "hybrid": 0,
+                   "audio": 2 * cfg.n_layers + cfg.n_encoder_layers}
+        want = 2 * per_fwd[cfg.family] + (cfg.n_encoder_layers
+                                          if cfg.family == "audio" else 0)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p, b = _tree_to(params, dev), _tree_to(batch, dev)
+            before = fa_ops.flash_attention.launches
+            with torch.no_grad():
+                logits, aux = lib.forward_train(p, cfg, run, b)
+                loss = bundle.train_loss(p, run, b)
+                toks, _, _ = _fam_greedy(bundle, p, run, b, FAM_SMALL_S - 8,
+                                         FAM_SMALL_DECODE, torch.float32)
+            launched = fa_ops.flash_attention.launches - before
+            out[dev] = (logits.cpu(), aux.cpu(), loss.cpu(), toks.cpu())
+            if launched != (want if dev == "cuda" else 0):
+                raise AssertionError(f"families small {arch} on {dev}: K2 "
+                                     f"launched {launched}, want "
+                                     f"{want if dev == 'cuda' else 0}")
+            total += launched
+        (lc, ac, sc, tc), (lh, ah, sh, th) = out["cuda"], out["cpu"]
+        err = _logits_close_f32(f"families small {arch} logits", lc, lh)
+        _assert_close(f"families small {arch} aux", ac, ah, F32_TOL)
+        err_l = _assert_close(f"families small {arch} loss", sc, sh, F32_TOL)
+        if not torch.equal(tc, th):
+            raise AssertionError(f"families small {arch}: card tokens {tc} "
+                                 f"!= cpu tokens {th}")
+        print(f"[families] small {cfg.name} ({cfg.family}, "
+              f"{cfg.n_layers} layers" +
+              (f", {cfg.n_experts} experts top-{cfg.top_k}"
+               if cfg.family == "moe" else "") +
+              f") B={FAM_SMALL_B} S={FAM_SMALL_S} f32 use_pallas: logits "
+              f"max|err| {err:.3e}, aux {float(ac):.6f}, loss "
+              f"{float(sc):.6f} (|err| {err_l:.3e}); K2 launches "
+              f"{want} on the card (f32 route); prefill "
+              f"{FAM_SMALL_S - 8} + {FAM_SMALL_DECODE} greedy decode steps: "
+              f"card tokens == cpu tokens {tc.tolist()}")
+    return total
+
+
+def _profile_once(fn):
+    """``fn()`` under a torch.profiler window (device activity): kernels,
+    copies, device busy ms (K2's and the GEMMs' apart, the five kernels
+    that take most), wall ms, idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.lower().startswith(("memcpy", "memset"))
+                 for e in dev)
+    busy = sum(e.device_time_total for e in dev)
+    k2 = sum(e.device_time_total for e in dev if "flash" in e.name.lower())
+    gemm = sum(e.device_time_total for e in dev
+               if re.search(r"gemm|xmma|cutlass|nvjet|wgmma", e.name.lower())
+               and "flash" not in e.name.lower())
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"kernels": len(dev) - copies, "copies": copies,
+            "top_kernels_ms": {n[:80]: t / 1e3 for n, t in top},
+            "device_ms": busy / 1e3, "k2_device_ms": k2 / 1e3,
+            "gemm_device_ms": gemm / 1e3,
+            "other_device_ms": (busy - k2 - gemm) / 1e3,
+            "wall_ms_profiled": 1e3 * wall,
+            "device_idle_share": 1.0 - busy / (1e6 * wall)}
+
+
+def _fam_timed(fn, name):
+    """One warm-up and FAM_TIMED timed calls of ``fn()`` (a loss), each
+    synchronized; returns (last loss, wall seconds of the timed ones)."""
+    wall = []
+    for i in range(1 + FAM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn()
+        torch.cuda.synchronize()
+        if i:
+            wall.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError(f"{name} forward {i}: loss {float(loss)}")
+    return loss, wall
+
+
+def _fam_init(arch):
+    cfg = get_config(arch)
+    bundle = get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(4),
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_lib.leaves(params))
+    return cfg, bundle, params, n, time.perf_counter() - t0
+
+
+def _fam_summary(cfg, n_params, init_s, B, S, wall, peak, prefill_ms,
+                 step_ms, prof=None):
+    ms = 1e3 * statistics.median(wall)
+    rec = {"config": cfg.name, "params": n_params, "init_s": init_s,
+           "batch": B, "seq": S, "forward_loss_ms_median": ms,
+           "forward_loss_ms": [1e3 * t for t in wall],
+           "scored_tokens_per_s": B * S / (ms / 1e3),
+           "peak_memory_gib": peak / 2**30, "prefill_ms": prefill_ms,
+           "decode_ms_median": statistics.median(step_ms),
+           "decode_ms": step_ms}
+    if prof:
+        rec["profile_one_forward"] = prof
+    return rec
+
+
+def _fam_moonshot():
+    """moonshot-v1-16b-a3b at full width and depth, bf16: train_loss with
+    use_pallas (K2 once per layer, the bf16 route); K2 against its plain
+    version on every layer's own q, k, v; every block with the plain
+    attention on the kernel forward's own input and expert choices; a
+    free-running plain-attention forward (loss, layer 0's experts, the
+    divergence per layer); a profiled forward; prefill and greedy
+    decode."""
+    cfg, bundle, params, n_params, init_s = _fam_init("moonshot-v1-16b-a3b")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = _fam_batch(cfg, FAM_MOE_B, FAM_MOE_S, gen, "cuda")
+    run = RunConfig(compute_dtype="bfloat16", use_pallas=True)
+    plain_run = run.replace(use_pallas=False)
+    # Random weights make the residual stream grow through the 48 layers
+    # (rms ~30 after layer 0, ~320 after layer 47) and amplify any bf16
+    # rounding difference: two attentions that differ only in rounding
+    # drift apart by ~0.3% of the stream per layer, so the free-running
+    # logits meet no bf16 bar. And top-k routing is discontinuous: a near
+    # tie flips. So each block is checked on the kernel forward's own
+    # input and expert choices (layer-local), and the free-running forward
+    # is held at the loss and reported layer by layer.
+    real_route, real_block = moe_lib._route, lm.apply_block
+    tr = {"mode": None, "i": 0, "x": [], "y": [], "idx": [], "flips": [],
+          "block_err": [], "drift": [], "layer0": None, "k2_err": []}
+
+    def route(x, router, c):
+        if tr["mode"] != "replay":
+            out = real_route(x, router, c)
+            if tr["mode"] == "record":
+                tr["idx"].append(out[0])
+            elif tr["layer0"] is None:
+                tr["layer0"] = (out[0], x.float() @ router.float())
+            return out
+        logits = x.float() @ router.float()
+        gates_all = torch.softmax(logits, dim=-1)
+        own = gates_all.topk(c.top_k, dim=-1).indices
+        idx = tr["idx"][tr["i"]]
+        tr["flips"].append(int((own.sort(-1).values
+                                != idx.sort(-1).values).any(-1).sum()))
+        gate = gates_all.gather(-1, idx)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        ce = torch.bincount(idx.reshape(-1), minlength=c.n_experts).float() \
+            * (1.0 / idx.numel())
+        aux = c.n_experts * (gates_all.mean(0) * ce).sum() \
+            + 1e-4 * torch.logsumexp(logits, dim=-1).square().mean()
+        return idx, gate, aux
+
+    def block(p, c, r, x, **kw):
+        if tr["mode"] == "replay":
+            x = tr["x"][tr["i"]]
+        out = real_block(p, c, r, x, **kw)
+        if tr["mode"] == "record":
+            tr["x"].append(x)
+            tr["y"].append(out[0])
+        elif tr["mode"] == "replay":
+            tr["block_err"].append(_assert_close(
+                f"moonshot block {tr['i']} plain vs K2 on its input",
+                out[0], tr["y"][tr["i"]], BF16_TOL, rtol_of_max=True))
+            tr["i"] += 1
+        else:
+            want = tr["y"][len(tr["drift"])].float()
+            tr["drift"].append(float((out[0].float() - want).norm()
+                                     / want.norm()))
+        return out
+
+    def checked_flash(q, k, v, **kw):
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        tr["k2_err"].append(_assert_close(
+            f"moonshot layer {len(tr['k2_err'])} K2 vs plain", out,
+            attention_ref(q, k, v, **kw), BF16_TOL))
+        return out
+
+    _zero_counts()
+    with torch.no_grad():
+        loss, wall = _fam_timed(lambda: bundle.train_loss(params, run, batch),
+                                cfg.name)
+        moe_lib._route, lm.apply_block = route, block
+        try:
+            tr["mode"] = "record"
+            logits, aux = lm.forward_train(params, cfg, run, batch,
+                                           flash=checked_flash)
+            n_fwd = 2 + FAM_TIMED
+            launches = fa_ops.flash_attention.launches
+            launches_sm90 = fa_ops.flash_attention.launches_sm90
+            peak = torch.cuda.max_memory_allocated()
+            loss_k = softmax_xent(logits, batch["labels"]) + 0.01 * aux
+            tr["mode"] = "replay"
+            local, _ = lm.forward_train(params, cfg, plain_run, batch)
+            err_logits = _assert_close(
+                "moonshot logits, last block plain vs K2 on its input",
+                local, logits, BF16_TOL, rtol_of_max=True)
+            del local, logits
+            tr["mode"] = "free"
+            plain, aux_p = lm.forward_train(params, cfg, plain_run, batch)
+        finally:
+            moe_lib._route, lm.apply_block = real_route, real_block
+        loss_p = softmax_xent(plain, batch["labels"]) + 0.01 * aux_p
+        del plain
+        tr["x"], tr["y"] = [], []
+        err_loss = _assert_close("moonshot loss vs plain attention", loss_k,
+                                 loss_p, BF16_TOL)
+        idx_k, (idx_p, lg_p) = tr["idx"][0], tr["layer0"]
+        top = lg_p.topk(cfg.top_k + 1, dim=-1).values
+        gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        same = (idx_k.sort(-1).values == idx_p.sort(-1).values).all(-1)
+        near = gap <= FAM_TIE
+        if bool((~same & ~near).any()):
+            raise AssertionError(
+                f"moonshot layer 0: {int((~same & ~near).sum())} tokens "
+                f"with a router gap above {FAM_TIE} chose other experts")
+        if len(tr["k2_err"]) != cfg.n_layers or \
+                len(tr["block_err"]) != cfg.n_layers:
+            raise AssertionError("moonshot: the layer checks did not run")
+        flips = tr["flips"]
+        if fa_ops.flash_attention.launches != launches:
+            raise AssertionError("the plain-attention forward launched K2")
+        prof = _profile_once(lambda: bundle.train_loss(params, run, batch))
+        if launches != cfg.n_layers * n_fwd or launches_sm90 != launches:
+            raise AssertionError(f"moonshot: K2 launches {launches} (bf16 "
+                                 f"route {launches_sm90}) != "
+                                 f"{cfg.n_layers} x {n_fwd} forwards")
+        greedy, prefill_ms, step_ms = _fam_greedy(
+            bundle, params, run.replace(use_pallas=False), batch,
+            FAM_MOE_S - FAM_DECODE, FAM_DECODE, torch.bfloat16)
+    rec = _fam_summary(cfg, n_params, init_s, FAM_MOE_B, FAM_MOE_S, wall,
+                       peak, prefill_ms, step_ms, prof)
+    rec.update({"k2_launches": launches, "k2_launches_sm90": launches_sm90,
+                "k2_per_forward": launches // n_fwd,
+                "loss": float(loss), "loss_plain": float(loss_p),
+                "aux": float(aux), "logits_max_abs_err": err_logits,
+                "loss_abs_err": err_loss,
+                "layer0_tokens": int(same.numel()),
+                "layer0_same_experts": int(same.sum()),
+                "layer0_near_ties": int(near.sum()),
+                "layer0_near_ties_differing": int((~same & near).sum()),
+                "layer0_min_gap": float(gap.min()),
+                "k2_vs_plain_max_abs_err_per_layer": max(tr["k2_err"]),
+                "block_vs_plain_max_abs_err": max(tr["block_err"]),
+                "replayed_route_flips_per_layer": flips,
+                "free_running_drift_per_layer": tr["drift"]})
+    print(f"[families] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} + shared, "
+          f"{n_params / 1e9:.3f} B params (bf16, init {init_s:.1f} s), "
+          f"B={FAM_MOE_B} S={FAM_MOE_S} use_pallas: loss {float(loss):.6f} "
+          f"(aux {float(aux):.4f}; a free-running plain-attention forward "
+          f"{float(loss_p):.6f}, |err| {err_loss:.3e}); K2 vs plain on each "
+          f"layer's q, k, v max|err| {max(tr['k2_err']):.3e}; each block "
+          f"with the plain attention on the kernel forward's input and "
+          f"experts max|err| {max(tr['block_err']):.3e}, the logits so "
+          f"{err_logits:.3e} (bf16, rtol of the largest |value|); free "
+          f"running, the stream drifts from the kernel forward's by "
+          f"{tr['drift'][0]:.2e} after layer 0, {tr['drift'][-1]:.2e} after "
+          f"layer {cfg.n_layers - 1} (relative Frobenius); K2 launches "
+          f"{launches} in {n_fwd} forwards "
+          f"({launches // n_fwd} per forward, bf16 route {launches_sm90}); "
+          f"layer 0 experts equal for {int(same.sum())} of {same.numel()} "
+          f"tokens ({int(near.sum())} with a router gap <= {FAM_TIE}, "
+          f"{int((~same & near).sum())} of them differing; min gap "
+          f"{float(gap.min()):.2e}); on the kernel forward's inputs the "
+          f"plain attention would have flipped the experts of "
+          f"{sum(flips)} token-layers ({max(flips)} at most in a layer); "
+          f"median forward+loss "
+          f"{rec['forward_loss_ms_median']:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in rec['forward_loss_ms'])}), "
+          f"{rec['scored_tokens_per_s']:.1f} scored tokens/s, peak memory "
+          f"{rec['peak_memory_gib']:.2f} GiB; profiled forward: "
+          f"{prof['kernels']} kernels, device {prof['device_ms']:.1f} ms "
+          f"(K2 {prof['k2_device_ms']:.1f}, GEMM {prof['gemm_device_ms']:.1f},"
+          f" other {prof['other_device_ms']:.1f}) of "
+          f"{prof['wall_ms_profiled']:.1f} ms, idle "
+          f"{prof['device_idle_share']:.3f}; prefill "
+          f"{FAM_MOE_S - FAM_DECODE} tokens {prefill_ms:.1f} ms, "
+          f"{FAM_DECODE} greedy decode steps, median "
+          f"{rec['decode_ms_median']:.2f} ms")
+    del params
+    return rec
+
+
+def _fam_hymba():
+    """hymba-1.5b at full width and depth, bf16: train_loss with use_pallas
+    (K2 never launches: the per-layer windows keep it off, as in the
+    reference), a profiled forward, prefill and greedy decode."""
+    cfg, bundle, params, n_params, init_s = _fam_init("hymba-1.5b")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = _fam_batch(cfg, FAM_HYMBA_B, FAM_HYMBA_S, gen, "cuda")
+    run = RunConfig(compute_dtype="bfloat16", use_pallas=True)
+    _zero_counts()
+    with torch.no_grad():
+        loss, wall = _fam_timed(lambda: bundle.train_loss(params, run, batch),
+                                cfg.name)
+        peak = torch.cuda.max_memory_allocated()
+        launched = {fn.__name__: fn.launches for fn in
+                    (ops.paged_attention, fa_ops.flash_attention,
+                     ml_ops.mlstm_scan)}
+        if any(launched.values()):
+            raise AssertionError(f"hymba launched {launched}")
+        prof = _profile_once(lambda: bundle.train_loss(params, run, batch))
+        greedy, prefill_ms, step_ms = _fam_greedy(
+            bundle, params, run, batch, FAM_HYMBA_S - FAM_DECODE, FAM_DECODE,
+            torch.bfloat16)
+    rec = _fam_summary(cfg, n_params, init_s, FAM_HYMBA_B, FAM_HYMBA_S, wall,
+                       peak, prefill_ms, step_ms, prof)
+    rec.update({"loss": float(loss), "k2_launches": 0,
+                "windows": sorted(set(lm.layer_windows(cfg).tolist()))})
+    print(f"[families] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, windows {rec['windows']} (global every "
+          f"{cfg.global_every}), {n_params / 1e9:.3f} B params (bf16), "
+          f"B={FAM_HYMBA_B} S={FAM_HYMBA_S} use_pallas: loss "
+          f"{float(loss):.6f}; kernel launches {json.dumps(launched)}; "
+          f"median forward+loss {rec['forward_loss_ms_median']:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in rec['forward_loss_ms'])}), "
+          f"{rec['scored_tokens_per_s']:.1f} scored tokens/s, peak memory "
+          f"{rec['peak_memory_gib']:.2f} GiB; profiled forward: "
+          f"{prof['kernels']} kernels, device {prof['device_ms']:.1f} ms "
+          f"(GEMM {prof['gemm_device_ms']:.1f}, other "
+          f"{prof['other_device_ms']:.1f}) of {prof['wall_ms_profiled']:.1f} "
+          f"ms, idle {prof['device_idle_share']:.3f}; prefill "
+          f"{FAM_HYMBA_S - FAM_DECODE} tokens {prefill_ms:.1f} ms, "
+          f"{FAM_DECODE} greedy decode steps, median "
+          f"{rec['decode_ms_median']:.2f} ms")
+    del params
+    return rec
+
+
+def _fam_whisper():
+    """whisper-large-v3 at full width and depth, bf16: 1,500 audio frames
+    and 448 decoder tokens without use_pallas (the only setting the
+    reference completes there), prefill and greedy decode; then use_pallas
+    must raise the reference's block assertion at the first
+    cross-attention, after the first decoder self-attention's K2 launch
+    and before any other. Returns K2's launches (1)."""
+    cfg, bundle, params, n_params, init_s = _fam_init("whisper-large-v3")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = _fam_batch(cfg, FAM_WHISPER_B, FAM_WHISPER_S, gen, "cuda",
+                       torch.bfloat16)
+    run = RunConfig(compute_dtype="bfloat16")
+    _zero_counts()
+    with torch.no_grad():
+        loss, wall = _fam_timed(lambda: bundle.train_loss(params, run, batch),
+                                cfg.name)
+        peak = torch.cuda.max_memory_allocated()
+        if fa_ops.flash_attention.launches:
+            raise AssertionError("whisper without use_pallas launched K2")
+        prof = _profile_once(lambda: bundle.train_loss(params, run, batch))
+        greedy, prefill_ms, step_ms = _fam_greedy(
+            bundle, params, run, batch, FAM_WHISPER_S - FAM_DECODE,
+            FAM_DECODE, torch.bfloat16)
+        refused = None
+        try:
+            bundle.train_loss(params, run.replace(use_pallas=True), batch)
+        except AssertionError as e:
+            refused = str(e)
+    want = (f"seq ({FAM_WHISPER_S},{cfg.encoder_seq}) must divide blocks "
+            f"(64,64)")
+    launched = fa_ops.flash_attention.launches
+    if refused != want or launched != 1 or \
+            fa_ops.flash_attention.launches_sm90 != 1:
+        raise AssertionError(f"whisper use_pallas: raised {refused!r} after "
+                             f"{launched} K2 launches; want {want!r} after 1")
+    rec = _fam_summary(cfg, n_params, init_s, FAM_WHISPER_B, FAM_WHISPER_S,
+                       wall, peak, prefill_ms, step_ms, prof)
+    rec.update({"loss": float(loss), "encoder_frames": cfg.encoder_seq,
+                "use_pallas_refusal": refused,
+                "k2_launches_before_refusal": launched})
+    print(f"[families] {cfg.name}: {cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params (bf16), B={FAM_WHISPER_B}, "
+          f"{cfg.encoder_seq} frames, {FAM_WHISPER_S} decoder tokens: loss "
+          f"{float(loss):.6f}; median forward+loss "
+          f"{rec['forward_loss_ms_median']:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in rec['forward_loss_ms'])}), "
+          f"{rec['scored_tokens_per_s']:.1f} scored tokens/s, peak memory "
+          f"{rec['peak_memory_gib']:.2f} GiB; profiled forward: "
+          f"{prof['kernels']} kernels, device {prof['device_ms']:.1f} ms "
+          f"(GEMM {prof['gemm_device_ms']:.1f}, other "
+          f"{prof['other_device_ms']:.1f}) of {prof['wall_ms_profiled']:.1f} "
+          f"ms, idle {prof['device_idle_share']:.3f}; prefill "
+          f"{FAM_WHISPER_S - FAM_DECODE} tokens {prefill_ms:.1f} ms, "
+          f"{FAM_DECODE} greedy decode steps, median "
+          f"{rec['decode_ms_median']:.2f} ms; use_pallas raised "
+          f"AssertionError({refused!r}) after {launched} K2 launch (layer "
+          f"0's self-attention), before the cross-attention")
+    del params
+    return rec, launched
+
+
+def _fam_k2_moe_shape():
+    """K2 at moonshot's attention shape (B=1, H=16, S=4096, d=128, bf16,
+    causal) against its plain version; one eager call, device time from
+    CUDA-graph replays, the plain version, SDPA, the bound."""
+    B, H, S, d = FAM_MOE_B, 16, FAM_MOE_S, 128
+    x = _flash_inputs(torch.Generator(device="cuda").manual_seed(8), B, H, H,
+                      S, S, d, torch.bfloat16)
+    err = _assert_close("flash_attention moonshot shape bf16",
+                        fa_ops.flash_attention(*x), attention_ref(*x),
+                        BF16_TOL)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = 4 * B * H * S * d * x[0].element_size()
+    n_flops = 4 * B * H * d * S * (S + 1) // 2
+    bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
+    rec = {"shape": f"B={B} H={H} S={S} d={d} bf16 causal",
+           "max_abs_err": err,
+           "ms": _time_ms(lambda: fa_ops.flash_attention(*x), 20),
+           "device_ms": _device_ms(lambda: fa_ops.flash_attention(*x)),
+           "plain_ms": _time_ms(lambda: attention_ref(*x), 5),
+           "library_ms": _time_ms(lambda: sdpa(*x, is_causal=True), 20),
+           "library_device_ms": _device_ms(
+               lambda: sdpa(*x, is_causal=True)),
+           "bound_ms": bound, "bound_by": by}
+    print(f"[families] K2 at the moonshot shape {rec['shape']}: "
+          f"{rec['ms']:.4f} ms one eager call, {rec['device_ms']:.4f} ms "
+          f"device (graph replays), bound {bound:.4f} ms ({by}); plain "
+          f"{rec['plain_ms']:.4f} ms; sdpa is_causal {rec['library_ms']:.4f} "
+          f"ms eager, {rec['library_device_ms']:.4f} ms device; max|err| "
+          f"{err:.3e}")
+    return rec
+
+
+def phase_families():
+    """The model families (slice M): the reduced configs card vs CPU, K2 at
+    the moonshot shape, then moonshot, hymba and whisper at full width.
+    Returns K2's launches on its main paths here, by route, and a
+    record."""
+    t0 = time.perf_counter()
+    _zero_counts()
+    n_small = _fam_small()
+    k2 = _fam_k2_moe_shape()
+    moon = _fam_moonshot()
+    hym = _fam_hymba()
+    whi, n_whisper = _fam_whisper()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"small_k2_launches_f32": n_small, "k2_moonshot_shape": k2,
+           "moonshot": moon, "hymba": hym, "whisper": whi,
+           "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"families": rec}))
+    print(f"[families] phase {rec['phase_s']:.1f} s")
+    return {"sm90": moon["k2_launches_sm90"] + n_whisper,
+            "simt": n_small}, rec
+
+
 # the simulator phase: the goldens' configuration (tests/test_policy_registry
 # and tests/golden_policy_states.json), then the paper's 16 CPUs + 1 GPU on
 # 4 memory channels (benchmarks/fig6_core_scaling.py: "paper: 4 MCs")
@@ -1618,23 +2182,24 @@ SIM_GOLDEN_SCHED = {                 # keys that make the sched check real
 # the grid checks, at the goldens' configuration: sms at two knob points on
 # the folded step; a stacked grid with period and value overrides (the
 # cpu_reserve override gives admission's per-row gpu_cap two values)
-SIM_GRID_WARMUP, SIM_GRID_CYCLES = 200, 600
+SIM_GRID_WARMUP, SIM_GRID_CYCLES = 100, 300    # 200 + 600 before the families
 SIM_GRID_POINTS = ({}, {"dash": True})
 SIM_STACKED_GRID = (("atlas", {"atlas_epoch": 100, "atlas_alpha": 0.75}),
                     ("frfcfs", {"cpu_reserve": 0.25}),
                     ("bliss", {"bliss_clear_interval": 150}),
                     ("tcm", {}))
 SIM_N_CPU, SIM_CHANNELS, SIM_PER_CAT = 16, 4, 2
-# far short of fig6's 12,000 cycles, so that the whole script stays near
-# ten minutes
-SIM_WARMUP, SIM_CYCLES = 500, 2_500
+# far short of fig6's 12,000 cycles, so that the whole script, the families
+# phase with it, stays near ten minutes (500 + 2,500 before the families)
+SIM_WARMUP, SIM_CYCLES = 100, 600
 SIM_PROFILE_CYCLES = 20
 # the variable-step driver, the sanitizer and the recorder at the goldens'
 # configuration: the sanitizer's clean runs and the faults at a short depth
 SIM_CLEAN_CYCLES, SIM_FAULT_CYCLES = 300, 300
 # the paper's widths with two accelerators under the bursty archetypes
 # (workloads.bursty_batch), one W = 1 batch each, ticked and skipping
-SIM_BURSTY_WARMUP, SIM_BURSTY_CYCLES = 300, 1_700
+# (300 + 1,700 before the families phase)
+SIM_BURSTY_WARMUP, SIM_BURSTY_CYCLES = 100, 500
 SIM_BURSTY_PROFILE_STEPS = 12        # processed steps in a profiler window
 # benchmarks/fig4_perf_fairness.py:25-30: SMS's WS gain over TCM and TCM's
 # max slowdown over SMS's, from the paper (8 CPUs, 2 channels, 16,000 cycles)
@@ -2244,6 +2809,7 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
               f"off in every other array; its first "
               f"{sim_tel.N_INVARIANT} channels equal ticked and skipping")
 
+        t_paper = time.perf_counter()
         cfg, wls, pool, both, active, amap = _sim_batch()
         W = active.shape[0]
         card, card_s, prof = {}, {}, {}
@@ -2263,6 +2829,7 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
         _, step, _, carry = sim.prepare_stacked_run(cfg, SIM_FAMILY, both,
                                                     active, device="cuda")
         prof["stacked"] = _sim_profile(step, carry)
+        t_paper = time.perf_counter() - t_paper
         t_b = time.perf_counter()
         bursty = _sim_bursty_runs("cuda")
         bcfg, bpool, bactive = _sim_bursty()
@@ -2287,7 +2854,12 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
                 raise AssertionError(f"sim paper: stacked frfcfs {k} != "
                                      f"frfcfs alone on the card")
 
+        t_wait = time.perf_counter()
         worker.wait(timeout=900)
+        t_wait = time.perf_counter() - t_wait
+        print(f"[sim] sections: goldens, grids, sanitizer and faults "
+              f"{t_small:.1f} s; paper batch {t_paper:.1f} s; bursty "
+              f"{t_b:.1f} s; waiting for the CPU worker {t_wait:.1f} s")
         if worker.returncode != 0:
             raise AssertionError(f"sim CPU worker exit {worker.returncode}")
         cpu = np.load(out_path)
@@ -2431,6 +3003,17 @@ def main(argv=None):
     rec_fa["routes"]["simt"]["launches"] = bench["flash_attention"]
     rec_ml["model_path_launches"] = phase_xlstm()
     phase_train()
+    fam_launches, fam = phase_families()
+    # K2's main paths: the Qwen forward and the families (moonshot's bf16
+    # forwards, whisper's launch before its refusal; the reduced configs on
+    # the f32 route)
+    rec_fa["launches"] += fam_launches["sm90"] + fam_launches["simt"]
+    rec_fa["routes"]["sm90"]["launches"] += fam_launches["sm90"]
+    rec_fa["routes"]["simt"]["launches"] += fam_launches["simt"]
+    rec_fa["families"] = {"launches": fam_launches,
+                          "moonshot_shape": fam["k2_moonshot_shape"],
+                          "moonshot_k2_per_forward":
+                              fam["moonshot"]["k2_per_forward"]}
     for rec in (rec_pa, rec_fa, rec_ml):
         rec["kernel_bench_launches"] = bench[rec["name"]]
     smi_line = _smi()

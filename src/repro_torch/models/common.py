@@ -283,3 +283,20 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         return loss.mean()
     mask = mask.float()
     return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# positions
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) float32: sin at even columns, cos at odd, angles
+    ``pos / 10000^(2i/d)`` in float64 (the reference builds the table in
+    numpy the same way)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(0, d, 2)[None]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)

@@ -1,4 +1,4 @@
-"""Generic decoder-only LM stack: the dense and VLM families.
+"""Generic decoder-only LM stack: the dense, MoE and VLM families.
 
 Port of ``repro/models/lm.py``. Parameters keep the reference layout:
 ``{"lm": {...}, "blocks": {...}}`` with every ``blocks`` leaf stacked on a
@@ -10,7 +10,8 @@ Under ``run.use_pallas`` the full-sequence forward (``forward_train``,
 ``train_loss``) runs attention through the flash-attention kernel
 (``kernels/flash_attention``: CUDA on the card, its plain version on the
 CPU). ``prefill`` and ``decode_step`` use the plain attention, as in the
-reference. The MoE family is not ported yet.
+reference. A MoE block (``models/moe.py``) replaces the MLP; its aux loss
+is summed over the layers and ``train_loss`` adds ``0.01 *`` the sum.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ParamDef, act_fn, apply_rope,
                                        attention, gqa_attention, init_params,
                                        init_stacked, remat, rms_norm,
@@ -63,8 +65,6 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def block_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.family == "moe":
-        raise NotImplementedError("repro_torch: MoE blocks are not ported yet")
     defs: Dict[str, Any] = {"ln1": ParamDef((cfg.d_model,), ("embed",), "zeros"),
                             "attn": attn_defs(cfg)}
     if not cfg.parallel_block:
@@ -72,7 +72,10 @@ def block_defs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.post_norm:
         defs["pn1"] = ParamDef((cfg.d_model,), ("embed",), "zeros")
         defs["pn2"] = ParamDef((cfg.d_model,), ("embed",), "zeros")
-    defs["mlp"] = mlp_defs(cfg)
+    if cfg.family == "moe":
+        defs["moe"] = moe_lib.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(cfg)
     return defs
 
 
@@ -120,6 +123,19 @@ def _pallas_ok(run: Optional[RunConfig], q: torch.Tensor) -> bool:
     return not (S % 128 and S % 64)
 
 
+def _check_blocks(Sq: int, Sk: int) -> None:
+    """The reference's kernel asserts that its blocks (128 where Sq allows,
+    else 64, each at most its length) divide both lengths; ``_pallas_ok``
+    looks at Sq only, so a cross-attention over keys of another length
+    (Whisper's 1,500 frames) fails there. The port raises the same error
+    before anything launches."""
+    block = 128 if Sq % 128 == 0 else 64
+    block_q, block_k = min(block, Sq), min(block, Sk)
+    if Sq % block_q or Sk % block_k:
+        raise AssertionError(f"seq ({Sq},{Sk}) must divide blocks "
+                             f"({block_q},{block_k})")
+
+
 def attention_with_knobs(q, ke, ve, *, causal=True, window=0,
                          attn_softcap=0.0, run: Optional[RunConfig] = None,
                          flash: Callable = flash_attention):
@@ -132,6 +148,7 @@ def attention_with_knobs(q, ke, ve, *, causal=True, window=0,
     they are no-ops here as there.
     """
     if _pallas_ok(run, q):
+        _check_blocks(q.shape[1], ke.shape[1])
         out = flash(q.transpose(1, 2), ke.transpose(1, 2), ve.transpose(1, 2),
                     causal=causal, window=int(window), softcap=attn_softcap)
         return out.transpose(1, 2)
@@ -230,21 +247,29 @@ def _mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"].to(x.dtype)
 
 
+def _ffn(p, cfg: ModelConfig, run: RunConfig, h: torch.Tensor):
+    """The block's MLP, or its MoE layer. Returns (out, aux loss)."""
+    if cfg.family == "moe":
+        return moe_lib.moe_apply(h, p["moe"], cfg, run)
+    return _mlp_apply(p["mlp"], cfg, h), torch.zeros((), device=h.device)
+
+
 def apply_block(p, cfg: ModelConfig, run: RunConfig, x, *, window,
                 cache=None, pos=None, flash: Callable = flash_attention):
-    """One transformer block. Returns (x, new_cache)."""
+    """One transformer block. Returns (x, new_cache, aux loss)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, new_cache = _attn_apply(p["attn"], cfg, h, window=window, cache=cache,
                                pos=pos, run=run, flash=flash)
     if cfg.parallel_block:
-        return x + a + _mlp_apply(p["mlp"], cfg, h), new_cache
+        m, aux = _ffn(p, cfg, run, h)
+        return x + a + m, new_cache, aux
     if cfg.post_norm:
         a = rms_norm(a, p["pn1"], cfg.norm_eps)
     x = x + a
-    m = _mlp_apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
+    m, aux = _ffn(p, cfg, run, rms_norm(x, p["ln2"], cfg.norm_eps))
     if cfg.post_norm:
         m = rms_norm(m, p["pn2"], cfg.norm_eps)
-    return x + m, new_cache
+    return x + m, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +331,11 @@ def forward_train(params, cfg: ModelConfig, run: RunConfig, batch, *,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. batch: tokens (B, S) [, image_embeds].
 
-    Returns (logits (B, S, V), aux loss). The aux loss is MoE's; the dense
-    families give 0. Under ``run.use_pallas`` a call that needs a gradient
-    raises (``kernels.refuse_grad``): the kernel has no backward, as the
-    reference kernel has none, so a training step takes use_pallas=False.
+    Returns (logits (B, S, V), aux loss): the sum of the MoE layers' aux
+    losses (0 for the dense families). Under ``run.use_pallas`` a call
+    that needs a gradient raises (``kernels.refuse_grad``): the kernel has
+    no backward, as the reference kernel has none, so a training step
+    takes use_pallas=False.
     ``run.remat`` checkpoints each block (``common.remat``), as the
     reference's ``jax.checkpoint`` over its layer scan does.
     """
@@ -322,11 +348,14 @@ def forward_train(params, cfg: ModelConfig, run: RunConfig, batch, *,
         run = run.replace(use_pallas=False)
     # one unbind per stacked leaf: its backward stacks the layers' grads once
     layers = _unbind(params["blocks"], cfg.n_layers)
+    auxs = []
     for i in range(cfg.n_layers):
-        x = remat(lambda p, h, w=int(win[i]): apply_block(
-            p, cfg, run, h, window=w, flash=flash)[0], run.remat, layers[i], x)
+        x, aux = remat(lambda p, h, w=int(win[i]): apply_block(
+            p, cfg, run, h, window=w, flash=flash)[::2], run.remat,
+            layers[i], x)
+        auxs.append(aux)
     x = rms_norm(x, params["lm"]["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x), torch.zeros((), device=x.device)
+    return _unembed(params, cfg, x), torch.stack(auxs).sum()
 
 
 def train_loss(params, cfg: ModelConfig, run: RunConfig, batch, *,
@@ -349,7 +378,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def _stack_caches(caches) -> PyTree:
-    return {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
+    """Per-layer cache dicts -> one dict of layer-stacked tensors."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos):
@@ -361,9 +391,9 @@ def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos):
     win = layer_windows(cfg)
     new = []
     for i in range(cfg.n_layers):
-        x, c = apply_block(_layer(params["blocks"], i), cfg, run, x,
-                           window=int(win[i]), cache=_layer(cache, i),
-                           pos=pos)
+        x, c, _ = apply_block(_layer(params["blocks"], i), cfg, run, x,
+                              window=int(win[i]), cache=_layer(cache, i),
+                              pos=pos)
         new.append(c)
     x = rms_norm(x, params["lm"]["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], _stack_caches(new)
@@ -383,7 +413,7 @@ def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
     homogeneous = bool((win == 0).all())
     new = []
     for i in range(cfg.n_layers):
-        x, c = _prefill_block(_layer(params["blocks"], i), cfg, x,
+        x, c = _prefill_block(_layer(params["blocks"], i), cfg, run, x,
                               0 if homogeneous else int(win[i]),
                               _layer(cache, i))
         new.append(c)
@@ -394,7 +424,8 @@ def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
             torch.full((B,), emb_len, dtype=torch.int32, device=x.device))
 
 
-def _prefill_block(p, cfg: ModelConfig, x, window, cache_l):
+def _prefill_block(p, cfg: ModelConfig, run: RunConfig, x, window,
+                   cache_l):
     """Block application that also writes the full-sequence K/V into the
     cache; the attention is the plain one, as in the reference."""
     S = x.shape[1]
@@ -411,9 +442,9 @@ def _prefill_block(p, cfg: ModelConfig, x, window, cache_l):
     if cfg.post_norm:
         a = rms_norm(a, p["pn1"], cfg.norm_eps)
     if cfg.parallel_block:
-        return x + a + _mlp_apply(p["mlp"], cfg, h), new_cache
+        return x + a + _ffn(p, cfg, run, h)[0], new_cache
     x = x + a
-    m = _mlp_apply(p["mlp"], cfg, rms_norm(x, p["ln2"], cfg.norm_eps))
+    m, _ = _ffn(p, cfg, run, rms_norm(x, p["ln2"], cfg.norm_eps))
     if cfg.post_norm:
         m = rms_norm(m, p["pn2"], cfg.norm_eps)
     return x + m, new_cache

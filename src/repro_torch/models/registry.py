@@ -1,11 +1,11 @@
 """Uniform model interface: init / train_loss / init_cache / prefill /
 decode_step.
 
-Port of ``repro/models/registry.py`` for the families the port has: dense
-and vlm (``models/lm.py``) and ssm (``models/xlstm.py``). The ``moe``
-family shares the dense bundle and raises ``NotImplementedError`` where its
-blocks are built. The dry-run's ``input_specs`` and the bundle's abstract
-params and sharding axes arrive with the launchers (ROADMAP slice F).
+Port of ``repro/models/registry.py``: dense, moe and vlm
+(``models/lm.py``), ssm (``models/xlstm.py``), hybrid (``models/hymba.py``)
+and audio (``models/whisper.py``). The dry-run's ``input_specs`` and the
+bundle's abstract params and sharding axes arrive with the launchers
+(ROADMAP slice F).
 """
 from __future__ import annotations
 
@@ -15,13 +15,14 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import lm as lm_lib
+from repro_torch.models import whisper as whisper_lib
 from repro_torch.models import xlstm as xlstm_lib
 
 PyTree = Any
 
-_NOT_PORTED = {"hybrid": "slice E (hymba)",
-               "audio": "slice E (whisper)"}
+_LIBS = {"ssm": xlstm_lib, "hybrid": hymba_lib, "audio": whisper_lib}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +37,7 @@ class ModelBundle:
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
-            f"ported yet; it comes with {_NOT_PORTED[cfg.family]}")
-    lib = xlstm_lib if cfg.family == "ssm" else lm_lib
+    lib = _LIBS.get(cfg.family, lm_lib)       # dense / moe / vlm: lm
     return ModelBundle(
         cfg=cfg,
         init=lambda gen, dtype=torch.float32: lib.init(gen, cfg, dtype),

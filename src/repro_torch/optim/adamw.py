@@ -5,7 +5,9 @@ order (bias corrections from a float32 step, decoupled weight decay on
 leaves with ``ndim >= 2`` only). The state lives on the params' device.
 ``update`` works in place, leaf by leaf, as the reference's jitted step
 does under donation: the params and moments it is given are the ones it
-returns, and its float32 temporaries are one leaf's size.
+returns, and its float32 temporaries are one leaf's size. A moment that is
+not float32 (a bf16 leaf's, from ``init``) becomes the reference's float32
+result at its first update: one new tensor per such leaf, once.
 """
 from __future__ import annotations
 
@@ -46,21 +48,41 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
     return tree_lib.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
+def _weak(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python scalar as JAX's weak type makes it: in ``like``'s dtype."""
+    return torch.tensor(x, dtype=like.dtype, device=like.device)
+
+
 @torch.no_grad()
 def update(grads: PyTree, state: AdamWState, params: PyTree, *,
            lr: torch.Tensor, b1: float = 0.9, b2: float = 0.95,
            eps: float = 1e-8, weight_decay: float = 0.1
            ) -> Tuple[PyTree, AdamWState]:
     """One AdamW step; ``params``, ``state.mu`` and ``state.nu`` are
-    updated in place and returned (``grads`` is only read)."""
+    updated in place and returned (``grads`` is only read). Moments come
+    back float32, as the reference's (``m.astype(v.dtype)``, ``v``
+    float32): a moment of another dtype is replaced. Its ``b1 * m`` is the
+    reference's: a weak-typed scalar takes the moment's dtype, so ``b1``
+    and the product are rounded to it."""
     step = state.step + 1
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
-    for g, m, v, p in zip(tree_lib.leaves(grads), tree_lib.leaves(state.mu),
-                          tree_lib.leaves(state.nu), tree_lib.leaves(params)):
+    mu, nu = tree_lib.leaves(state.mu), tree_lib.leaves(state.nu)
+    replaced = False
+    for i, (g, m, v, p) in enumerate(zip(tree_lib.leaves(grads), mu, nu,
+                                         tree_lib.leaves(params))):
         g = g.float()
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g.square())
+        if m.dtype == torch.float32:
+            m.mul_(b1).add_((1 - b1) * g)
+        else:
+            m = mu[i] = (m * _weak(b1, m)).float().add_((1 - b1) * g)
+            replaced = True
+        if v.dtype == torch.float32:
+            v.mul_(b2).add_((1 - b2) * g.square())
+        else:
+            v = nu[i] = (v * _weak(b2, v)).float().add_(
+                (1 - b2) * g.square())
+            replaced = True
         delta = m / c1
         delta.div_((v / c2).sqrt_().add_(eps))
         if p.dim() >= 2:     # decoupled weight decay on matrices only
@@ -70,6 +92,9 @@ def update(grads: PyTree, state: AdamWState, params: PyTree, *,
             p.sub_(delta)
         else:
             p.copy_(p.float() - delta)
+    if replaced:
+        return params, AdamWState(step, tree_lib.unflatten(state.mu, mu),
+                                  tree_lib.unflatten(state.nu, nu))
     return params, AdamWState(step, state.mu, state.nu)
 
 

@@ -52,11 +52,12 @@ def value_and_grad(loss_fn: Callable, params: PyTree, batch
 
 
 def build_train_step(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig):
-    """Returns train_step(params, opt_state, err_state, batch, step)
-    -> (params, opt_state, err_state, metrics), metrics = {loss, grad_norm,
-    lr} as 0-d tensors on the params' device. ``step`` is an int or an
-    int tensor; params and the optimizer state are updated in place (the
-    reference donates them)."""
+    """Returns train_step(params, opt_state, err_state, batch, step,
+    before_update=None) -> (params, opt_state, err_state, metrics), metrics
+    = {loss, grad_norm, lr} as 0-d tensors on the params' device. ``step``
+    is an int or an int tensor; params and the optimizer state are updated
+    in place (the reference donates them), and ``before_update()``, if
+    given, is called just before the first of them is written."""
     bundle = get_model(cfg)
     use_compress = run.grad_compression == "topk"
     n_micro = (shape.global_batch // run.microbatch
@@ -66,7 +67,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig):
     def loss_fn(params, batch):
         return bundle.train_loss(params, run, batch)
 
-    def train_step(params, opt_state, err_state, batch, step):
+    def train_step(params, opt_state, err_state, batch, step,
+                   before_update=None):
         if n_micro:
             gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                     for p in tree_lib.leaves(params)]
@@ -93,6 +95,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig):
         lr = adamw.cosine_schedule(step, base_lr=run.lr,
                                    warmup=run.warmup_steps,
                                    total=run.total_steps, device=loss.device)
+        if before_update is not None:
+            before_update()
         params, opt_state = adamw.update(grads, opt_state, params, lr=lr,
                                          weight_decay=run.weight_decay)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}

@@ -13,6 +13,11 @@ Fault-tolerance model (single-process, multi-host semantics):
 
 Each step synchronizes once: it reads the step's metrics to floats (one
 device-to-host copy of the three), as the reference does.
+
+The update writes the params and the optimizer state in place, so from
+its first write until ``state`` advances no whole state exists: a failure
+in that window saves no emergency checkpoint (the event says so), and a
+restart resumes from the last periodic one.
 """
 from __future__ import annotations
 
@@ -155,6 +160,12 @@ class Trainer:
     def train(self, n_steps: int, state: Optional[TrainState] = None
               ) -> TrainState:
         state = state or self.maybe_restore() or self.init_state()
+        mutating = False
+
+        def begin_update():
+            nonlocal mutating
+            mutating = True
+
         try:
             for _ in range(n_steps):
                 t0 = time.time()
@@ -162,11 +173,13 @@ class Trainer:
                          for k, v in synthetic_batch(self.data_cfg,
                                                      state.step).items()}
                 params, opt, err, metrics = self._step(
-                    state.params, state.opt, state.err, batch, state.step)
+                    state.params, state.opt, state.err, batch, state.step,
+                    before_update=begin_update)
                 vals = torch.stack([metrics[k].float()
                                     for k in _METRICS]).tolist()
                 metrics = dict(zip(_METRICS, vals))
                 state = TrainState(params, opt, err, state.step + 1)
+                mutating = False
                 dt = time.time() - t0
                 self.step_times.append(dt)
                 host_times = self._host_step_times(dt, state.step)
@@ -178,7 +191,11 @@ class Trainer:
                     self._save(state)
                     ckpt.prune_old(self.ckpt_dir)
         except Exception:
-            if self.ckpt_dir:
+            if self.ckpt_dir and mutating:
+                self.events.append(f"no emergency checkpoint at "
+                                   f"{state.step}: the step had begun to "
+                                   f"update the state")
+            elif self.ckpt_dir:
                 self._save(state, extra={"emergency": True}, sync=True)
                 self.events.append(f"emergency checkpoint at {state.step}")
             raise

@@ -44,7 +44,8 @@ def test_every_port_module_imports_with_jax_blocked():
         assert f"repro_torch.core.{name}" in mods
     for name in ("data.pipeline", "optim.adamw", "train.steps",
                  "train.trainer", "checkpoint.checkpointer", "launch.train",
-                 "tree"):
+                 "tree", "models.moe", "models.ssm", "models.hymba",
+                 "models.whisper"):
         assert f"repro_torch.{name}" in mods
     r = subprocess.run([sys.executable, "-c", code, *mods], cwd=ROOT,
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},

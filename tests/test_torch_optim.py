@@ -88,6 +88,49 @@ def test_update_is_in_place_and_reads_grads_only():
     assert opt2.mu is opt.mu and opt.step.dtype == torch.int32
 
 
+@pytest.mark.parametrize("start", ["zeros", "random"])
+def test_bf16_leaves_get_the_reference_s_float32_moments(start):
+    """bf16 params and gradients, three updates: the reference returns
+    float32 moments after the first (``m.astype(v.dtype)``, ``v`` float32;
+    its ``b1 * m`` rounded in bf16 by the weak-typed scalar), and so must
+    the port. Moments at the f32 bar, params within one bf16 ulp."""
+    rng = np.random.RandomState(5)
+    bf16 = lambda t: jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.bfloat16), t)
+    jp = bf16(_tree(rng))
+    p = params_from_numpy(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), jp), "cpu", torch.bfloat16)
+    jopt, opt = jadamw.init(jp), adamw.init(p)
+    if start == "random":      # moments restored in bf16, nu positive
+        mu, nu = bf16(_tree(rng, 0.1)), bf16(jax.tree_util.tree_map(
+            np.abs, _tree(rng, 0.01)))
+        jopt = jadamw.AdamWState(jopt.step, mu, nu)
+        opt = adamw.AdamWState(opt.step, *(params_from_numpy(
+            jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), t),
+            "cpu", torch.bfloat16) for t in (mu, nu)))
+    for step in range(3):
+        jg = bf16(_tree(rng, 0.1))
+        g = params_from_numpy(jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), jg), "cpu", torch.bfloat16)
+        jp, jopt = jadamw.update(jg, jopt, jp, lr=jnp.float32(1e-2))
+        p, opt = adamw.update(g, opt, p, lr=torch.tensor(1e-2))
+        for name, ours, ref in (("mu", opt.mu, jopt.mu),
+                                ("nu", opt.nu, jopt.nu),
+                                ("params", p, jp)):
+            assert [str(x.dtype).removeprefix("torch.")
+                    for x in tree_lib.leaves(ours)] == \
+                [str(x.dtype) for x in jax.tree_util.tree_leaves(ref)], \
+                f"step {step} {name} dtypes"
+        assert all(x.dtype == torch.float32
+                   for x in tree_lib.leaves((opt.mu, opt.nu)))
+        f32 = lambda t: jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), t)
+        _close(opt.mu, jopt.mu)
+        _close(opt.nu, jopt.nu)
+        _close(tree_lib.tree_map(lambda x: x.float(), p), f32(jp),
+               tol=dict(atol=0, rtol=2 ** -7))
+
+
 def test_global_norm_and_clip_match_reference():
     rng = np.random.RandomState(3)
     g = _tree(rng, scale=3.0)
