@@ -158,6 +158,32 @@ Phases (any failure exits non-zero):
              ratio, processed steps, slice-cycles/s ticked and skipping,
              kernels per processed step and the idle share.
 
+11. dist   — the distribution layer (src/repro_torch/distributed, the mesh
+             paths of the models and steps, launch/{mesh,dryrun,dryrun_pp}),
+             run before the sim phase: (a) NCCL at world 1 (a FileStore),
+             a (1, 1) mesh: Qwen1.5-4B at full width, 8 of 40 layers, f32,
+             B=1, S=2048, three sharded ``build_train_step`` steps against
+             the unsharded ones from the same weights (losses at the f32
+             bar, params at 2e-5 + 0.1 lr per update; bit-identity
+             reported); the sharded prefill at full width and depth, B=1,
+             S=4096, bf16, use_pallas: K2 once per layer on the local head
+             shards, every launch on the bf16 route (its launches are in
+             the kernels line), the logits against the unsharded prefill
+             with the plain attention at the bf16 tolerance with the rtol of
+             the largest |logit|; (b) 4 gloo ranks whose tensors all live on
+             the card (NCCL refuses two ranks on one GPU; gloo moves CUDA
+             tensors through the host): moonshot-v1-16b-a3b's MoE at full
+             width (2 blocks' MoE layers, B=1, S=4096, bf16) expert
+             parallel over model = 4 against the local path layer by layer
+             (bf16 bar, rtol of the largest |value|; tokens whose experts
+             differ: must be 0), and GPipe of 4 stages of 2 Qwen1.5-4B
+             blocks (f32, B=4, S=512, 4 microbatches): output and each
+             stage's gradients against the 8 blocks in order; (c) in
+             processes alongside (CPU, meta tensors): the dry-run of
+             qwen1.5-4b x train_4k on 256 and 512 fake ranks and the GPipe
+             dry-run of gemma2-2b, each printing its three terms,
+             bottleneck, collective bytes by kind and seconds.
+
 The kernel phase also holds K3 (mLSTM scan, csrc/mlstm_scan_sm90.cu: a
 scalar pass, the state entering each chunk, the outputs; 3xTF32 tensor-core
 products) against its plain version: the tests/test_kernels.py sweep in f32
@@ -212,6 +238,7 @@ from repro_torch.core import telemetry as sim_tel
 from repro_torch.core import validate as sim_val
 from repro_torch.core import workloads as sim_wl
 from repro_torch.core.params import SimConfig
+from repro_torch.distributed import sharding as shlib
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -626,9 +653,10 @@ def phase_flash_kernels():
     ms = _time_ms(lambda: fa_ops.flash_attention(*x), 20)
     plain_ms = _time_ms(lambda: attention_ref(*x), 5)
     library_ms = _time_ms(lambda: sdpa(*x, is_causal=True), 20)
-    # the f32 route: the CUDA-core kernel on f32 copies
+    # the f32 route: the CUDA-core kernel on f32 copies, beside SDPA on them
     xf = [t.float() for t in x]
     simt_f32_ms = _time_ms(lambda: fa_ops.flash_attention(*xf), 5)
+    library_f32_ms = _time_ms(lambda: sdpa(*xf, is_causal=True), 5)
     del xf
     elt = x[0].element_size()
     n_bytes = 4 * B * H * S * d * elt             # q, k, v in; out
@@ -657,6 +685,9 @@ def phase_flash_kernels():
                                   "flash_attention_sm90.cu"},
                "simt": {"dtype": "float32", "launches": None,
                         "ms": simt_f32_ms,
+                        "bound_ms": n_flops / F32_FLOPS_PER_S * 1e3,
+                        "bound_by": "operations",
+                        "library_ms": library_f32_ms,
                         "source": "src/repro_torch/csrc/flash_attention.cu"}}}
     print(f"[kernels] flash_attention forward shape B={B} H={H} S={S} d={d} "
           f"bf16 causal: {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s of "
@@ -666,7 +697,8 @@ def phase_flash_kernels():
           f"split P.V), bound {rec['bound_ms']:.4f} ms at the "
           f"bf16 tensor-core peak, {rec['bound_f32_ms']:.4f} ms at the f32 "
           f"rate; plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; the "
-          f"f32 route (CUDA-core kernel) {simt_f32_ms:.4f} ms on f32 copies; "
+          f"f32 route (CUDA-core kernel) {simt_f32_ms:.4f} ms on f32 copies "
+          f"(sdpa on them {library_f32_ms:.4f} ms); "
           f"max|err| {err_a:.3e}; sm90 kernel: {cfg['block_q']} q rows x "
           f"{cfg['block_k']} keys per tile, 384 threads, registers <= "
           f"{regs} (launch), {cfg['smem_bytes']} B dynamic shared memory, "
@@ -2948,6 +2980,382 @@ def phase_sim(smi_line, warmup=SIM_WARMUP, cycles=SIM_CYCLES):
     return rec
 
 
+# the distribution phase (slice F): the sharded paths over meshes on the one
+# card (NCCL at world 1; gloo ranks that share the card), and the dry-run's
+# per-chip counts on fake worlds of 256 and 512 ranks
+
+DIST_QWEN_LAYERS = TRAIN_QWEN_LAYERS      # slice T's cut (f32 AdamW state)
+DIST_TRAIN_B, DIST_TRAIN_S, DIST_TRAIN_STEPS = 1, 2048, 3
+DIST_TRAIN_LR = 3e-4
+DIST_PREFILL_B, DIST_PREFILL_S = 1, 4096
+DIST_PREFILL_CALLS = 2                   # the second is timed
+DIST_RANKS = 4
+DIST_MOE_LAYERS, DIST_MOE_B, DIST_MOE_S = 2, 1, 4096
+DIST_PP_BLOCKS, DIST_PP_MICRO, DIST_PP_B, DIST_PP_S = 2, 4, 4, 512
+DIST_DRYRUNS = {
+    "qwen1.5-4b train_4k single_pod": [
+        "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-4b",
+        "--shape", "train_4k", "--mesh", "single_pod", "--force"],
+    "qwen1.5-4b train_4k multi_pod": [
+        "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-4b",
+        "--shape", "train_4k", "--mesh", "multi_pod", "--force"],
+    "gemma2-2b pipeline": ["-m", "repro_torch.launch.dryrun_pp",
+                           "--arch", "gemma2-2b"]}
+DIST_RECORDS = {
+    "qwen1.5-4b train_4k single_pod":
+        "qwen1.5-4b__train_4k__single_pod.json",
+    "qwen1.5-4b train_4k multi_pod": "qwen1.5-4b__train_4k__multi_pod.json",
+    "gemma2-2b pipeline": "PP__gemma2-2b__train_4k__multi_pod.json"}
+
+
+def _dist_train(mesh):
+    """(a) three train steps of Qwen1.5-4B (full width, 8 layers, f32) on
+    the (1, 1) mesh against the unsharded step from the same weights."""
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"),
+                              n_layers=DIST_QWEN_LAYERS)
+    run = RunConfig(seq_len=DIST_TRAIN_S, global_batch=DIST_TRAIN_B,
+                    lr=DIST_TRAIN_LR, warmup_steps=1,
+                    total_steps=DIST_TRAIN_STEPS, compute_dtype="float32",
+                    remat="full")
+    shape = ShapeConfig("train", "train", DIST_TRAIN_S, DIST_TRAIN_B)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = get_model(cfg).init(gen)
+    init = _tree_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size,
+                         (DIST_TRAIN_STEPS, DIST_TRAIN_B, DIST_TRAIN_S + 1),
+                         generator=gen, device="cuda")
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+    def steps_of(fn, params):
+        opt, err = adamw.init(params), torch.zeros((), device="cuda")
+        losses, ms = [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, err, m = fn(params, opt, err, b, i)
+            losses.append(float(m["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return _tree_to(shlib.full(params), "cpu"), losses, ms
+
+    want, l_plain, ms_plain = steps_of(
+        train_steps.build_train_step(cfg, run, shape), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, l_mesh, ms_mesh = steps_of(
+        train_steps.build_train_step(cfg, run, shape, mesh),
+        _tree_to(init, "cuda"))
+    del init
+    _assert_close("dist train losses (1, 1) mesh vs unsharded",
+                  torch.tensor(l_mesh), torch.tensor(l_plain), F32_TOL)
+    atol = F32_TOL["atol"] + 0.1 * DIST_TRAIN_LR * DIST_TRAIN_STEPS
+    err = max(_assert_close(f"dist train param {k}", a, b,
+                            dict(atol=atol, rtol=F32_TOL["rtol"]))
+              for (k, a), b in zip(tree_lib.flatten_with_path(got),
+                                   tree_lib.leaves(want)))
+    same = l_mesh == l_plain and all(
+        torch.equal(a, b) for a, b in zip(tree_lib.leaves(got),
+                                          tree_lib.leaves(want)))
+    return {"config": f"{cfg.name} ({cfg.n_layers} of 40 layers), f32, "
+                      f"B={DIST_TRAIN_B} S={DIST_TRAIN_S}, remat full",
+            "losses_mesh": l_mesh, "losses_unsharded": l_plain,
+            "param_max_abs_err": err, "bit_identical": same,
+            "step_ms_mesh": ms_mesh, "step_ms_unsharded": ms_plain}
+
+
+def _dist_prefill(mesh):
+    """(a) the sharded prefill of Qwen1.5-4B at full width and depth, bf16,
+    with use_pallas: K2 once per layer on the local head shards, the logits
+    against the unsharded prefill with the plain attention. Each runs twice;
+    the second call is timed."""
+    cfg = get_config("qwen1.5-4b")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = get_model(cfg).init(gen, torch.bfloat16)
+    run = RunConfig(compute_dtype="bfloat16", use_pallas=True)
+    shape = ShapeConfig("prefill", "prefill", DIST_PREFILL_S, DIST_PREFILL_B)
+    toks = torch.randint(0, cfg.vocab_size, (DIST_PREFILL_B, DIST_PREFILL_S),
+                         generator=gen, device="cuda")
+    sharded = train_steps.build_prefill_step(cfg, run, shape, mesh)
+    plain = train_steps.build_prefill_step(cfg, run.replace(use_pallas=False),
+                                           shape)
+
+    def timed(fn):
+        for _ in range(DIST_PREFILL_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache, _ = fn(params, toks)
+            del cache
+            torch.cuda.synchronize()
+        return lg, 1e3 * (time.perf_counter() - t0)
+
+    with torch.no_grad():
+        _zero_counts()
+        lg, mesh_ms = timed(sharded)
+        lg = lg.full_tensor()
+        launches = fa_ops.flash_attention.launches
+        launches_sm90 = fa_ops.flash_attention.launches_sm90
+        ref, plain_ms = timed(plain)
+        del params
+    if launches != cfg.n_layers * DIST_PREFILL_CALLS or \
+            launches_sm90 != launches:
+        raise AssertionError(f"dist prefill: K2 launches {launches} (bf16 "
+                             f"route {launches_sm90}) != {cfg.n_layers} x "
+                             f"{DIST_PREFILL_CALLS}")
+    err = _assert_close("dist prefill logits (1, 1) mesh + K2 vs unsharded "
+                        "plain", lg, ref, BF16_TOL, rtol_of_max=True)
+    return {"config": f"{cfg.name} (40 layers), bf16, B={DIST_PREFILL_B} "
+                      f"S={DIST_PREFILL_S}, use_pallas",
+            "k2_launches": launches, "k2_launches_sm90": launches_sm90,
+            "logits_max_abs_err": err, "max_abs_logit": float(ref.abs().max()),
+            "prefill_ms_mesh": mesh_ms, "prefill_ms_unsharded_plain": plain_ms}
+
+
+def _dist_moe(rank):
+    """(b) moonshot's MoE layers at full width (2 blocks' worth), expert
+    parallel over model = 4 ranks on the card, against the local path,
+    layer by layer on the same input (the local stream's): random weights
+    grow the stream and a rounding difference flips near-tied expert
+    choices downstream, so a free-running comparison meets no bf16 bar
+    (the families phase found the same); here the router sees the same
+    input, so the EP path must choose the same experts."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=DIST_MOE_LAYERS)
+    mesh = init_device_mesh("cuda", (1, DIST_RANKS),
+                            mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    blocks = lm.init(gen, cfg, torch.bfloat16)["blocks"]
+    x = torch.randn(DIST_MOE_B, DIST_MOE_S, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    run = RunConfig(compute_dtype="bfloat16")
+    routes, route = [], moe_lib._route
+
+    def recording(x, router, c):
+        out = route(x, router, c)
+        routes.append(out[0])
+        return out
+
+    errs, changed, top, ep_ms, local_ms = [], [], 0.0, 0.0, 0.0
+    moe_lib._route = recording
+    try:
+        with torch.no_grad():
+            for i in range(cfg.n_layers):
+                p = lm._layer(blocks, i)
+                h = rms_norm(x, p["ln2"], cfg.norm_eps)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with implicit_replication():
+                    y_ep = moe_lib.moe_apply(h, p["moe"], cfg, run,
+                                             mesh)[0].full_tensor()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                y = moe_lib.moe_apply(h, p["moe"], cfg, run)[0]
+                torch.cuda.synchronize()
+                ep_ms += 1e3 * (t1 - t0)
+                local_ms += 1e3 * (time.perf_counter() - t1)
+                errs.append(_assert_close(
+                    f"dist EP moe layer {i} vs local path", y_ep, y,
+                    BF16_TOL, rtol_of_max=True))
+                ep_idx, idx = routes[-2:]
+                changed.append(int((ep_idx != idx).any(-1).sum()))
+                top = max(top, float(y.abs().max()))
+                x = x + y
+    finally:
+        moe_lib._route = route
+    return {"config": f"{cfg.name} MoE layers of {cfg.n_layers} blocks "
+                      f"(d {cfg.d_model}, {cfg.n_experts} experts of "
+                      f"{cfg.moe_d_ff}, top-{cfg.top_k}, shared expert), "
+                      f"bf16, B={DIST_MOE_B} S={DIST_MOE_S}, model = "
+                      f"{DIST_RANKS}, layer by layer",
+            "max_abs_err": max(errs), "max_abs_value": top,
+            "tokens_changing_experts_per_layer": changed,
+            "ep_ms": ep_ms, "local_ms": local_ms}
+
+
+def _dist_gpipe(rank):
+    """(b) GPipe: 4 stages of 2 Qwen1.5-4B blocks (full width, f32), 4
+    microbatches; the output and each stage's gradients against the 8
+    blocks in order."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.pipeline import (gpipe_apply,
+                                                  split_layers_to_stages)
+    from repro_torch.models.common import init_stacked
+    n = DIST_RANKS * DIST_PP_BLOCKS
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=n)
+    mesh = init_device_mesh("cuda", (DIST_RANKS,), mesh_dim_names=("pod",))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    blocks = init_stacked(gen, lm.block_defs(cfg), n)
+    x = torch.randn(DIST_PP_B, DIST_PP_S, cfg.d_model, generator=gen,
+                    device="cuda")
+    run = RunConfig(compute_dtype="float32", remat="none")
+
+    def stage(p, h):
+        for i in range(DIST_PP_BLOCKS):
+            h = lm.apply_block(lm._layer(p, i), cfg, run, h, window=0)[0]
+        return h
+
+    staged = split_layers_to_stages(blocks, DIST_RANKS)
+    leaves = [t.detach().requires_grad_() for t in tree_lib.leaves(staged)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gpipe_apply(stage, tree_lib.unflatten(staged, leaves), x,
+                      DIST_PP_MICRO, mesh)
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    pp_ms = 1e3 * (time.perf_counter() - t0)
+    ref_leaves = [t.detach().requires_grad_()
+                  for t in tree_lib.leaves(blocks)]
+    ref_blocks = tree_lib.unflatten(blocks, ref_leaves)
+    t0 = time.perf_counter()
+    h = x
+    for i in range(n):
+        h = lm.apply_block(lm._layer(ref_blocks, i), cfg, run, h,
+                           window=0)[0]
+    h.square().mean().backward()
+    torch.cuda.synchronize()
+    seq_ms = 1e3 * (time.perf_counter() - t0)
+    sidx = mesh.get_local_rank("pod")
+    err_out = _assert_close("dist gpipe output vs blocks in order",
+                            out.detach(), h.detach(), F32_TOL,
+                            rtol_of_max=True)
+    lo = sidx * DIST_PP_BLOCKS
+    err_g = max(_assert_close(f"dist gpipe grad stage {sidx}",
+                              a.grad[sidx], b.grad[lo:lo + DIST_PP_BLOCKS],
+                              F32_TOL, rtol_of_max=True)
+                for a, b in zip(leaves, ref_leaves))
+    errs = coll.all_reduce(torch.tensor([err_out, err_g], device="cuda"),
+                           mesh.get_group("pod"), "max")
+    return {"config": f"{cfg.name} blocks, {DIST_RANKS} stages of "
+                      f"{DIST_PP_BLOCKS}, f32, B={DIST_PP_B} S={DIST_PP_S}, "
+                      f"n_micro {DIST_PP_MICRO}",
+            "output_max_abs_err": float(errs[0]),
+            "grad_max_abs_err": float(errs[1]), "gpipe_ms": pp_ms,
+            "sequential_ms": seq_ms}
+
+
+def _dist_rank(rank, world, out):
+    """One gloo rank of (b): its tensors on the card."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"moe": _dist_moe(rank)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["gpipe"] = _dist_gpipe(rank)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(rec, f)
+
+
+def phase_dist(smi_line):
+    """The distribution layer: (a) NCCL at world 1 on a (1, 1) mesh: three
+    sharded train steps against the unsharded ones, the sharded prefill
+    through K2; (b) 4 gloo ranks whose tensors all live on the card (NCCL
+    refuses two ranks on one GPU; gloo moves CUDA tensors through the
+    host): the expert-parallel MoE and GPipe; (c) the dry-run of
+    qwen1.5-4b x train_4k on 256 and 512 fake ranks and the GPipe dry-run of
+    gemma2-2b, in processes that run alongside (CPU, meta tensors). Returns
+    K2's launches (all on the bf16 route)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import world
+    from repro_torch.launch import dryrun as dryrun_lib
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dist")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    for name, argv in DIST_DRYRUNS.items():
+        log = open(os.path.join(out_dir, name.replace(" ", "_") + ".log"),
+                   "w")
+        procs[name] = (subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                                        env=env, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       log, time.perf_counter())
+    try:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(out_dir, "nccl"),
+            rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            train = _dist_train(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            prefill = _dist_prefill(mesh)
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        ranks_out = os.path.join(out_dir, "ranks.json")
+        world.spawn(_dist_rank, DIST_RANKS, os.path.join(out_dir, "gloo"),
+                    args=(ranks_out,))
+        with open(ranks_out) as f:
+            ranks = json.load(f)
+        ranks["phase_s"] = time.perf_counter() - t_b
+        dry = {}
+        for name, (proc, log, start) in procs.items():
+            rc = proc.wait(timeout=900)
+            log.close()
+            if rc:
+                raise AssertionError(f"dist dry-run {name} exited {rc}")
+            with open(os.path.join(dryrun_lib.OUT_DIR,
+                                   DIST_RECORDS[name])) as f:
+                rec = json.load(f)
+            dry[name] = {"roofline": rec["roofline"],
+                         "collective_bytes": rec["collective_bytes"],
+                         "trace_s": rec["compile_s"],
+                         "wall_s": time.perf_counter() - start}
+            if "n_collective_permute" in rec:
+                dry[name]["n_collective_permute"] = \
+                    rec["n_collective_permute"]
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    rec = {"world1_nccl": {"train": train, "prefill": prefill},
+           "gloo_ranks_on_the_card": ranks, "dryrun": dry,
+           "card": smi_line, "phase_s": time.perf_counter() - t0}
+    print(f"[dist] (a) NCCL world 1, (1, 1) mesh: train {train['config']}: "
+          f"losses {train['losses_mesh']} vs unsharded "
+          f"{train['losses_unsharded']}, params max|err| "
+          f"{train['param_max_abs_err']:.3e}, bit-identical "
+          f"{train['bit_identical']}, step ms {train['step_ms_mesh']} vs "
+          f"{train['step_ms_unsharded']}; prefill {prefill['config']}: K2 "
+          f"{prefill['k2_launches']} launches (bf16 route "
+          f"{prefill['k2_launches_sm90']}), logits vs unsharded plain max|err| "
+          f"{prefill['logits_max_abs_err']:.3e} (max |logit| "
+          f"{prefill['max_abs_logit']:.1f}), {prefill['prefill_ms_mesh']:.1f} "
+          f"ms vs {prefill['prefill_ms_unsharded_plain']:.1f} ms plain")
+    m, g = ranks["moe"], ranks["gpipe"]
+    print(f"[dist] (b) {DIST_RANKS} gloo ranks on the card: EP {m['config']}:"
+          f" max|err| {m['max_abs_err']:.3e} (max |value| "
+          f"{m['max_abs_value']:.1f}), tokens changing experts per layer "
+          f"{m['tokens_changing_experts_per_layer']}, EP {m['ep_ms']:.1f} ms "
+          f"vs local {m['local_ms']:.1f} ms; GPipe {g['config']}: output "
+          f"max|err| {g['output_max_abs_err']:.3e}, gradients "
+          f"{g['grad_max_abs_err']:.3e}, {g['gpipe_ms']:.1f} ms vs "
+          f"{g['sequential_ms']:.1f} ms in order")
+    for name, d in dry.items():
+        r = d["roofline"]
+        print(f"[dist] (c) dry-run {name}: compute {r['compute_s']:.4e} s, "
+              f"memory {r['memory_s']:.4e} s, collective "
+              f"{r['collective_s']:.4e} s, bound {r['bottleneck']}; "
+              f"collective bytes {d['collective_bytes']}"
+              + (f", {d['n_collective_permute']} collective-permutes"
+                 if "n_collective_permute" in d else "")
+              + f"; trace {d['trace_s']:.1f} s, wall {d['wall_s']:.1f} s")
+    print(json.dumps({"dist": rec}))
+    return prefill["k2_launches"]
+
+
 def _smi():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3017,6 +3425,11 @@ def main(argv=None):
     for rec in (rec_pa, rec_fa, rec_ml):
         rec["kernel_bench_launches"] = bench[rec["name"]]
     smi_line = _smi()
+    # K2's main path in the distribution phase: the sharded prefill
+    dist_launches = phase_dist(smi_line)
+    rec_fa["launches"] += dist_launches
+    rec_fa["routes"]["sm90"]["launches"] += dist_launches
+    rec_fa["dist_launches"] = dist_launches
     phase_sim(smi_line)
     print(f"[chip_smoke] wall {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [rec_pa, rec_fa, rec_ml]}))

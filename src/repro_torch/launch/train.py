@@ -3,16 +3,23 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
       --steps 200 [--seq 512 --batch 8 --ckpt DIR --smoke --device cpu]
 
-Port of ``repro/launch/train.py``: resolves the arch config and runs the
-fault-tolerant Trainer (checkpoint/restart, straggler watchdog) on one
-device, the card by default.
+Port of ``repro/launch/train.py``: resolves the arch config, builds the
+local mesh and runs the fault-tolerant Trainer (checkpoint/restart,
+straggler watchdog), on the card by default. The mesh is
+``make_local_mesh()`` over the default process group, which the caller
+owns (``distributed.world.init`` in each rank, then ``main``); a process
+with no group trains on its one device, with no mesh.
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.configs.base import RunConfig, ShapeConfig, reduced
 from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.train.trainer import StragglerPolicy, Trainer
 
 
@@ -47,7 +54,9 @@ def make_trainer(args: argparse.Namespace) -> Trainer:
                     compute_dtype="float32", remat="none",
                     zero1=args.zero1, grad_compression=args.grad_compression)
     shape = ShapeConfig("train", "train", args.seq, args.batch)
-    return Trainer(cfg, run, shape, ckpt_dir=args.ckpt,
+    mesh = (make_local_mesh(device_type=torch.device(args.device).type)
+            if dist.is_initialized() else None)
+    return Trainer(cfg, run, mesh, shape, ckpt_dir=args.ckpt,
                    ckpt_every=args.ckpt_every,
                    straggler=StragglerPolicy(action="report"),
                    device=args.device)

@@ -1,8 +1,10 @@
 """Shared model components: param declaration, norms, rope, attention, loss.
 
 Port of ``repro/models/common.py``. Parameters are declared as ``ParamDef``
-trees (nested dicts and lists) and materialized into the same trees of
-tensors drawn from an explicit ``torch.Generator``. The numerics keep the
+trees (nested dicts and lists), from which come the weights (the same trees
+of tensors drawn from an explicit ``torch.Generator``), their logical
+sharding axes (``param_axes``) and, for the dry-run, meta tensors of their
+shapes (``abstract_params``). The numerics keep the
 reference's dtypes: norms, rope, attention and the loss run in float32 and
 cast back.
 The reference's ``scan_or_unroll`` is a plain loop over layers at the
@@ -17,7 +19,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
+
+from repro_torch.distributed import regions
+from repro_torch.distributed import sharding as shlib
 
 PyTree = Any
 
@@ -62,6 +68,25 @@ def init_stacked(gen: torch.Generator, defs: PyTree, n: int,
                  dtype=torch.float32) -> PyTree:
     """Per-layer weights for ``n`` layers, stacked on a leading axis."""
     return _materialize(gen, defs, (n,), dtype)
+
+
+def _map_defs(fn: Callable, defs: PyTree) -> PyTree:
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(_map_defs(fn, d) for d in defs)
+    return {k: _map_defs(fn, v) for k, v in defs.items()}
+
+
+def abstract_params(defs: PyTree, dtype=torch.float32) -> PyTree:
+    """Meta tensors of the params' shapes (dry-runs; no allocation)."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                           device="meta"), defs)
+
+
+def param_axes(defs: PyTree) -> PyTree:
+    """Each param's logical axis names (a tuple per leaf)."""
+    return _map_defs(lambda d: d.axes, defs)
 
 
 def params_from_numpy(tree: PyTree, device, dtype=None) -> PyTree:
@@ -182,6 +207,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     caches). Masked logits are -1e30; the math is float32 and the result
     is cast to q's dtype. Returns (B, Sq, Hq, D).
     """
+    if isinstance(k, DTensor):
+        return regions.gqa_attention(q, k, v, causal=causal,
+                                     q_offset=q_offset, window=int(window),
+                                     attn_softcap=attn_softcap,
+                                     kv_len=kv_len)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -257,7 +287,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
               chunk_threshold: int = 8192) -> torch.Tensor:
     """Dispatch: full path for short sequences, chunked online softmax for
-    long ones."""
+    long ones; DTensor operands (a decode against a laid-out cache) go to
+    ``regions.gqa_attention``."""
+    if isinstance(k, DTensor):
+        return gqa_attention(q, k, v, causal=causal, window=window,
+                             attn_softcap=attn_softcap)
     if q.shape[1] >= chunk_threshold or k.shape[1] > chunk_threshold:
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  attn_softcap=attn_softcap)
@@ -269,10 +303,22 @@ def attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
 # losses
 # ---------------------------------------------------------------------------
 
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. F.embedding: its backward sums a row's gradients
+    in a fixed order (indexing's backward accumulates in no fixed order, on
+    either device); a DTensor table is looked up in a local region."""
+    if isinstance(table, DTensor):
+        return shlib.batch_only(regions.embedding(tokens, table))
+    return F.embedding(tokens.long(), table)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean cross-entropy over valid positions, with optional z-loss."""
+    """Mean cross-entropy over valid positions, with optional z-loss.
+    DTensor logits go through ``regions.xent`` (vocab over ``model``)."""
+    if isinstance(logits, DTensor):
+        return regions.xent(logits, labels, mask, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

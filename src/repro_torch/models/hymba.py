@@ -50,13 +50,14 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def apply_block(p, cfg: ModelConfig, run: RunConfig, x, *, window,
-                cache=None, pos=None):
+                mesh=None, batch_axes=("data",), cache=None, pos=None):
     """cache: dict(k, v, ssm, conv) of one layer, or None. Returns (x,
     new_cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
     a, new_attn = lm_lib._attn_apply(p["attn"], cfg, h, window=window,
-                                     cache=attn_cache, pos=pos, run=run)
+                                     cache=attn_cache, pos=pos, run=run,
+                                     mesh=mesh, batch_axes=batch_axes)
     mamba_state = None if cache is None else (cache["ssm"], cache["conv"])
     m, new_mamba = ssm_lib.mamba_mix(p["mamba"], cfg, h, mamba_state)
     fused = 0.5 * (rms_norm(a, p["fuse_a"], cfg.norm_eps) +
@@ -71,7 +72,8 @@ def apply_block(p, cfg: ModelConfig, run: RunConfig, x, *, window,
     return x, new_cache
 
 
-def forward_train(params, cfg: ModelConfig, run: RunConfig, batch):
+def forward_train(params, cfg: ModelConfig, run: RunConfig, batch,
+                  mesh=None, batch_axes=("data",)):
     """Returns (logits (B, S, V), 0). ``run.remat`` other than "none"
     checkpoints each block with nothing saved: the reference's
     ``jax.checkpoint`` here has no policy, so "dots" runs as "full"."""
@@ -82,13 +84,15 @@ def forward_train(params, cfg: ModelConfig, run: RunConfig, batch):
     mode = "none" if run.remat == "none" else "full"
     for i in range(cfg.n_layers):
         x = remat(lambda p, h, w=int(win[i]): apply_block(
-            p, cfg, run, h, window=w)[0], mode, layers[i], x)
+            p, cfg, run, h, window=w, mesh=mesh, batch_axes=batch_axes)[0],
+            mode, layers[i], x)
     x = rms_norm(x, params["lm"]["final_norm"], cfg.norm_eps)
     return lm_lib._unembed(params, cfg, x), torch.zeros((), device=x.device)
 
 
-def train_loss(params, cfg: ModelConfig, run: RunConfig, batch):
-    logits, _ = forward_train(params, cfg, run, batch)
+def train_loss(params, cfg: ModelConfig, run: RunConfig, batch,
+               mesh=None, batch_axes=("data",)):
+    logits, _ = forward_train(params, cfg, run, batch, mesh, batch_axes)
     return softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
 
 
@@ -103,34 +107,39 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "conv": z((L, batch, cfg.conv_width - 1, di), dtype)}
 
 
-def _run_layers(params, cfg: ModelConfig, run: RunConfig, x, cache, pos):
+def _run_layers(params, cfg: ModelConfig, run: RunConfig, x, cache, pos,
+                mesh, batch_axes):
     win = lm_lib.layer_windows(cfg)
     new = []
     for i in range(cfg.n_layers):
         x, c = apply_block(lm_lib._layer(params["blocks"], i), cfg, run, x,
-                           window=int(win[i]), cache=lm_lib._layer(cache, i),
-                           pos=pos)
+                           window=int(win[i]), mesh=mesh,
+                           batch_axes=batch_axes,
+                           cache=lm_lib._layer(cache, i), pos=pos)
         new.append(c)
     return x, lm_lib._stack_caches(new)
 
 
 def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
-            extra=None):
+            mesh=None, batch_axes=("data",), extra=None):
     """Full-prompt pass writing the KV caches and the SSM states. tokens:
     (B, S). Returns (logits (B, V), cache, lengths (B,) int32)."""
     B, S = tokens.shape
     x = lm_lib._embed(params, cfg, run, {"tokens": tokens})
     pos0 = torch.zeros((B,), dtype=torch.int32, device=x.device)
-    x, new_cache = _run_layers(params, cfg, run, x, cache, pos0)
+    x, new_cache = _run_layers(params, cfg, run, x, cache, pos0, mesh,
+                               batch_axes)
     x = rms_norm(x[:, -1:], params["lm"]["final_norm"], cfg.norm_eps)
     return (lm_lib._unembed(params, cfg, x)[:, 0], new_cache,
             torch.full((B,), S, dtype=torch.int32, device=x.device))
 
 
-def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos):
+def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos,
+                mesh=None, batch_axes=("data",)):
     """One decode step. token: (B,) int; pos: (B,) int current lengths.
     Returns (logits (B, V), new_cache)."""
     x = lm_lib._embed(params, cfg, run, {"tokens": token[:, None]})
-    x, new_cache = _run_layers(params, cfg, run, x, cache, pos)
+    x, new_cache = _run_layers(params, cfg, run, x, cache, pos, mesh,
+                               batch_axes)
     x = rms_norm(x, params["lm"]["final_norm"], cfg.norm_eps)
     return lm_lib._unembed(params, cfg, x)[:, 0], new_cache

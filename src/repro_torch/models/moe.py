@@ -1,12 +1,14 @@
 """Mixture-of-Experts layer: top-k routing, capacity-bounded dispatch,
-expert FFNs, gated combine.
+expert FFNs, gated combine, and its expert-parallel execution.
 
 Port of ``repro/models/moe.py``. Two implementations:
 
-* ``moe_apply`` — the reference's mesh-less path (``_moe_local`` with every
+* ``moe_apply`` — without a mesh, the local path (``_moe_local`` with every
   expert local): gather each expert's tokens through the (E, C) dispatch
   table, run the experts as batched products, combine the k outputs of
-  each token by its gates.
+  each token by its gates. With a mesh, the reference's ``shard_map``
+  expert-parallel path (``_moe_ep``): experts sharded over ``model``,
+  tokens over the batch axes, the partial outputs summed over ``model``.
 * ``moe_apply_einsum`` — the one-hot dispatch-einsum baseline
   (O(T·E·C·d)), for tests and cross-checks.
 
@@ -15,8 +17,7 @@ Routing and capacity drops are exact: top-k of the float32 softmax
 pair's slot is its running count within its expert in token-major,
 k-minor order, so the same pairs are dropped. The combine adds each
 token's k rows in a fixed order (a sum over a (T, k, d) view), never
-through atomics. The reference's expert-parallel ``shard_map`` path comes
-with the distribution layer (ROADMAP slice F).
+through atomics.
 """
 from __future__ import annotations
 
@@ -24,8 +25,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import ParamDef, act_fn
 
 PyTree = Any
@@ -61,9 +65,10 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     gate, idx = torch.topk(gates_all, cfg.top_k, dim=-1, sorted=True)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux loss (Switch-style) + router z-loss; the expert
-    # counts are integers, so their share is exact and in no atomic order
+    # counts are integer sums of a one-hot, so their share is exact and in
+    # no atomic order (and shape-only: the dry-run counts it on meta)
     me = gates_all.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts).float() \
+    ce = F.one_hot(idx.reshape(-1), cfg.n_experts).sum(0).float() \
         * (1.0 / idx.numel())
     aux = cfg.n_experts * (me * ce).sum()
     aux = aux + 1e-4 * torch.logsumexp(logits, dim=-1).square().mean()
@@ -112,7 +117,10 @@ def _moe_local(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     idx, gate, aux = _route(x, p["router"], cfg)
     token_id, slot = _dispatch_tables(idx, cfg.n_experts, C)
     local_tok = token_id[e_lo:e_lo + n_local]                # (E_loc, C)
-    ws = [p[n][e_lo:e_lo + n_local] for n in ("w_gate", "w_up", "w_down")]
+    # expert weights that hold only the local experts (an expert-parallel
+    # shard) are taken whole, as the reference's clamped dynamic slice does
+    ws = [w if w.shape[0] == n_local else w[e_lo:e_lo + n_local]
+          for w in (p["w_gate"], p["w_up"], p["w_down"])]
     xg = torch.where((local_tok >= 0)[..., None],
                      x[torch.clamp(local_tok, min=0)], 0.0)  # (E_loc, C, d)
     yg = _expert_ffn(xg.to(x.dtype), *ws, act)               # (E_loc, C, d)
@@ -130,24 +138,93 @@ def _moe_local(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _shared(x: torch.Tensor, p, act) -> torch.Tensor:
     h = act(x @ p["sh_gate"].to(x.dtype)) * (x @ p["sh_up"].to(x.dtype))
-    return h @ p["sh_down"].to(x.dtype)
+    return shlib.batch_only(h @ p["sh_down"].to(x.dtype))
 
 
 def moe_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-              run: RunConfig = None, mesh=None
+              run: RunConfig = None, mesh=None,
+              batch_axes: Tuple[str, ...] = ("data",)
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE layer. x: (B, S, d). Returns (y (B, S, d), aux loss)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch.models.moe: the expert-parallel path over a mesh "
-            "comes with the distribution layer (slice F)")
+    """MoE layer. x: (B, S, d). Returns (y (B, S, d), aux loss).
+
+    Without a mesh, or on a mesh whose ``model`` axis is 1 or absent, the
+    local path runs every expert. With a mesh the routed experts run in
+    the expert-parallel region (``_moe_ep``); x and the params may be plain
+    tensors (the same full tensor on every rank) or DTensors, and y and aux
+    come back as DTensors. The shared expert stays outside the region.
+    """
     B, S, d = x.shape
     act = act_fn(cfg.act)
-    y2, aux = _moe_local(x.reshape(B * S, d), p, cfg, act, 0, cfg.n_experts)
-    y = y2.reshape(B, S, d)
+    tp = 1 if mesh is None else shlib.mesh_axis_size(mesh, "model")
+    if cfg.n_experts % tp:
+        raise ValueError(f"{cfg.n_experts} experts not divisible by "
+                         f"model={tp}")
+    if tp == 1 and not isinstance(x, DTensor):
+        y2, aux = _moe_local(x.reshape(B * S, d), p, cfg, act, 0,
+                             cfg.n_experts)
+        y = y2.reshape(B, S, d)
+    else:
+        rep = shlib.replicated(mesh)
+        x = shlib.place_one(x, x.placements if isinstance(x, DTensor)
+                            else rep, mesh)
+        p = {k: shlib.place_one(v, v.placements if isinstance(v, DTensor)
+                                else rep, mesh) for k, v in p.items()}
+        y, aux = _moe_ep(x, p, cfg, act, mesh, batch_axes)
     if cfg.shared_expert:
         y = y + _shared(x, p, act)
     return y, aux
+
+
+def _moe_ep(x: DTensor, p, cfg: ModelConfig, act, mesh, batch_axes):
+    """The reference's ``shard_map`` region: each ``model`` rank routes its
+    (batch-sharded, model-replicated) tokens over all experts, runs its
+    local experts ``[e_lo, e_lo + E/tp)``, and the partial outputs are
+    summed over ``model``; aux is ``psum/tp`` over ``model``, then the mean
+    over the other axes. With ``model`` 1 or absent the local path runs on
+    the whole batch, as GSPMD runs the reference's (global capacity)."""
+    names = mesh.mesh_dim_names
+    tp = shlib.mesh_axis_size(mesh, "model")
+    n_local = cfg.n_experts // tp
+    B, S, d = x.shape
+    if tp == 1:
+        rep = shlib.replicated(mesh)
+        xl = shlib.local(x, rep, mesh)
+        pl = {k: shlib.local(v, rep, mesh) for k, v in p.items()
+              if k in ("router", "w_gate", "w_up", "w_down")}
+        y2, aux = _moe_local(xl.reshape(B * S, d), pl, cfg, act, 0,
+                             cfg.n_experts)
+        y = shlib.from_local(y2.reshape(B, S, d), mesh, rep)
+        return (y.redistribute(mesh, x.placements),
+                shlib.from_local(aux, mesh, rep))
+    # placements in (forward) and of the gradients coming back: a rank's
+    # gradient of a replicated input is partial where its tokens or its
+    # experts are only a part (a batch axis; model)
+    batch = [a for a in names if a in batch_axes]
+    x_pl = shlib.placements((tuple(batch) or None, None, None), mesh)
+    part = lambda a: Partial() if a == "model" or a in batch else Replicate()
+    x_grad = tuple(Partial() if a == "model" else pl
+                   for a, pl in zip(names, x_pl))
+    rep = shlib.replicated(mesh)
+    r_grad = tuple(part(a) for a in names)
+    w_pl = shlib.placements(("model", None, None), mesh)
+    w_grad = tuple(Shard(0) if a == "model" else part(a) for a in names)
+    xl = shlib.local(x, x_pl, mesh, x_grad)
+    pl = {"router": shlib.local(p["router"], rep, mesh, r_grad)}
+    for k in ("w_gate", "w_up", "w_down"):
+        pl[k] = shlib.local(p[k], w_pl, mesh, w_grad)
+    e_lo = mesh.get_local_rank("model") * n_local
+    Bl = xl.shape[0]
+    y2, aux = _moe_local(xl.reshape(Bl * S, d), pl, cfg, act, e_lo, n_local)
+    y2 = coll.psum(y2, mesh.get_group("model"))
+    # aux is identical across `model` ranks (same tokens, same router);
+    # psum/tp keeps it differentiable. Across the other axes tokens differ
+    # -> average (the per-data-shard aux-loss semantics).
+    aux = coll.psum(aux, mesh.get_group("model")) / tp
+    for a in names:
+        if a != "model":
+            aux = coll.pmean(aux, mesh.get_group(a))
+    return (shlib.from_local(y2.reshape(Bl, S, d), mesh, x_pl),
+            shlib.from_local(aux, mesh, rep))
 
 
 def moe_apply_einsum(x: torch.Tensor, p: Dict[str, torch.Tensor],

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import regions
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import ParamDef
 # the depthwise causal conv over a carried state, the same as xLSTM's
 from repro_torch.models.xlstm import _causal_conv
@@ -108,7 +110,9 @@ def mamba_mix(p, cfg: ModelConfig, h: torch.Tensor, state=None):
     conv_state = state[1] if state is not None else None
     xc, new_conv = _causal_conv(xi, p["conv"].to(h.dtype), conv_state)
     xc = F.silu(xc)
-    bcdt = xc @ p["w_bcdt"].to(h.dtype)
+    # over a mesh the product sums the inner dim's shards: reduce it here
+    # (the small (B, S, 2N+1) result), as GSPMD does
+    bcdt = shlib.batch_only(xc @ p["w_bcdt"].to(h.dtype))
     Bc = bcdt[..., :N].float()
     Cc = bcdt[..., N:2 * N].float()
     dt = F.softplus(bcdt[..., 2 * N].float()[..., None]
@@ -123,7 +127,8 @@ def mamba_mix(p, cfg: ModelConfig, h: torch.Tensor, state=None):
         y = torch.einsum("bdn,bn->bd", hs, Cc[:, 0])[:, None]
         h_fin = hs
     else:
-        y, h_fin = selective_scan(xc.float(), dt, A, Bc, Cc, h0)
+        y, h_fin = regions.selective_scan(selective_scan, xc.float(), dt,
+                                          A, Bc, Cc, h0)
     y = y.to(h.dtype) + xc * p["d_skip"].to(h.dtype)
     y = y * F.silu(z)
     return y @ p["w_out"].to(h.dtype), (h_fin, new_conv)

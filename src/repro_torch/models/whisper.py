@@ -21,11 +21,11 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.common import (ParamDef, attention, gqa_attention,
-                                       init_params, init_stacked, remat,
+from repro_torch.models.common import (ParamDef, attention, embed_lookup,
+                                       gqa_attention, init_params, init_stacked, remat,
                                        rms_norm, sinusoidal_positions,
                                        softmax_xent, stack_defs)
 from repro_torch.models.lm import (_expand_kv, _layer, _mlp_apply,
@@ -91,11 +91,12 @@ def _with_positions(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _embed(params, run: RunConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embed"]).to(
+    return embed_lookup(tokens, params["embed"]).to(
         getattr(torch, run.compute_dtype))
 
 
-def encode(params, cfg: ModelConfig, run: RunConfig, audio_embeds):
+def encode(params, cfg: ModelConfig, run: RunConfig, audio_embeds,
+           mesh=None, batch_axes=("data",)):
     """audio_embeds: (B, S_enc, d) from the stub frontend."""
     x = _with_positions(audio_embeds.to(getattr(torch, run.compute_dtype)),
                         cfg.d_model)
@@ -105,7 +106,7 @@ def encode(params, cfg: ModelConfig, run: RunConfig, audio_embeds):
         q, k, v = (_proj(h, p["attn"][w]) for w in ("wq", "wk", "wv"))
         a = attention_with_knobs(q, _expand_kv(k, cfg.n_heads),
                                  _expand_kv(v, cfg.n_heads), causal=False,
-                                 run=run)
+                                 run=run, mesh=mesh, batch_axes=batch_axes)
         x = x + _out_proj(p["attn"], a)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _mlp_apply(p["mlp"], cfg, h)
@@ -113,7 +114,7 @@ def encode(params, cfg: ModelConfig, run: RunConfig, audio_embeds):
 
 
 def _dec_block(p, cfg: ModelConfig, run: RunConfig, x, enc_out=None,
-               cache=None, pos=None):
+               cache=None, pos=None, mesh=None, batch_axes=("data",)):
     """Decoder block; cache: dict(k, v, ck, cv) of one layer (the cross K/V
     precomputed) or None. Returns (x, new_cache)."""
     B, S, _ = x.shape
@@ -123,7 +124,8 @@ def _dec_block(p, cfg: ModelConfig, run: RunConfig, x, enc_out=None,
     q, kh, vh = (_proj(h, sa[w]) for w in ("wq", "wk", "wv"))
     if cache is None:
         a = attention_with_knobs(q, _expand_kv(kh, nh), _expand_kv(vh, nh),
-                                 causal=True, run=run)
+                                 causal=True, run=run, mesh=mesh,
+                                 batch_axes=batch_axes)
         new_cache = None
     else:
         pos = pos.long()
@@ -143,7 +145,8 @@ def _dec_block(p, cfg: ModelConfig, run: RunConfig, x, enc_out=None,
     if cache is None:
         kx, vx = _proj(enc_out, xa["wk"]), _proj(enc_out, xa["wv"])
         ax = attention_with_knobs(qx, _expand_kv(kx, nh), _expand_kv(vx, nh),
-                                  causal=False, run=run)
+                                  causal=False, run=run, mesh=mesh,
+                                  batch_axes=batch_axes)
     else:
         kx, vx = cache["ck"].to(h.dtype), cache["cv"].to(h.dtype)
         new_cache.update({"ck": cache["ck"], "cv": cache["cv"]})
@@ -154,24 +157,29 @@ def _dec_block(p, cfg: ModelConfig, run: RunConfig, x, enc_out=None,
     return x + _mlp_apply(p["mlp"], cfg, h), new_cache
 
 
-def forward_train(params, cfg: ModelConfig, run: RunConfig, batch):
+def forward_train(params, cfg: ModelConfig, run: RunConfig, batch,
+                  mesh=None, batch_axes=("data",)):
     """batch: audio_embeds (B, S_enc, d), tokens (B, S_dec), labels.
     Returns (logits (B, S_dec, V), 0). ``run.remat`` other than "none"
     checkpoints each decoder block with nothing saved (the reference's
     ``jax.checkpoint`` here has no policy)."""
-    enc_out = encode(params, cfg, run, batch["audio_embeds"])
+    enc_out = encode(params, cfg, run, batch["audio_embeds"], mesh,
+                     batch_axes)
     x = _with_positions(_embed(params, run, batch["tokens"]), cfg.d_model)
     layers = _unbind(params["dec"], cfg.n_layers)
     mode = "none" if run.remat == "none" else "full"
     for i in range(cfg.n_layers):
-        x = remat(lambda p, h, e: _dec_block(p, cfg, run, h, enc_out=e)[0],
+        x = remat(lambda p, h, e: _dec_block(p, cfg, run, h, enc_out=e,
+                                             mesh=mesh,
+                                             batch_axes=batch_axes)[0],
                   mode, layers[i], x, enc_out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"].to(x.dtype), torch.zeros((), device=x.device)
 
 
-def train_loss(params, cfg: ModelConfig, run: RunConfig, batch):
-    logits, _ = forward_train(params, cfg, run, batch)
+def train_loss(params, cfg: ModelConfig, run: RunConfig, batch,
+               mesh=None, batch_axes=("data",)):
+    logits, _ = forward_train(params, cfg, run, batch, mesh, batch_axes)
     return softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
 
 
@@ -186,13 +194,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
-            extra=None):
+            mesh=None, batch_axes=("data",), extra=None):
     """Encode the audio and run the decoder prompt, writing the self- and
     cross-attention K/V. extra: {"audio_embeds": (B, S_enc, d)}. Returns
     (logits (B, V), cache, lengths (B,) int32)."""
     B, S = tokens.shape
     nh = cfg.n_heads
-    enc_out = encode(params, cfg, run, extra["audio_embeds"])
+    enc_out = encode(params, cfg, run, extra["audio_embeds"], mesh,
+                     batch_axes)
     x = _with_positions(_embed(params, run, tokens), cfg.d_model)
     new = []
     for i in range(cfg.n_layers):
@@ -221,17 +230,22 @@ def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
             torch.full((B,), S, dtype=torch.int32, device=x.device))
 
 
-def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos):
+def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos,
+                mesh=None, batch_axes=("data",)):
     """One decode step. token: (B,) int; pos: (B,) int current lengths. The
     position's sinusoid comes from a table of the self-attention cache's
     length, as in the reference. Returns (logits (B, V), new_cache)."""
     x = _embed(params, run, token[:, None])
     table = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
-    x = x + table[pos.long()][:, None].to(x.dtype)
+    # the positions (B,) as one plain vector: DTensor cannot index a table
+    # by a vector sharded over two mesh axes
+    idx = pos.full_tensor() if isinstance(pos, DTensor) else pos
+    x = x + table[idx.long()][:, None].to(x.dtype)
     new = []
     for i in range(cfg.n_layers):
         x, c = _dec_block(_layer(params["dec"], i), cfg, run, x,
-                          cache=_layer(cache, i), pos=pos)
+                          cache=_layer(cache, i), pos=pos, mesh=mesh,
+                          batch_axes=batch_axes)
         new.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(x.dtype))[:, 0], _stack_caches(new)

@@ -25,8 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.common import (ParamDef, init_params, remat,
-                                       rms_norm, softmax_xent)
+from repro_torch.distributed import regions
+from repro_torch.models.common import (ParamDef, embed_lookup, init_params,
+                                       remat, rms_norm, softmax_xent)
 
 PyTree = Any
 
@@ -304,8 +305,7 @@ def slstm_block(p, cfg: ModelConfig, x, state=None):
 # ---------------------------------------------------------------------------
 
 def _embed(params, run: RunConfig, tokens) -> torch.Tensor:
-    # F.embedding: a deterministic backward, as in models/lm.py
-    return F.embedding(tokens.long(), params["embed"]).to(
+    return embed_lookup(tokens, params["embed"]).to(
         getattr(torch, run.compute_dtype))
 
 
@@ -316,8 +316,11 @@ def _unembed(params, cfg: ModelConfig, x) -> torch.Tensor:
     return x @ params["lm_head"].to(x.dtype)
 
 
-def forward_train(params, cfg: ModelConfig, run: RunConfig, batch):
-    """batch: tokens (B, S). Returns (logits (B, S, V), aux loss 0).
+def forward_train(params, cfg: ModelConfig, run: RunConfig, batch,
+                  mesh=None, batch_axes=("data",)):
+    """batch: tokens (B, S). Returns (logits (B, S, V), aux loss 0). The
+    mesh arguments are taken, as the reference's; the cell has no mesh
+    knob (its params replicate over ``model``).
 
     With ``run.remat`` other than "none" each block is checkpointed with
     nothing saved but its inputs, for "dots" too: the reference wraps each
@@ -327,13 +330,15 @@ def forward_train(params, cfg: ModelConfig, run: RunConfig, batch):
     mode = "none" if run.remat == "none" else "full"
     for i in range(cfg.n_layers):
         blk = slstm_block if is_slstm(cfg, i) else mlstm_block
-        x = remat(lambda p, h, b=blk: b(p, cfg, h)[0], mode,
-                  params["blocks"][i], x)
+        x = regions.data_parallel(
+            lambda p, h, b=blk: remat(lambda p, h: b(p, cfg, h)[0], mode,
+                                      p, h), params["blocks"][i], x)
     return _unembed(params, cfg, x), torch.zeros((), device=x.device)
 
 
-def train_loss(params, cfg: ModelConfig, run: RunConfig, batch):
-    logits, _ = forward_train(params, cfg, run, batch)
+def train_loss(params, cfg: ModelConfig, run: RunConfig, batch,
+               mesh=None, batch_axes=("data",)):
+    logits, _ = forward_train(params, cfg, run, batch, mesh, batch_axes)
     return softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
 
 
@@ -362,7 +367,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
-            extra=None):
+            mesh=None, batch_axes=("data",), extra=None):
     """Process the prompt, returning last-token logits + recurrent states.
 
     The states are created fresh (O(1) in prompt length); ``cache`` is not
@@ -374,26 +379,31 @@ def prefill(params, cfg: ModelConfig, run: RunConfig, cache, tokens,
     new_cache = []
     for i in range(cfg.n_layers):
         blk = slstm_block if is_slstm(cfg, i) else mlstm_block
-        x, st = blk(params["blocks"][i], cfg, x)
+        x, st = regions.data_parallel(lambda p, h, b=blk: b(p, cfg, h),
+                                      params["blocks"][i], x)
         new_cache.append(st)
     logits = _unembed(params, cfg, x[:, -1:])
     return (logits[:, 0], new_cache,
             torch.full((B,), S, dtype=torch.int32, device=x.device))
 
 
-def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos):
+def decode_step(params, cfg: ModelConfig, run: RunConfig, cache, token, pos,
+                mesh=None, batch_axes=("data",)):
     """One token per sequence. token: (B,) int. Returns (logits (B, V),
     new states); ``cache`` is left as it was."""
     del pos
     x = _embed(params, run, token[:, None])
     new_cache = []
+    def step(p, x, state, slstm):
+        if not slstm:
+            return mlstm_block(p, cfg, x, state)
+        xw, z = _slstm_in(p, cfg, x)
+        st, h = slstm_cell(p, cfg, xw[:, 0], state)
+        return _slstm_out(p, cfg, x, h[:, None], z), st
+
     for i in range(cfg.n_layers):
-        p = params["blocks"][i]
-        if is_slstm(cfg, i):
-            xw, z = _slstm_in(p, cfg, x)
-            st, h = slstm_cell(p, cfg, xw[:, 0], cache[i])
-            x = _slstm_out(p, cfg, x, h[:, None], z)
-        else:
-            x, st = mlstm_block(p, cfg, x, cache[i])
+        x, st = regions.data_parallel(
+            lambda p, x, st, s=is_slstm(cfg, i): step(p, x, st, s),
+            params["blocks"][i], x, cache[i])
         new_cache.append(st)
     return _unembed(params, cfg, x)[:, 0], new_cache

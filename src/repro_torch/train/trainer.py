@@ -1,8 +1,13 @@
 """Production training loop: checkpoint/restart, straggler mitigation,
 emergency save, deterministic data, metrics.
 
-Port of ``repro/train/trainer.py``, on one device and without a mesh.
-Fault-tolerance model (single-process, multi-host semantics):
+Port of ``repro/train/trainer.py``: ``Trainer(cfg, run, mesh, shape, ...)``
+trains over a mesh (one process per rank; params and optimizer state laid
+out by the train step's ``in_placements``; checkpoints hold full arrays,
+written by rank 0, and restore onto whatever mesh the run has), and with
+``mesh=None`` on one device. The one-device form ``Trainer(cfg, run,
+shape, ...)`` of earlier callers is kept.
+Fault-tolerance model (multi-host semantics):
   * checkpoint every N steps (async, atomic) + emergency save on exception;
   * resume picks up step + data position bit-identically;
   * straggler detection: per-step wall time vs the median; a host
@@ -28,11 +33,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw
 from repro_torch.train import steps as steps_lib
@@ -68,17 +75,20 @@ class TrainState:
 
 
 class Trainer:
-    def __init__(self, cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
+    def __init__(self, cfg: ModelConfig, run: RunConfig, mesh,
+                 shape: Optional[ShapeConfig] = None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  n_hosts: int = 1,
                  straggler: StragglerPolicy = StragglerPolicy(),
                  injector: Optional[HostDelayInjector] = None,
                  device="cuda"):
+        if isinstance(mesh, ShapeConfig):    # Trainer(cfg, run, shape, ...)
+            mesh, shape = None, mesh
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' "
                                "to train on the CPU")
-        self.cfg, self.run, self.shape = cfg, run, shape
+        self.cfg, self.run, self.mesh, self.shape = cfg, run, mesh, shape
         self.bundle = get_model(cfg)
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
@@ -91,7 +101,7 @@ class Trainer:
         self.metrics_log: List[Dict[str, float]] = []
         self.events: List[str] = []
 
-        self._step = steps_lib.build_train_step(cfg, run, shape)
+        self._step = steps_lib.build_train_step(cfg, run, shape, mesh)
         self.data_cfg = DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=shape.seq_len,
                                    global_batch=shape.global_batch,
@@ -108,6 +118,11 @@ class Trainer:
                                   device=p.device), params)
             if self.run.grad_compression == "topk"
             else torch.zeros((), device=self.device))
+        if self.mesh is not None:
+            lay = steps_lib.in_placements(self.cfg, self.run, self.mesh,
+                                          self.shape)
+            params, opt, err = (shlib.place(t, pl, self.mesh) for t, pl in
+                                zip((params, opt, err), lay))
         return TrainState(params, opt, err, 0)
 
     def maybe_restore(self) -> Optional[TrainState]:
@@ -156,6 +171,8 @@ class Trainer:
             ckpt.save(self.ckpt_dir, state.step, tree, extra=extra)
         else:
             ckpt.save_async(self.ckpt_dir, state.step, tree).join()
+        if self.mesh is not None:
+            dist.barrier()      # rank 0 has written before anyone reads
 
     def train(self, n_steps: int, state: Optional[TrainState] = None
               ) -> TrainState:

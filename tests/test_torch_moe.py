@@ -132,10 +132,18 @@ def test_moe_apply_drops_over_capacity_as_the_reference():
 
 
 def test_moe_apply_refuses_a_mesh():
+    """A mesh whose ``model`` axis does not divide the experts is refused
+    before anything runs (the reference asserts the same); the
+    expert-parallel path itself is held in tests/test_torch_dist.py."""
     _, cfg = _cfgs("moonshot")
     _, p = _moe_params(jreduced(jget_config("moonshot-v1-16b-a3b")))
-    with pytest.raises(NotImplementedError, match="slice F"):
-        moe.moe_apply(torch.zeros(1, 8, cfg.d_model), p, cfg, mesh=object())
+
+    class Mesh3:
+        mesh_dim_names, shape = ("data", "model"), (1, 3)
+
+    assert cfg.n_experts % 3
+    with pytest.raises(ValueError, match="not divisible by model=3"):
+        moe.moe_apply(torch.zeros(1, 8, cfg.d_model), p, cfg, mesh=Mesh3())
 
 
 def test_expert_ffn_matches_reference():
