@@ -11,9 +11,9 @@ tolerance of tests/test_kernels.py (``2e-5 + 2e-4 |plain|``; above 1 where
 the float32 rounding of long sums exceeds it); GFLOP and MB per call; the
 H100 bound (the larger of the bytes over the HBM rate and the operations
 over the float32 rate); the bound at the rate the kernel uses
-(``bound_used_ms``: K1 and K2's float32 route run on the CUDA cores, so the
-same; K3 takes each float32 product as three TF32 tensor-core products,
-3xTF32, so three times its operations at the TF32 rate); the kernel's
+(``bound_used_ms``: K1 runs on the CUDA cores, so the same; K2's float32
+route and K3 take each float32 product as three TF32 tensor-core products,
+3xTF32, so three times their operations at the TF32 rate); the kernel's
 median ms (CUDA events), the plain version's and, for K1 and K2, one
 PyTorch library call's (SDPA, the yardstick ``chip_smoke.py`` uses). No
 single PyTorch call computes the mLSTM scan, so K3 has no library column.
@@ -142,15 +142,35 @@ def bench_flash(dev: str, shapes=FLASH_SHAPES) -> List[Dict]:
         q = torch.from_numpy(rng.randn(B, Hq, S, d).astype(np.float32)).to(dev)
         k, v = (torch.from_numpy(rng.randn(B, Hkv, S, d).astype(np.float32))
                 .to(dev) for _ in range(2))
-        flops = 4 * B * Hq * d * S * (S + 1) // 2      # q.k, p.v; causal pairs
-        n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        rows.append(_row(
+        flops = flash_flops(B, Hq, S, d)
+        n_bytes = flash_bytes(B, Hq, Hkv, S, d)
+        row = _row(
             "flash_attention", f"B{B}H{Hq}/{Hkv}S{S}d{d}", flops,
             n_bytes, flops, dev,
             lambda: flash_attention(q, k, v, causal=True),
             lambda: attention_ref(q, k, v, causal=True),
-            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)))
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        row["bound_used_ms"] = flash_bound_3xtf32(B, Hq, Hkv, S, d)
+        rows.append(row)
     return rows
+
+
+def flash_flops(B, Hq, S, d) -> int:
+    """q.k^T and p.v over the causal pairs, 2 d operations each."""
+    return 4 * B * Hq * d * S * (S + 1) // 2
+
+
+def flash_bytes(B, Hq, Hkv, S, d, elt=4) -> int:
+    """q, k, v read and out written once."""
+    return elt * S * d * B * (2 * Hq + 2 * Hkv)
+
+
+def flash_bound_3xtf32(B, Hq, Hkv, S, d) -> float:
+    """K2's float32 bound at the rate its kernel uses: three TF32
+    tensor-core products for each float32 product (3xTF32), or its bytes,
+    whichever takes longer."""
+    return bound_ms(flash_bytes(B, Hq, Hkv, S, d),
+                    3 * flash_flops(B, Hq, S, d), TF32_FLOPS_PER_S)[0]
 
 
 def paged_inputs(dev: str, B, Hq, Hkv, d, page, n_slots, P, seed=0):

@@ -24,16 +24,23 @@ Phases (any failure exits non-zero):
              kernels line's measure) and as device time per call from
              CUDA-graph replays (``device_ms``), at the chosen split and
              (device time) at one split, beside the simt kernel and SDPA.
-             K2 flash attention at the forward shape (B=2, H=20, S=4096,
-             d=128, bf16, causal), the tests/test_kernels.py sweep
-             in f32 and bf16, gemma2's widths, ragged tails (f32 and bf16),
-             rows that see no key, and strided views. K2 has two routes:
-             bf16 goes to the wgmma/TMA kernel
-             (csrc/flash_attention_sm90.cu), f32 to the CUDA-core kernel
-             (csrc/flash_attention.cu); the forward shape prints the bf16
-             kernel's TFLOP/s and its registers, shared memory and spills,
-             and times the CUDA-core kernel on f32 copies of the same
-             inputs.
+             K2 flash attention has two routes, by dtype: bf16 goes to the
+             wgmma/TMA kernel (csrc/flash_attention_sm90.cu), f32 to the
+             3xTF32 wgmma kernel (csrc/flash_attention_f32_sm90.cu). Both
+             are held against the plain version on the tests/test_kernels.py
+             sweep, gemma2's widths (d=256, softcap 50), ragged tails,
+             strided (B,S,H,d) views and rows that see no key (against each
+             kernel's own tiles); the f32 route also on k, v off 16-byte
+             alignment and d=37. At the forward shape (B=2, H=20, S=4096,
+             d=128, causal) the bf16 kernel prints its TFLOP/s, registers,
+             shared memory and spills beside SDPA; then the same inputs in
+             f32 go through the f32 route, held against the plain version
+             and a float64 plain run (the yardstick of f32 rounding), timed
+             as one eager call and in device time from CUDA-graph replays
+             beside SDPA on them, the earlier CUDA-core kernel (with
+             --baseline-src), its bound at the 3xTF32 rate (the record's
+             bound_ms) and at the f32 rate, with the f32 kernel's
+             registers and spills.
 3. small   — the reduced models, kernel path on the card against the plain
              path on the CPU from the same weights: the serving example
              (same generated tokens) and a 2-layer Qwen forward with
@@ -50,7 +57,15 @@ Phases (any failure exits non-zero):
              per layer per forward, every launch through the bf16 route,
              K2 at the first and last layer is held
              against the plain version, and the logits and loss against a
-             forward with the plain attention.
+             forward with the plain attention. Then the same in float32
+             (``RunConfig(compute_dtype="float32", use_pallas=True)``, all
+             40 layers): exactly 40 K2 launches per forward, all on the f32
+             route, the first and last layers' attention at the f32
+             tolerance, the logits against a plain-path f32 run at the f32
+             tolerance with the rtol of the largest |logit|; forward+loss ms
+             (median of 3 after a warm-up), peak memory and one profiled
+             forward. One function, ``phase_forward(params, ms, dtype)``,
+             runs both.
 6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
              K3 at the reference bench's sweeps against their plain
              versions, timed beside their bounds; every K1 and K3 call on
@@ -194,9 +209,10 @@ bases off 16-byte alignment and chunk 1; every call must take the sm90
 route. It times the xLSTM-125m layer shape (B=8, H=4, S=2048, dh=384) at
 chunk 256 and 128 (one eager call, the device time from CUDA-graph replays,
 and each pass alone) and the kernel bench's two shapes; with
-``--baseline-src DIR`` (a checkout that still has K3's earlier CUDA-core
-kernel, csrc/mlstm_scan.cu) it times that kernel beside it on the same
-inputs. The small phase also runs a reduced 5-layer xLSTM on the card
+``--baseline-src DIR`` (a directory holding the earlier CUDA-core kernels,
+K3's csrc/mlstm_scan.cu and K2's f32 csrc/flash_attention.cu, unpacked
+from older commits; benchmarks_torch/baselines.py) it times each beside the
+kernel that replaced it on the same inputs. The small phase also runs a reduced 5-layer xLSTM on the card
 against the CPU.
 
 It prints the whole run's wall time, a JSON ``kernels`` line, the card's
@@ -253,7 +269,7 @@ from repro_torch.models.common import rms_norm, softmax_xent
 from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw
 from repro_torch.roofline.analysis import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
-                                           bound_ms)
+                                           TF32_FLOPS_PER_S, bound_ms)
 from repro_torch.serving import paged_lm
 from repro_torch.serving.engine import generate_requests
 from repro_torch.serving.types import default_clients
@@ -337,7 +353,7 @@ def _zero_counts():
     for fn in (ops.paged_attention, fa_ops.flash_attention, ml_ops.mlstm_scan):
         fn.launches = 0
     ops.paged_attention.launches_sm90 = 0
-    fa_ops.flash_attention.launches_sm90 = 0
+    fa_ops.flash_attention.launches_bf16 = 0
     ml_ops.mlstm_scan.launches_sm90 = 0
 
 
@@ -601,8 +617,41 @@ def _flash_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype):
     return rnd(B, Hq, Sq, d), rnd(B, Hkv, Sk, d), rnd(B, Hkv, Sk, d)
 
 
-def phase_flash_kernels():
-    """K2 against its plain version; returns the forward-shape record."""
+def _attention_f64(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The plain attention in float64, as the yardstick of f32 rounding
+    (``attention_ref``'s math is float32)."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qg = q.double().reshape(B, Hkv, Hq // Hkv, Sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.double()) / math.sqrt(d)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype,
+                                          device=q.device))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1),
+                       v.double())
+    return out.reshape(B, Hq, Sq, d)
+
+
+def _build_regs(name):
+    """(registers, spill bytes) of the largest instantiation in
+    ``csrc/<name>.cu``'s build log."""
+    log = _build.build_log(name)
+    return (max(int(w) for w in re.findall(r"Used (\d+) registers", log)),
+            sum(int(w) for w in re.findall(r"(\d+) bytes spill", log)))
+
+
+def phase_flash_kernels(baseline=None):
+    """K2 against its plain version, both routes; returns the record, with
+    the earlier CUDA-core f32 kernel timed beside the f32 route where
+    ``baseline`` (``benchmarks_torch/baselines.load``) gives it."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
 
@@ -621,6 +670,9 @@ def phase_flash_kernels():
     check("(c) gemma2 widths d=256 GQA softcap 50 bf16",
           _flash_inputs(gen, 2, 8, 4, 512, 512, 256, torch.bfloat16),
           BF16_TOL, softcap=50.0)
+    check("(c) gemma2 widths d=256 GQA softcap 50 f32",
+          _flash_inputs(gen, 2, 8, 4, 512, 512, 256, torch.float32),
+          F32_TOL, softcap=50.0)
     # tails that are no multiple of a tile, and the model's strided views
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = str(dtype)[6:]
@@ -630,11 +682,19 @@ def phase_flash_kernels():
         check(f"(d) ragged non-causal Sq=72 Sk=136 d=48 {name}",
               _flash_inputs(gen, 2, 2, 1, 72, 136, 48, dtype), tol,
               causal=False)
-    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in
-             _flash_inputs(gen, 2, 6, 3, 192, 192, 64, torch.bfloat16)]
-    check("(d) strided (B,S,H,d) views bf16", views, BF16_TOL)
-    errs["(e) rows that see no key, causal Sq=256 Sk=64 window 32 bf16"] = \
-        _check_no_key_rows(gen, 256, 64, 32)
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+                 _flash_inputs(gen, 2, 6, 3, 192, 192, 64, dtype)]
+        check(f"(d) strided (B,S,H,d) views {name}", views, tol)
+        errs[f"(e) rows that see no key, causal Sq=256 Sk=64 window 32 "
+             f"{name}"] = _check_no_key_rows(gen, 256, 64, 32, dtype, tol)
+    # the f32 kernel's other loads: rows off 16-byte alignment, d = 37
+    flat = torch.randn(2 * 100 * 64 + 1, generator=gen, device="cuda")
+    q = _flash_inputs(gen, 1, 4, 2, 100, 100, 64, torch.float32)[0]
+    check("(f) k, v 4 bytes off 16-byte alignment f32",
+          (q, flat[1:].view(1, 2, 100, 64), flat[:-1].view(1, 2, 100, 64)),
+          F32_TOL)
+    check("(f) d=37 Sq=130 Sk=70 causal f32",
+          _flash_inputs(gen, 1, 2, 1, 130, 70, 37, torch.float32), F32_TOL)
     print("[kernels] flash_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
@@ -653,69 +713,111 @@ def phase_flash_kernels():
     ms = _time_ms(lambda: fa_ops.flash_attention(*x), 20)
     plain_ms = _time_ms(lambda: attention_ref(*x), 5)
     library_ms = _time_ms(lambda: sdpa(*x, is_causal=True), 20)
-    # the f32 route: the CUDA-core kernel on f32 copies, beside SDPA on them
-    xf = [t.float() for t in x]
-    simt_f32_ms = _time_ms(lambda: fa_ops.flash_attention(*xf), 5)
-    library_f32_ms = _time_ms(lambda: sdpa(*xf, is_causal=True), 5)
-    del xf
     elt = x[0].element_size()
     n_bytes = 4 * B * H * S * d * elt             # q, k, v in; out
-    n_flops = 4 * B * H * d * S * (S + 1) // 2    # q.k and p.v, causal pairs
+    n_flops = kernel_bench.flash_flops(B, H, S, d)
     bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
-    cfg = fa_ops.sm90_config(d)
+    cfg = fa_ops.kernel_config(torch.bfloat16, d)
     # the kernel's own work: whole 128 x 128 tiles up to the diagonal, and
     # P.V twice (P_hi and P_lo)
     n_qt = S // cfg["block_q"]
     tiles = B * H * sum((min((qt + 1) * cfg["block_q"], S) + cfg["block_k"]
                          - 1) // cfg["block_k"] for qt in range(n_qt))
     kernel_flops = tiles * cfg["block_q"] * cfg["block_k"] * d * 2 * 3
-    log = _build.build_log("flash_attention_sm90")
-    regs = max(int(w) for w in re.findall(r"Used (\d+) registers", log))
-    spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", log))
-    rec = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
-           "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-           "launches": None, "max_abs_err": err_a, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": library_ms,
-           "bound_f32_ms": n_flops / F32_FLOPS_PER_S * 1e3,
-           "routes": {
-               "sm90": {"dtype": "bfloat16", "launches": None, "ms": ms,
-                        "source": "src/repro_torch/csrc/"
-                                  "flash_attention_sm90.cu"},
-               "simt": {"dtype": "float32", "launches": None,
-                        "ms": simt_f32_ms,
-                        "bound_ms": n_flops / F32_FLOPS_PER_S * 1e3,
-                        "bound_by": "operations",
-                        "library_ms": library_f32_ms,
-                        "source": "src/repro_torch/csrc/flash_attention.cu"}}}
+    regs, spills = _build_regs("flash_attention_sm90")
     print(f"[kernels] flash_attention forward shape B={B} H={H} S={S} d={d} "
           f"bf16 causal: {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s of "
           f"the function's {n_flops / 1e9:.1f} GFLOP, "
           f"{kernel_flops / ms / 1e9:.1f} TFLOP/s executed by the kernel: "
           f"{kernel_flops / 1e9:.1f} GFLOP with whole diagonal tiles and the "
-          f"split P.V), bound {rec['bound_ms']:.4f} ms at the "
-          f"bf16 tensor-core peak, {rec['bound_f32_ms']:.4f} ms at the f32 "
-          f"rate; plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; the "
-          f"f32 route (CUDA-core kernel) {simt_f32_ms:.4f} ms on f32 copies "
-          f"(sdpa on them {library_f32_ms:.4f} ms); "
-          f"max|err| {err_a:.3e}; sm90 kernel: {cfg['block_q']} q rows x "
+          f"split P.V), bound {bound:.4f} ms at the bf16 tensor-core peak; "
+          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; max|err| "
+          f"{err_a:.3e}; bf16 kernel: {cfg['block_q']} q rows x "
           f"{cfg['block_k']} keys per tile, 384 threads, registers <= "
           f"{regs} (launch), {cfg['smem_bytes']} B dynamic shared memory, "
           f"spill bytes {spills}")
+
+    # (g) the f32 route at the forward shape: the same inputs in f32
+    xf = [t.float() for t in x]
+    del x
+    got = fa_ops.flash_attention(*xf)
+    want = attention_ref(*xf)
+    err_f = _assert_close("flash_attention (g) forward shape f32", got, want,
+                          F32_TOL)
+    want64 = _attention_f64(*xf)
+    err_f64 = _assert_close("flash_attention (g) forward shape f32 vs "
+                            "float64", got, want64, F32_TOL)
+    err_ref64 = float((want.double() - want64).abs().max())
+    del want, want64
+    fn = lambda: fa_ops.flash_attention(*xf)       # noqa: E731
+    lib = lambda: sdpa(*xf, is_causal=True)        # noqa: E731
+    f32 = {"ms": _time_ms(fn, 20), "device_ms": _device_ms(fn, 10, 5),
+           "plain_ms": _time_ms(lambda: attention_ref(*xf), 5),
+           "library_ms": _time_ms(lib, 10),
+           "library_device_ms": _device_ms(lib, 10, 5)}
+    prev = None
+    if baseline is not None:
+        old = lambda: baseline(*xf)                # noqa: E731
+        prev = {"max_abs_err_vs_new": _assert_close(
+                    "earlier f32 kernel vs the f32 route", old(), got, F32_TOL),
+                "ms": _time_ms(old, 5), "device_ms": _device_ms(old, 5, 3)}
+    f32["ms_2"] = _time_ms(fn, 20)                 # the route again, last
+    f32["device_ms_2"] = _device_ms(fn, 10, 5)
+    del xf, got
+    # the f32 route's bound is at the rate it runs: three TF32 tensor-core
+    # products for each f32 product; the f32 rate's is kept beside it
+    tf32_bound, tf32_by = bound_ms(2 * n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
+    f32_bound = bound_ms(2 * n_bytes, n_flops, F32_FLOPS_PER_S)[0]
+    cfg32 = fa_ops.kernel_config(torch.float32, d)
+    regs32, spills32 = _build_regs("flash_attention_f32_sm90")
+    routes = {
+        "bf16": {"dtype": "bfloat16", "launches": None, "ms": ms,
+                 "plain_ms": plain_ms, "max_abs_err": err_a,
+                 "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                 "source": "src/repro_torch/csrc/flash_attention_sm90.cu"},
+        "f32": {"dtype": "float32", "launches": None, "ms": f32["ms"],
+                "device_ms": f32["device_ms"], "plain_ms": f32["plain_ms"],
+                "max_abs_err": err_f, "max_abs_err_vs_f64": err_f64,
+                "plain_f32_vs_f64": err_ref64, "bound_ms": tf32_bound,
+                "bound_by": tf32_by, "bound_f32_rate_ms": f32_bound,
+                "library_ms": f32["library_ms"],
+                "library_device_ms": f32["library_device_ms"],
+                "earlier_kernel": prev,
+                "source": "src/repro_torch/csrc/flash_attention_f32_sm90.cu"}}
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+           "launches": None, "max_abs_err": err_a, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": library_ms, "routes": routes}
+    prev_s = ("not measured (no --baseline-src)" if prev is None else
+              f"{prev['ms']:.4f} ms eager, {prev['device_ms']:.4f} ms device")
+    print(f"[kernels] flash_attention forward shape f32 (3xTF32 route): "
+          f"{f32['ms']:.4f} / {f32['ms_2']:.4f} ms eager, "
+          f"{f32['device_ms']:.4f} / {f32['device_ms_2']:.4f} ms device "
+          f"({3 * n_flops / f32['device_ms'] / 1e9:.1f} TFLOP/s of 3xTF32 "
+          f"products); sdpa on the same inputs {f32['library_ms']:.4f} ms "
+          f"eager, {f32['library_device_ms']:.4f} ms device; the earlier "
+          f"CUDA-core kernel {prev_s}; bound {tf32_bound:.4f} ms (3xTF32 at the "
+          f"TF32 rate; {f32_bound:.4f} ms at the f32 rate); plain "
+          f"{f32['plain_ms']:.4f} ms; max|err| vs plain {err_f:.3e}, vs "
+          f"float64 {err_f64:.3e} (plain f32 vs float64 {err_ref64:.3e}); "
+          f"f32 kernel: {cfg32['block_q']} q rows x {cfg32['block_k']} keys "
+          f"per tile, registers <= {regs32}, {cfg32['smem_bytes']} B dynamic "
+          f"shared memory, spill bytes {spills32}")
     return rec
 
 
-def _check_no_key_rows(gen, Sq, Sk, window):
+def _check_no_key_rows(gen, Sq, Sk, window, dtype, tol):
     """Causal with a window, Sk < Sq: rows q >= Sk + window - 1 see no key.
     Rows that see one are held against the plain version; the others
     against the kernel's convention, the mean of v over the keys of the
-    tiles their 128-row q tile visited (or 0 when it visited none)."""
+    tiles their q tile visited (or 0 when it visited none)."""
     d = 64
-    x = _flash_inputs(gen, 1, 2, 2, Sq, Sk, d, torch.bfloat16)
+    x = _flash_inputs(gen, 1, 2, 2, Sq, Sk, d, dtype)
     got = fa_ops.flash_attention(*x, window=window)
     want = attention_ref(*x, window=window).float()
-    cfg = fa_ops.sm90_config(d)
+    cfg = fa_ops.kernel_config(dtype, d)
     bq, bk = cfg["block_q"], cfg["block_k"]
     v = x[2].float()
     blind = 0
@@ -732,7 +834,8 @@ def _check_no_key_rows(gen, Sq, Sk, window):
     if not blind:
         raise AssertionError("no-key check: every row sees a key")
     return _assert_close(f"flash_attention (e) {blind} of {Sq} rows see no "
-                         f"key", got, want.bfloat16(), BF16_TOL)
+                         f"key, {str(dtype)[6:]} ({bq} x {bk} tiles)", got,
+                         want.to(dtype), tol)
 
 
 def _scan_f64(q, k, v, lf, li, chunk):
@@ -821,7 +924,7 @@ def _k3_edge_cases(rng):
 def phase_mlstm_kernels(baseline=None):
     """K3 against its plain version, every call on the sm90 route; the
     xLSTM-125m layer shape and the kernel bench's shapes timed, beside the
-    earlier CUDA-core kernel where ``baseline`` (``k3_baseline.load``)
+    earlier CUDA-core kernel where ``baseline`` (``baselines.load``)
     gives it. Returns the layer-shape record."""
     rng = np.random.RandomState(3)
     errs = {}
@@ -990,7 +1093,7 @@ def phase_small_forward():
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     out = {}
     before = fa_ops.flash_attention.launches
-    before_sm90 = fa_ops.flash_attention.launches_sm90
+    before_bf16 = fa_ops.flash_attention.launches_bf16
     with torch.no_grad():
         for dev in ("cpu", "cuda"):
             p, b = _tree_to(params, dev), _tree_to(batch, dev)
@@ -999,7 +1102,7 @@ def phase_small_forward():
             out[dev] = (logits.cpu(), loss.cpu())
     if fa_ops.flash_attention.launches - before != 2 * cfg.n_layers:
         raise AssertionError("small forward: K2 did not run on the card")
-    if fa_ops.flash_attention.launches_sm90 != before_sm90:
+    if fa_ops.flash_attention.launches_bf16 != before_bf16:
         raise AssertionError("small forward: f32 took the bf16 route")
     err = _assert_close("small forward logits, card vs cpu", out["cuda"][0],
                         out["cpu"][0], F32_TOL)
@@ -1150,15 +1253,19 @@ def phase_serve():
     return launches, launches_sm90, params
 
 
-def phase_forward(params, flash_ms):
+def phase_forward(params, flash_ms, dtype):
     """Full-width, full-depth Qwen1.5-4B: the full-sequence forward and loss
-    through ``get_model(cfg).train_loss`` with K2; returns K2's launches,
-    all of them and those of the bf16 route."""
+    through ``get_model(cfg).train_loss`` with K2, computed in ``dtype``
+    (the same bf16 weights), every attention on that dtype's route; returns
+    K2's launches, all of them and those of the bf16 route. The float32
+    forward is profiled once as well."""
     cfg = get_config("qwen1.5-4b")
     bundle = get_model(cfg)
-    run = RunConfig(compute_dtype="bfloat16", use_pallas=True)
+    bf16 = dtype == torch.bfloat16
+    name, tol = ("bf16", BF16_TOL) if bf16 else ("f32", F32_TOL)
+    run = RunConfig(compute_dtype=str(dtype)[6:], use_pallas=True)
     assert run.seq_len == FWD_S
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(2 if bf16 else 3)
     toks = torch.randint(0, cfg.vocab_size, (FWD_B, FWD_S + 1), generator=gen,
                          device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -1173,13 +1280,13 @@ def phase_forward(params, flash_ms):
         out = fa_ops.flash_attention(q, k, v, **kw)
         if checked["layer"] in (0, cfg.n_layers - 1):
             checked["err"].append(_assert_close(
-                f"forward layer {checked['layer']} attention vs plain", out,
-                attention_ref(q, k, v, **kw), BF16_TOL))
+                f"{name} forward layer {checked['layer']} attention vs "
+                f"plain", out, attention_ref(q, k, v, **kw), tol))
         checked["layer"] += 1
         return out
 
     _zero_counts()
-    wall, n_fwd = [], 0
+    wall, n_fwd, prof = [], 0, None
     with torch.no_grad():
         for i in range(1 + FWD_TIMED):
             torch.cuda.synchronize()
@@ -1190,46 +1297,65 @@ def phase_forward(params, flash_ms):
                 wall.append(time.perf_counter() - t0)
             n_fwd += 1
             if not bool(torch.isfinite(loss)):
-                raise AssertionError(f"forward {i}: loss {float(loss)}")
+                raise AssertionError(f"{name} forward {i}: loss "
+                                     f"{float(loss)}")
+        peak = torch.cuda.max_memory_allocated()
+        if not bf16:
+            prof = _profile_once(lambda: bundle.train_loss(params, run,
+                                                           batch))
+            n_fwd += 1
         logits, _ = lm.forward_train(params, cfg, run, batch,
                                      flash=checked_flash)
         n_fwd += 1
         launches = fa_ops.flash_attention.launches
-        launches_sm90 = fa_ops.flash_attention.launches_sm90
+        launches_bf16 = fa_ops.flash_attention.launches_bf16
         if ops.paged_attention.launches:
-            raise AssertionError("the forward launched paged_attention")
-        peak = torch.cuda.max_memory_allocated()
+            raise AssertionError(f"the {name} forward launched "
+                                 f"paged_attention")
         loss_k = softmax_xent(logits, batch["labels"])
         plain, _ = lm.forward_train(params, cfg,
                                     run.replace(use_pallas=False), batch)
         loss_p = softmax_xent(plain, batch["labels"])
-        # 40 bf16 layers: as in the serve check, the rtol is taken of the
-        # logits' largest magnitude
-        err_logits = _assert_close("forward logits vs plain attention",
-                                   logits, plain, BF16_TOL, rtol_of_max=True)
+        # 40 layers of random weights: as in the serve check, the rtol is
+        # taken of the logits' largest magnitude
+        err_logits = _assert_close(f"{name} forward logits vs plain "
+                                   f"attention", logits, plain, tol,
+                                   rtol_of_max=True)
+        max_logit = float(plain.abs().max())
         del logits, plain
-        err_loss = _assert_close("forward loss vs plain attention", loss_k,
-                                 loss_p, BF16_TOL)
-    if launches != cfg.n_layers * n_fwd or launches_sm90 != launches:
-        raise AssertionError(f"flash_attention launches {launches} (bf16 "
-                             f"route {launches_sm90}) != {cfg.n_layers} x "
-                             f"{n_fwd} forwards, all on the bf16 route")
+        err_loss = _assert_close(f"{name} forward loss vs plain attention",
+                                 loss_k, loss_p, tol)
+    if launches != cfg.n_layers * n_fwd or \
+            launches_bf16 != (launches if bf16 else 0):
+        raise AssertionError(f"{name} forward: flash_attention launches "
+                             f"{launches} (bf16 route {launches_bf16}) != "
+                             f"{cfg.n_layers} x {n_fwd} forwards, all on the "
+                             f"{name} route")
     if len(checked["err"]) != 2:
-        raise AssertionError("the layer checks of the forward never ran")
+        raise AssertionError(f"the layer checks of the {name} forward never "
+                             f"ran")
     fwd_ms = 1e3 * statistics.median(wall)
-    print(f"[forward] {cfg.name} B={FWD_B} S={FWD_S} bf16 use_pallas: "
-          f"{n_fwd} forwards, flash_attention launches {launches} (bf16 "
-          f"wgmma route {launches_sm90}); loss "
-          f"{float(loss):.6f} (plain attention {float(loss_p):.6f}, |err| "
-          f"{err_loss:.3e}); logits vs plain attention max|err| "
-          f"{err_logits:.3e}; K2 vs plain at layers 0 and "
-          f"{cfg.n_layers - 1} max|err| {max(checked['err']):.3e}; "
-          f"median forward+loss {fwd_ms:.3f} ms "
+    prof_s = "" if prof is None else (
+        f"; profiled forward+loss: {prof['kernels']} kernels, device "
+        f"{prof['device_ms']:.1f} of {prof['wall_ms_profiled']:.1f} ms "
+        f"(K2 {prof['k2_device_ms']:.1f}, GEMMs {prof['gemm_device_ms']:.1f}, "
+        f"other {prof['other_device_ms']:.1f}), idle "
+        f"{prof['device_idle_share']:.3f}")
+    print(f"[forward] {cfg.name} B={FWD_B} S={FWD_S} {name} use_pallas: "
+          f"{n_fwd} forwards, flash_attention launches {launches} "
+          f"({launches // n_fwd} per forward; bf16 route {launches_bf16}); "
+          f"loss {float(loss):.6f} (plain attention {float(loss_p):.6f}, "
+          f"|err| {err_loss:.3e}); logits vs plain attention max|err| "
+          f"{err_logits:.3e} (max |logit| {max_logit:.3f}); K2 vs plain at "
+          f"layers 0 and {cfg.n_layers - 1} max|err| "
+          f"{max(checked['err']):.3e}; median forward+loss {fwd_ms:.3f} ms "
           f"({', '.join(f'{1e3 * t:.3f}' for t in wall)}), "
           f"{FWD_B * FWD_S / (fwd_ms / 1e3):.1f} scored tokens/s, K2 share "
           f"{cfg.n_layers * flash_ms / fwd_ms:.3f} ({cfg.n_layers} x "
-          f"{flash_ms:.4f} ms); peak memory {peak / 2**30:.1f} GiB")
-    return launches, launches_sm90
+          f"{flash_ms:.4f} ms); peak memory {peak / 2**30:.1f} GiB{prof_s}")
+    if prof is not None:
+        print(json.dumps({f"forward_{name}_profile": prof}))
+    return launches, launches_bf16
 
 
 def phase_kernel_bench():
@@ -1243,9 +1369,9 @@ def phase_kernel_bench():
     launches = {fn.__name__: fn.launches for fn in counters}
     if not all(launches.values()):
         raise AssertionError(f"kernel bench: a kernel never ran {launches}")
-    n_sm90 = fa_ops.flash_attention.launches_sm90
-    if n_sm90:
-        raise AssertionError(f"kernel bench: {n_sm90} f32 flash_attention "
+    n_bf16 = fa_ops.flash_attention.launches_bf16
+    if n_bf16:
+        raise AssertionError(f"kernel bench: {n_bf16} f32 flash_attention "
                              f"calls took the bf16 route")
     launches["paged_attention_sm90"] = ops.paged_attention.launches_sm90
     if launches["paged_attention_sm90"] != launches["paged_attention"]:
@@ -1940,7 +2066,7 @@ def _fam_moonshot():
                                            flash=checked_flash)
             n_fwd = 2 + FAM_TIMED
             launches = fa_ops.flash_attention.launches
-            launches_sm90 = fa_ops.flash_attention.launches_sm90
+            launches_bf16 = fa_ops.flash_attention.launches_bf16
             peak = torch.cuda.max_memory_allocated()
             loss_k = softmax_xent(logits, batch["labels"]) + 0.01 * aux
             tr["mode"] = "replay"
@@ -1974,16 +2100,16 @@ def _fam_moonshot():
         if fa_ops.flash_attention.launches != launches:
             raise AssertionError("the plain-attention forward launched K2")
         prof = _profile_once(lambda: bundle.train_loss(params, run, batch))
-        if launches != cfg.n_layers * n_fwd or launches_sm90 != launches:
+        if launches != cfg.n_layers * n_fwd or launches_bf16 != launches:
             raise AssertionError(f"moonshot: K2 launches {launches} (bf16 "
-                                 f"route {launches_sm90}) != "
+                                 f"route {launches_bf16}) != "
                                  f"{cfg.n_layers} x {n_fwd} forwards")
         greedy, prefill_ms, step_ms = _fam_greedy(
             bundle, params, run.replace(use_pallas=False), batch,
             FAM_MOE_S - FAM_DECODE, FAM_DECODE, torch.bfloat16)
     rec = _fam_summary(cfg, n_params, init_s, FAM_MOE_B, FAM_MOE_S, wall,
                        peak, prefill_ms, step_ms, prof)
-    rec.update({"k2_launches": launches, "k2_launches_sm90": launches_sm90,
+    rec.update({"k2_launches": launches, "k2_launches_bf16": launches_bf16,
                 "k2_per_forward": launches // n_fwd,
                 "loss": float(loss), "loss_plain": float(loss_p),
                 "aux": float(aux), "logits_max_abs_err": err_logits,
@@ -2011,7 +2137,7 @@ def _fam_moonshot():
           f"{tr['drift'][0]:.2e} after layer 0, {tr['drift'][-1]:.2e} after "
           f"layer {cfg.n_layers - 1} (relative Frobenius); K2 launches "
           f"{launches} in {n_fwd} forwards "
-          f"({launches // n_fwd} per forward, bf16 route {launches_sm90}); "
+          f"({launches // n_fwd} per forward, bf16 route {launches_bf16}); "
           f"layer 0 experts equal for {int(same.sum())} of {same.numel()} "
           f"tokens ({int(near.sum())} with a router gap <= {FAM_TIE}, "
           f"{int((~same & near).sum())} of them differing; min gap "
@@ -2113,7 +2239,7 @@ def _fam_whisper():
             f"(64,64)")
     launched = fa_ops.flash_attention.launches
     if refused != want or launched != 1 or \
-            fa_ops.flash_attention.launches_sm90 != 1:
+            fa_ops.flash_attention.launches_bf16 != 1:
         raise AssertionError(f"whisper use_pallas: raised {refused!r} after "
                              f"{launched} K2 launches; want {want!r} after 1")
     rec = _fam_summary(cfg, n_params, init_s, FAM_WHISPER_B, FAM_WHISPER_S,
@@ -2194,8 +2320,8 @@ def phase_families():
            "phase_s": time.perf_counter() - t0}
     print(json.dumps({"families": rec}))
     print(f"[families] phase {rec['phase_s']:.1f} s")
-    return {"sm90": moon["k2_launches_sm90"] + n_whisper,
-            "simt": n_small}, rec
+    return {"bf16": moon["k2_launches_bf16"] + n_whisper,
+            "f32": n_small}, rec
 
 
 # the simulator phase: the goldens' configuration (tests/test_policy_registry
@@ -3093,19 +3219,19 @@ def _dist_prefill(mesh):
         lg, mesh_ms = timed(sharded)
         lg = lg.full_tensor()
         launches = fa_ops.flash_attention.launches
-        launches_sm90 = fa_ops.flash_attention.launches_sm90
+        launches_bf16 = fa_ops.flash_attention.launches_bf16
         ref, plain_ms = timed(plain)
         del params
     if launches != cfg.n_layers * DIST_PREFILL_CALLS or \
-            launches_sm90 != launches:
+            launches_bf16 != launches:
         raise AssertionError(f"dist prefill: K2 launches {launches} (bf16 "
-                             f"route {launches_sm90}) != {cfg.n_layers} x "
+                             f"route {launches_bf16}) != {cfg.n_layers} x "
                              f"{DIST_PREFILL_CALLS}")
     err = _assert_close("dist prefill logits (1, 1) mesh + K2 vs unsharded "
                         "plain", lg, ref, BF16_TOL, rtol_of_max=True)
     return {"config": f"{cfg.name} (40 layers), bf16, B={DIST_PREFILL_B} "
                       f"S={DIST_PREFILL_S}, use_pallas",
-            "k2_launches": launches, "k2_launches_sm90": launches_sm90,
+            "k2_launches": launches, "k2_launches_bf16": launches_bf16,
             "logits_max_abs_err": err, "max_abs_logit": float(ref.abs().max()),
             "prefill_ms_mesh": mesh_ms, "prefill_ms_unsharded_plain": plain_ms}
 
@@ -3330,7 +3456,7 @@ def phase_dist(smi_line):
           f"{train['bit_identical']}, step ms {train['step_ms_mesh']} vs "
           f"{train['step_ms_unsharded']}; prefill {prefill['config']}: K2 "
           f"{prefill['k2_launches']} launches (bf16 route "
-          f"{prefill['k2_launches_sm90']}), logits vs unsharded plain max|err| "
+          f"{prefill['k2_launches_bf16']}), logits vs unsharded plain max|err| "
           f"{prefill['logits_max_abs_err']:.3e} (max |logit| "
           f"{prefill['max_abs_logit']:.1f}), {prefill['prefill_ms_mesh']:.1f} "
           f"ms vs {prefill['prefill_ms_unsharded_plain']:.1f} ms plain")
@@ -3370,9 +3496,11 @@ def main(argv=None):
     ap.add_argument("--sim-cycles", default=f"{SIM_WARMUP},{SIM_CYCLES}",
                     help=argparse.SUPPRESS)
     ap.add_argument("--baseline-src", default=None, metavar="DIR",
-                    help="a checkout that has K3's earlier CUDA-core kernel "
-                         "(src/repro_torch/csrc/mlstm_scan.cu), timed beside "
-                         "the sm90 kernel")
+                    help="a directory holding the earlier CUDA-core kernels "
+                         "src/repro_torch/csrc/mlstm_scan.cu (K3) and/or "
+                         "flash_attention.cu (K2's f32 route), each timed "
+                         "beside the kernel that replaced it "
+                         "(benchmarks_torch/baselines.py)")
     args = ap.parse_args(argv)
     if args.sim_cpu_worker:
         sim_cpu_worker(args.sim_cpu_worker,
@@ -3385,21 +3513,28 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
-    baseline = None
+    baseline = {}
     if args.baseline_src:
-        from benchmarks_torch import k3_baseline
-        baseline = k3_baseline.load(args.baseline_src)
+        from benchmarks_torch import baselines
+        baseline = baselines.load(args.baseline_src)
+        print(f"[build] baselines from {args.baseline_src}: "
+              f"{sorted(baseline)}")
     rec_pa = phase_kernels()
-    rec_fa = phase_flash_kernels()
-    rec_ml = phase_mlstm_kernels(baseline)
+    rec_fa = phase_flash_kernels(baseline.get("flash_attention"))
+    rec_ml = phase_mlstm_kernels(baseline.get("mlstm_scan"))
     phase_small_input()
     phase_small_forward()
     phase_small_xlstm()
     rec_pa["launches"], n_sm90, params = phase_serve()
     rec_pa["routes"]["sm90"]["launches"] = n_sm90
     rec_pa["routes"]["simt"]["launches"] = rec_pa["launches"] - n_sm90
-    rec_fa["launches"], rec_fa["routes"]["sm90"]["launches"] = \
-        phase_forward(params, rec_fa["ms"])
+    rec_fa["launches"], rec_fa["routes"]["bf16"]["launches"] = \
+        phase_forward(params, rec_fa["ms"], torch.bfloat16)
+    # the f32 route's main path: the same model's float32 forward
+    f32 = rec_fa["routes"]["f32"]
+    f32["launches"] = f32["forward_launches"] = phase_forward(
+        params, f32["ms"], torch.float32)[0]
+    rec_fa["launches"] += f32["launches"]
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3407,17 +3542,18 @@ def main(argv=None):
     # K3's main path is the kernel bench; the model path runs it 0 times
     rec_ml["launches"] = bench["mlstm_scan"]
     rec_ml["routes"]["sm90"]["launches"] = bench["mlstm_scan_sm90"]
-    # K2's f32 route runs on the kernel bench (all its flash calls are f32)
-    rec_fa["routes"]["simt"]["launches"] = bench["flash_attention"]
+    # K2's f32 route runs on the kernel bench too (all its flash calls)
+    rec_fa["launches"] += bench["flash_attention"]
+    f32["launches"] += bench["flash_attention"]
     rec_ml["model_path_launches"] = phase_xlstm()
     phase_train()
     fam_launches, fam = phase_families()
     # K2's main paths: the Qwen forward and the families (moonshot's bf16
     # forwards, whisper's launch before its refusal; the reduced configs on
     # the f32 route)
-    rec_fa["launches"] += fam_launches["sm90"] + fam_launches["simt"]
-    rec_fa["routes"]["sm90"]["launches"] += fam_launches["sm90"]
-    rec_fa["routes"]["simt"]["launches"] += fam_launches["simt"]
+    rec_fa["launches"] += fam_launches["bf16"] + fam_launches["f32"]
+    rec_fa["routes"]["bf16"]["launches"] += fam_launches["bf16"]
+    f32["launches"] += fam_launches["f32"]
     rec_fa["families"] = {"launches": fam_launches,
                           "moonshot_shape": fam["k2_moonshot_shape"],
                           "moonshot_k2_per_forward":
@@ -3428,7 +3564,7 @@ def main(argv=None):
     # K2's main path in the distribution phase: the sharded prefill
     dist_launches = phase_dist(smi_line)
     rec_fa["launches"] += dist_launches
-    rec_fa["routes"]["sm90"]["launches"] += dist_launches
+    rec_fa["routes"]["bf16"]["launches"] += dist_launches
     rec_fa["dist_launches"] = dist_launches
     phase_sim(smi_line)
     print(f"[chip_smoke] wall {time.perf_counter() - t0:.1f} s")

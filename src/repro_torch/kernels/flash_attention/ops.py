@@ -6,11 +6,13 @@ one of two hand-written kernels, chosen by dtype, or the call raises:
 * bfloat16 -> ``csrc/flash_attention_sm90.cu``: wgmma products fed by TMA,
   for head_dim a multiple of 16 up to 256, with TMA's layout rule
   (``_sm90_layout_ok``);
-* float32 -> ``csrc/flash_attention.cu``: float32 arithmetic on the CUDA
-  cores (the float32 tolerance rules out TF32 tensor cores).
+* float32 -> ``csrc/flash_attention_f32_sm90.cu``: every product as three
+  TF32 tensor-core products (3xTF32: the float32 tolerance rules out a
+  single TF32 product, not the split one), for every shape ``_check``
+  accepts: any head_dim up to 256, any strides.
 
 ``flash_attention.launches`` counts the launches of both kernels,
-``flash_attention.launches_sm90`` those of the bfloat16 one.
+``flash_attention.launches_bf16`` those of the bfloat16 one.
 
 The kernels take strides, so q, k, v and the output may be views (the
 model's ``(B, S, H, d) -> (B, H, S, d)`` transposes) as long as the last
@@ -27,25 +29,18 @@ import torch
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256      # gemma2's head_dim
+# the source of each route's kernel, by dtype (csrc/<name>.cu)
+SOURCES = {torch.float32: "flash_attention_f32_sm90",
+           torch.bfloat16: "flash_attention_sm90"}
 
 
 @functools.cache
-def _launcher():
+def _launcher(dtype: torch.dtype):
+    """The C entry of ``dtype``'s kernel; both take the same arguments."""
     from repro_torch.kernels import _build
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _launcher_sm90():
-    from repro_torch.kernels import _build
-    fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
+    name = SOURCES[dtype]
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p])
@@ -53,13 +48,14 @@ def _launcher_sm90():
     return fn
 
 
-def sm90_config(d: int) -> dict:
-    """The bfloat16 kernel's launch configuration at head_dim ``d``: q rows
-    per block, keys per tile, dynamic shared memory bytes (builds the
+def kernel_config(dtype: torch.dtype, d: int) -> dict:
+    """The launch configuration of ``dtype``'s kernel at head_dim ``d``: q
+    rows per block, keys per tile, dynamic shared memory bytes (builds the
     kernel; needs the CUDA toolkit)."""
     from repro_torch.kernels import _build
+    name = SOURCES[dtype]
     vals = [ctypes.c_int() for _ in range(3)]
-    _build.load("flash_attention_sm90").flash_attention_sm90_config(
+    getattr(_build.load(name), f"{name}_config")(
         ctypes.c_int(d), *(ctypes.byref(x) for x in vals))
     return dict(zip(("block_q", "block_k", "smem_bytes"),
                     (x.value for x in vals)))
@@ -79,7 +75,7 @@ def _check(q, k, v, window) -> None:
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, "
                              f"q on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in SOURCES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -130,8 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    sm90 = q.dtype == torch.bfloat16
-    if sm90:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         _check_sm90(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -143,12 +139,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.addressof(strides), B, Hq, Hkv, Sq, Sk, d, int(causal),
             window, 1.0 / math.sqrt(d), float(softcap))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if sm90:
-        err = _launcher_sm90()(*args, q.device.index, stream)
-    else:
-        err = _launcher()(*args, _DTYPE_CODE[q.dtype], q.device.index,
-                          stream)
+    err = _launcher(q.dtype)(*args, q.device.index,
+                             torch.cuda.current_stream(q.device).cuda_stream)
     if err < 0:
         raise RuntimeError(f"flash_attention: TMA tensor map encoding "
                            f"failed with CUresult {-err}")
@@ -156,9 +148,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: kernel launch failed with "
                            f"CUDA error {err}")
     flash_attention.launches += 1
-    flash_attention.launches_sm90 += sm90
+    flash_attention.launches_bf16 += bf16
     return out
 
 
 flash_attention.launches = 0
-flash_attention.launches_sm90 = 0
+flash_attention.launches_bf16 = 0

@@ -1,7 +1,8 @@
 """Plain PyTorch version of blocked (flash) attention.
 
-Computes what the CUDA kernel (``csrc/flash_attention.cu``) computes, with
-the reference Pallas kernel's conventions:
+Computes what the CUDA kernels (``csrc/flash_attention_f32_sm90.cu`` for
+float32, ``csrc/flash_attention_sm90.cu`` for bfloat16) compute, with the
+reference Pallas kernel's conventions:
 
 * the scale is ``1/sqrt(d)``, then an optional tanh softcap, then the mask;
 * the causal mask keeps ``q_pos >= k_pos`` with both positions counted
@@ -11,10 +12,13 @@ the reference Pallas kernel's conventions:
 * masked logits are -1e30;
 * GQA maps q-head ``h`` to kv-head ``h // (Hq // Hkv)``.
 
-A query row that sees no key at all is the one case where the two differ,
-as the Pallas kernel differs from its own oracle there: this version gives
-the mean of ``v`` over every key, the kernel the mean over the key tiles it
-visited, or 0 when it visited none.
+A query row that sees no key at all is the one case where they differ, as
+the Pallas kernel differs from its own oracle there: this version gives
+the mean of ``v`` over every key, a kernel the mean over the keys (those
+below Sk) of the key tiles its q tile visited, or 0 when it visited none.
+That depends on the tiles (q rows x keys): float32 128 x 32 at head_dim
+<= 128, 64 x 16 above; bfloat16 128 x 128 at head_dim <= 128, 128 x 64
+above (``ops.kernel_config``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Port's flash attention (plain version on the CPU) vs the JAX Pallas kernel
 in interpret mode and its oracle, the port's plain attention functions vs
-the JAX package's, and the wrapper's CPU routing and refusals. An emulation
-of the bfloat16 tensor-core kernel's arithmetic (csrc/flash_attention_sm90.cu)
-is held against the Pallas kernel too. The CUDA kernels themselves are held
-against the plain version on the card by chip_smoke.py."""
+the JAX package's, and the wrapper's CPU routing and refusals. Emulations of
+the two tensor-core kernels' arithmetic (bfloat16: csrc/flash_attention_sm90.cu;
+float32, 3xTF32: csrc/flash_attention_f32_sm90.cu) are held against the
+Pallas kernel too, and single-pass TF32 is shown to miss the float32 bar.
+The CUDA kernels themselves are held against the plain version on the card
+by chip_smoke.py."""
 import math
 
 import pytest
@@ -20,6 +22,7 @@ from repro.models import common as jcommon
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import common
+from tf32_split import mm3, tf32
 
 # tests/test_kernels.py tolerances
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
@@ -181,22 +184,152 @@ def test_sm90_arithmetic_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d, causal,
     np.testing.assert_allclose(got, want, **BF16_TOL)
 
 
+# the float32 kernel's tiles (q rows, keys) by head_dim: its Cfg<D>
+F32_TILES = {True: (128, 32), False: (64, 16)}      # d <= 128, d > 128
+
+
+def _f32_sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
+                      terms=3):
+    """csrc/flash_attention_f32_sm90.cu's arithmetic in plain PyTorch: q
+    tiles of 128 rows (64 at d > 128), each visiting the key tiles of 32
+    (16) its band reaches; S = Q.K^T and O += P.V as 3xTF32 products of
+    operands split once; scores in log2 units (masked -1e30, keys past Sk
+    -inf); a float32 online softmax from -1e30 with exp2; out = acc /
+    max(l, 1e-30)."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    block_q, block_k = F32_TILES[d <= 128]
+    # terms=1 keeps hi.hi alone (single-pass TF32)
+    mm = mm3 if terms == 3 else (lambda x, y: tf32(x) @ tf32(y))
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    out = torch.zeros((B, Hq, Sq, d))
+    for q0 in range(0, Sq, block_q):
+        qt = q.float()[:, :, q0:q0 + block_q]
+        q_pos = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        k_end = min(Sk, q0 + qt.shape[2]) if causal else Sk
+        k_first = (max(0, q0 - window + 1) if window else 0) \
+            // block_k * block_k
+        m = torch.full((B, Hq, qt.shape[2], 1), -1e30)
+        l = torch.zeros((B, Hq, qt.shape[2], 1))
+        acc = torch.zeros((B, Hq, qt.shape[2], d))
+        for k0 in range(k_first, k_end, block_k):
+            kt = kf[:, :, k0:k0 + block_k]
+            vt = vf[:, :, k0:k0 + block_k]
+            s = mm(qt, kt.transpose(-1, -2))
+            if softcap:
+                s = (softcap * log2e) * torch.tanh(s * (scale / softcap))
+            else:
+                s = s * (scale * log2e)
+            k_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            mask = torch.ones((qt.shape[2], kt.shape[2]), dtype=torch.bool)
+            if causal:
+                mask &= q_pos >= k_pos
+            if window:
+                mask &= (q_pos - k_pos) < window
+            s = torch.where(mask, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + mm(p, vt)
+            m = m_new
+        out[:, :, q0:q0 + block_q] = acc / l.clamp_min(1e-30)
+    return out
+
+
+F32_SM90_CASES = SWEEP + [
+    (2, 8, 4, 512, 512, 256, True, 0, 50.0),    # gemma2's widths
+    (1, 2, 2, 1024, 1024, 128, True, 0, 0.0),   # several q and key tiles
+    (1, 4, 2, 200, 200, 80, True, 70, 0.0),     # ragged q and key tiles
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap",
+                         F32_SM90_CASES)
+def test_f32_sm90_arithmetic_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
+                                                   causal, window, softcap):
+    """3xTF32 products and the log2-unit online softmax stay within the
+    float32 tolerance of the Pallas kernel, elementwise."""
+    x = _qkv(0, B, Hq, Hkv, Sq, Sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    block = 64 if Sq <= 256 and Sq % 64 == 0 else 128 if Sq % 128 == 0 \
+        else Sq
+    want = _jax(x, jnp.float32, jax_kernel, block_q=block, block_k=block,
+                interpret=True, **kw)
+    got = _port(x, torch.float32, fn=_f32_sm90_emulate, **kw)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_single_pass_tf32_misses_the_float32_bar():
+    """Why every product is split: hi.hi alone (single-pass TF32) misses
+    the float32 tolerance of the Pallas kernel at S=1024, d=128, where the
+    three-term products pass (the case above)."""
+    x = _qkv(0, 1, 2, 2, 1024, 1024, 128)
+    want = _jax(x, jnp.float32, jax_kernel, block_q=128, block_k=128,
+                interpret=True)
+    got = _port(x, torch.float32, fn=_f32_sm90_emulate, terms=1)
+    ratio = np.abs(got - want) / (F32_TOL["atol"]
+                                  + F32_TOL["rtol"] * np.abs(want))
+    assert ratio.max() > 5.0
+
+
+def test_f32_sm90_rows_that_see_no_key():
+    """Causal, a window of 32, Sk=64 < Sq=256: rows q >= 95 see no key. They
+    get the mean of v over the keys of the 32-key tiles their 128-row q tile
+    visited (0 where it visited none); every other row the plain version."""
+    Sq, Sk, window = 256, 64, 32
+    block_q, block_k = F32_TILES[True]
+    x = [torch.from_numpy(a) for a in _qkv(6, 1, 2, 2, Sq, Sk, 64)]
+    got = _f32_sm90_emulate(*x, window=window)
+    want = attention_ref(*x, window=window)
+    blind = 0
+    for qp in range(Sq):
+        if max(0, qp - window + 1) <= min(qp, Sk - 1):
+            continue
+        blind += 1
+        q0 = qp // block_q * block_q
+        k_end = min(Sk, q0 + block_q, Sq)
+        k_first = max(0, q0 - window + 1) // block_k * block_k
+        keys = x[2][:, :, k_first:max(k_first, k_end)]
+        want[:, :, qp] = keys.mean(2) if keys.shape[2] else 0.0
+    assert blind == Sq - (Sk + window - 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(dtype,
                                                                monkeypatch):
     """Only a CUDA tensor reaches a kernel: on the CPU neither route's
     launcher is built and neither count moves, whatever the dtype."""
-    def refuse():
+    def refuse(*_):
         raise AssertionError("a CPU tensor reached a kernel launcher")
     monkeypatch.setattr(ops, "_launcher", refuse)
-    monkeypatch.setattr(ops, "_launcher_sm90", refuse)
     x = [torch.from_numpy(a).to(dtype) for a in _qkv(0, 1, 2, 1, 64, 64, 32)]
-    counts = (ops.flash_attention.launches, ops.flash_attention.launches_sm90)
+    counts = (ops.flash_attention.launches, ops.flash_attention.launches_bf16)
     got = ops.flash_attention(*x)
     assert counts == (ops.flash_attention.launches,
-                      ops.flash_attention.launches_sm90)
+                      ops.flash_attention.launches_bf16)
     torch.testing.assert_close(got, attention_ref(*x), atol=0, rtol=0)
 
+
+def test_each_dtype_has_its_own_hopper_kernel():
+    """float32 and bfloat16 each go to an sm_90a source of their own, whose
+    C entries the wrapper derives from the source's name; the CUDA-core
+    kernel of the float32 route is gone."""
+    from repro_torch.kernels import _build
+    assert ops.SOURCES == {torch.float32: "flash_attention_f32_sm90",
+                           torch.bfloat16: "flash_attention_sm90"}
+    names = set(_build.sources())
+    assert set(ops.SOURCES.values()) <= names
+    assert "flash_attention" not in names
+    for name in ops.SOURCES.values():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch(' in src
+        assert f'extern "C" void {name}_config(' in src
 
 def test_sm90_layout_rule_takes_the_models_views():
     x = torch.zeros(2, 64, 6, 128, dtype=torch.bfloat16)    # (B, S, H, d)
@@ -226,6 +359,23 @@ def test_sm90_refuses_a_head_dim_off_the_wgmma_step():
     assert ops._sm90_layout_ok(t)
     with pytest.raises(ValueError, match="multiple of 16"):
         ops._check_sm90(t, t, t)
+
+
+def test_kernel_bench_3xtf32_bound_at_the_forward_shape():
+    """K2's float32 bound at the rate its kernel uses: 3 x 171.8 GFLOP at
+    495 TFLOP/s, 1.041 ms at (2, 20, 4096, 128) causal (operations, not
+    bytes); the bench's K2 rows carry it as ``bound_used_ms``."""
+    from benchmarks_torch import kernel_bench as kb
+    from repro_torch.roofline.analysis import HBM_BYTES_PER_S
+    assert round(kb.flash_flops(2, 20, 4096, 128) / 1e9, 1) == 171.8
+    assert abs(kb.flash_bound_3xtf32(2, 20, 20, 4096, 128) - 1.041) < 1e-3
+    assert kb.flash_bytes(2, 20, 20, 4096, 128) / HBM_BYTES_PER_S * 1e3 < \
+        kb.flash_bound_3xtf32(2, 20, 20, 4096, 128)
+    rows = kb.bench_flash("cpu", [(1, 4, 2, 64, 32)])
+    assert len(rows) == 1 and rows[0]["max_abs_err"] == 0.0
+    assert rows[0]["ms"] is None and rows[0]["library_ms"] is None
+    assert rows[0]["bound_used_ms"] == kb.flash_bound_3xtf32(1, 4, 2, 64, 32)
+    assert rows[0]["mbytes"] == 4 * 64 * 32 * (2 * 4 + 2 * 2) / 1e6
 
 
 # --- the plain attention functions of models/common.py ---------------------

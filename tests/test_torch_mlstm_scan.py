@@ -19,6 +19,7 @@ from repro.kernels.mlstm_scan.kernel import mlstm_scan as jmlstm_scan
 from repro.kernels.mlstm_scan.ref import mlstm_scan_ref as jmlstm_scan_ref
 from repro_torch.kernels.mlstm_scan import ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+from tf32_split import mm3, tf32, tf32_read
 
 F32_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_kernels.py:115
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)    # tests/test_kernels.py:17
@@ -160,29 +161,6 @@ def test_kernel_bench_3xtf32_bound_at_the_layer_shape():
 
 # ---- the sm90 kernel's arithmetic, in plain PyTorch -------------------------
 
-def _tf32(x):
-    """float32 to the nearest TF32 value (10 mantissa bits, ties away from
-    zero), as the kernel rounds hi: add half of the dropped bits to the
-    magnitude, then clear them."""
-    b = x.contiguous().view(torch.int32)
-    return ((b + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_read(x):
-    """What the tensor core reads of a float32 operand: its top 11
-    significant bits (the low 13 bits cleared)."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def _mm3(a, b):
-    """a @ b as the kernel's tensor cores take it: each float32 operand split
-    into hi = tf32(x) and lo = x - hi (read as TF32), lo.hi + hi.lo + hi.hi
-    summed in float32 (the products of TF32 values are exact in float32)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
 def _sm90_emulate(q, k, v, lf, li, chunk):
     """What csrc/mlstm_scan_sm90.cu computes, pass by pass. Returns h in q's
     dtype and the scalars (m entering each chunk, the row stabilizers m_i
@@ -216,21 +194,21 @@ def _sm90_emulate(q, k, v, lf, li, chunk):
         Cs.append(C)
         ns.append(n)
         kw = kc[:, :, c] * wL[:, :, c, :, None]
-        C = decay[..., c, None, None] * C + _mm3(kw.transpose(-1, -2),
+        C = decay[..., c, None, None] * C + mm3(kw.transpose(-1, -2),
                                                  vc[:, :, c])
         n = decay[..., c, None] * n + kw.sum(-2)
     # pass 3: P = e^(D - m_i) (q.k^T), its row sums, q.C_prev and P.V
     hs = []
     for c in range(nc):
-        s = _mm3(qs[:, :, c], kc[:, :, c].transpose(-1, -2))
+        s = mm3(qs[:, :, c], kc[:, :, c].transpose(-1, -2))
         w = torch.where(causal, torch.exp(dlog[:, :, c]
                                           - Mi[:, :, c, :, None]),
                         torch.tensor(0.0))
         P = w * s
         den = P.sum(-1) + (qs[:, :, c] * ns[c][:, :, None, :]).sum(-1) \
             * Sf[:, :, c]
-        O = _mm3(qs[:, :, c], Cs[c]) * Sf[:, :, c, :, None] \
-            + _mm3(P, vc[:, :, c])
+        O = mm3(qs[:, :, c], Cs[c]) * Sf[:, :, c, :, None] \
+            + mm3(P, vc[:, :, c])
         hs.append(O / torch.maximum(den.abs(), torch.exp(-Mi[:, :, c]))
                   [..., None])
     h = torch.stack(hs, 2).reshape(B, H, S, dh).to(q.dtype)
@@ -310,13 +288,13 @@ def test_sm90_emulation_where_the_stabilizer_switches_between_chunks():
 def test_tf32_split_rounds_to_nearest_and_keeps_21_bits():
     x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
                       -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -10 + 2.0 ** -23])
-    hi = _tf32(x)
+    hi = tf32(x)
     assert hi.tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
                            -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -10]
     r = torch.from_numpy(np.random.RandomState(3).randn(4096)
                          .astype(np.float32))
-    hi = _tf32(r)
-    lo = _tf32_read(r - hi)
+    hi = tf32(r)
+    lo = tf32_read(r - hi)
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     assert float(((r - hi).abs() / r.abs()).max()) <= 2.0 ** -11
     assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -21
