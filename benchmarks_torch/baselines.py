@@ -1,13 +1,16 @@
 """Earlier CUDA-core kernels, built from another checkout, as yardsticks.
 
-Two kernels the port has replaced are no longer in this tree:
+Three kernels the port has replaced are no longer in this tree:
 
 * K3's ``csrc/mlstm_scan.cu`` (last in commit df97d3b's parent): one
   block per (batch x head, 64 value columns), the chunks in order inside
   it; replaced by ``csrc/mlstm_scan_sm90.cu``;
 * K2's ``csrc/flash_attention.cu`` (last in commit 2142486): float32
   attention on the CUDA cores, one block per (batch x head, 64 q rows);
-  replaced on the float32 route by ``csrc/flash_attention_f32_sm90.cu``.
+  replaced on the float32 route by ``csrc/flash_attention_f32_sm90.cu``;
+* K1's ``csrc/paged_attention.cu`` (last in commit 8d1f884): paged decode
+  attention on the CUDA cores, one block per (kv head, sequence), g <= 8
+  and d <= 256; replaced for every shape by ``csrc/paged_attention_sm90.cu``.
 
 To time them beside the current kernels on one card, unpack commits that
 have them with ``git archive`` into one git-ignored directory and pass it,
@@ -16,14 +19,15 @@ e.g.
   mkdir -p build/base
   git archive df97d3b^ src/repro_torch/csrc/mlstm_scan.cu | tar -x -C build/base
   git archive 2142486 src/repro_torch/csrc/flash_attention.cu | tar -x -C build/base
+  git archive 8d1f884 src/repro_torch/csrc/paged_attention.cu | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
 
-``load(dir)`` builds each of the two sources it finds under
+``load(dir)`` builds each of the three sources it finds under
 ``dir/src/repro_torch/csrc/`` with the port's nvcc flags into
 ``build/kernels/`` (keyed by the source's hash) and returns, by name
-(``mlstm_scan``, ``flash_attention``), a function with the public
-wrapper's signature that launches the earlier kernel on CUDA tensors the
-wrapper would accept.
+(``mlstm_scan``, ``flash_attention``, ``paged_attention``), a function with
+the public wrapper's signature that launches the earlier kernel on CUDA
+tensors the wrapper would accept (K1's: at g <= 8 and d <= 256).
 """
 from __future__ import annotations
 
@@ -114,12 +118,37 @@ def _flash_attention(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
     return run
 
 
-_KERNELS = {"mlstm_scan": _mlstm_scan, "flash_attention": _flash_attention}
+def _paged_attention(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
+    fn = lib.paged_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(q, k_pages, v_pages, page_table, lengths, *,
+            softcap: float = 0.0) -> torch.Tensor:
+        B, Hq, d = q.shape
+        P, Hkv, page, _ = k_pages.shape
+        out = torch.empty_like(q)
+        _check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  B, Hq, Hkv, d, page, page_table.shape[1], P,
+                  1.0 / math.sqrt(d), float(softcap),
+                  0 if q.dtype == torch.float32 else 1, q.device.index,
+                  torch.cuda.current_stream(q.device).cuda_stream),
+               "paged_attention")
+        return out
+
+    return run
+
+
+_KERNELS = {"mlstm_scan": _mlstm_scan, "flash_attention": _flash_attention,
+            "paged_attention": _paged_attention}
 
 
 def load(checkout: str) -> Dict[str, Callable[..., torch.Tensor]]:
     """The earlier kernels whose sources lie under ``checkout``, by name;
-    raises if there is neither."""
+    raises if there is none."""
     found = {}
     for name, wrap in _KERNELS.items():
         src = Path(checkout) / CSRC / f"{name}.cu"
@@ -127,6 +156,6 @@ def load(checkout: str) -> Dict[str, Callable[..., torch.Tensor]]:
             found[name] = wrap(_library(src, name))
     if not found:
         raise FileNotFoundError(
-            f"baselines: neither {CSRC}/mlstm_scan.cu nor "
-            f"{CSRC}/flash_attention.cu under {checkout}")
+            f"baselines: none of {', '.join(f'{n}.cu' for n in _KERNELS)} "
+            f"under {checkout}/{CSRC}")
     return found

@@ -18,7 +18,7 @@ bench's inputs (``kernel_bench.paged_inputs``, seed 0),
 * ``device_ms``: device time per call, CUDA-graph replays of 20 calls.
 
 Prints one JSON line with the card's name and power limit, the package
-directory and its K1 launch counters. Needs a CUDA device.
+directory and its K1 launch count. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -83,8 +83,6 @@ def main(argv=None) -> dict:
     out = {"card": smi.stdout.strip().splitlines()[0],
            "package": os.path.dirname(os.path.abspath(repro_torch.__file__)),
            "launches": ops.paged_attention.launches,
-           "launches_sm90": getattr(ops.paged_attention, "launches_sm90",
-                                    None),
            "shapes": rows}
     print(json.dumps(out))
     return out

@@ -10,20 +10,27 @@ Phases (any failure exits non-zero):
              the main path's shape and at edge cases; the main path's shape
              is timed (CUDA events, median) beside its bound, the plain
              version and one PyTorch library call. K1 paged attention has
-             two routes, by shape in kernels/paged_attention/ops.py: the
-             split, bulk-copy kernel (csrc/paged_attention_sm90.cu) takes
-             every shape here, the simt kernel (csrc/paged_attention.cu,
-             one block per sequence and kv head) any other; both are held
-             against the plain version at the serving shape, the kernel
-             bench's shapes, GQA d=256 softcap bf16, GQA g=4 softcap bf16,
-             lengths 0, 1 and on split boundaries, empty trailing splits,
-             d=16 and a bad page id (NaN on its sequence only), the sm90
-             route at several splits; three shapes the sm90 route refuses
-             go through the wrapper to the simt kernel. K1 is timed as one
-             call between two CUDA events (``ms``, host work included, the
-             kernels line's measure) and as device time per call from
-             CUDA-graph replays (``device_ms``), at the chosen split and
-             (device time) at one split, beside the simt kernel and SDPA.
+             one kernel (csrc/paged_attention_sm90.cu: pages split across
+             blocks, query rows in group tiles, pages staged by bulk
+             copies or the producer warp's loads) for every shape. It is
+             held against the plain version at the serving shape, the
+             kernel bench's shapes, GQA d=256 softcap bf16, GQA g=4 softcap
+             bf16, lengths 0, 1 and on split boundaries, empty trailing
+             splits, d=16 and a bad page id (NaN on its sequence only, at
+             g=2 f32 and g=16 bf16), at several splits; at the shapes K1
+             once refused or sent to an earlier kernel (g=9, MQA g=16,
+             d=512 and 2048, 24-byte rows, 64 KiB pages, pages of 300 and
+             512 keys, pools off 16-byte alignment) through the wrapper;
+             and at published widths with more than eight query heads per
+             kv head (PAGED_GROUP_SHAPES: Qwen3-235B-A22B, Mistral-Large-2,
+             StarCoder and Falcon-7B, and d=512 g=2; B=32, page 16, 36
+             slots, f32 and bf16). K1 is timed as one call between two CUDA
+             events (``ms``, host work included, the kernels line's
+             measure) and as device time per call from CUDA-graph replays
+             (``device_ms``), at the chosen split and (device time) at one
+             split, beside SDPA and the bound (bytes, or the f32 CUDA-core
+             flops where larger); with --baseline-src, the earlier CUDA-core
+             kernel (csrc/paged_attention.cu) at the serving shape.
              K2 flash attention has two routes, by dtype: bf16 goes to the
              wgmma/TMA kernel (csrc/flash_attention_sm90.cu), f32 to the
              3xTF32 wgmma kernel (csrc/flash_attention_f32_sm90.cu). Both
@@ -49,8 +56,8 @@ Phases (any failure exits non-zero):
              a seed, float32 KV pools) served through the SMS scheduler and
              the paged allocator until at least 8 requests of both client
              kinds have finished. Every logit must be finite, K1 must have
-             run once per layer per step, every call on the sm90 route,
-             and one mid-run step is recomputed with the plain attention.
+             run once per layer per step, and one mid-run step is
+             recomputed with the plain attention.
 5. forward — the same weights, the pools freed: the full-sequence forward
              and loss (``get_model(cfg).train_loss`` with use_pallas, B=2,
              S=4096, bf16). The loss must be finite, K2 must have run once
@@ -68,8 +75,7 @@ Phases (any failure exits non-zero):
              runs both.
 6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
              K3 at the reference bench's sweeps against their plain
-             versions, timed beside their bounds; every K1 and K3 call on
-             its sm90 route. It is K3's main path: the xLSTM model keeps its
+             versions, timed beside their bounds. It is K3's main path: the xLSTM model keeps its
              own chunk scan, as the reference does.
 7. xlstm   — xLSTM-125m at full width and depth (random float32 weights
              from a seed, bf16 compute): ``get_model(cfg).train_loss`` at
@@ -205,15 +211,15 @@ products) against its plain version: the tests/test_kernels.py sweep in f32
 (also against another chunk) and bf16, the kernel bench's widths, strided
 views in f32 and bf16, the gate extremes of the CPU tests (m at its floor of
 -40; a stabilizer that switches between chunks), dh=512 at chunk 256, dh=6,
-bases off 16-byte alignment and chunk 1; every call must take the sm90
-route. It times the xLSTM-125m layer shape (B=8, H=4, S=2048, dh=384) at
+bases off 16-byte alignment and chunk 1. It times the xLSTM-125m layer shape (B=8, H=4, S=2048, dh=384) at
 chunk 256 and 128 (one eager call, the device time from CUDA-graph replays,
 and each pass alone) and the kernel bench's two shapes; with
 ``--baseline-src DIR`` (a directory holding the earlier CUDA-core kernels,
-K3's csrc/mlstm_scan.cu and K2's f32 csrc/flash_attention.cu, unpacked
-from older commits; benchmarks_torch/baselines.py) it times each beside the
-kernel that replaced it on the same inputs. The small phase also runs a reduced 5-layer xLSTM on the card
-against the CPU.
+K3's csrc/mlstm_scan.cu, K2's f32 csrc/flash_attention.cu and K1's
+csrc/paged_attention.cu, unpacked from older commits;
+benchmarks_torch/baselines.py) it times each beside the kernel that
+replaced it on the same inputs. The small phase also runs a reduced
+5-layer xLSTM on the card against the CPU.
 
 It prints the whole run's wall time, a JSON ``kernels`` line, the card's
 name and power limit, and as its last line ``{"ok": true, "device":
@@ -306,6 +312,13 @@ XLSTM_B, XLSTM_S = 8, 2048       # 16,384 scored tokens per call
 XLSTM_TIMED = 3                  # timed forwards, after one warm-up
 XLSTM_DECODE = 8                 # greedy decode steps after the prefill
 XLSTM_CHUNK = 256                # models/xlstm.mlstm_chunk_scan's chunk
+PAGED_GROUP_SHAPES = {           # K1 at published widths: (Hq, Hkv, d)
+    "qwen3-235b-a22b 64/4 d128": (64, 4, 128),     # g = 16
+    "mistral-large-2 96/8 d128": (96, 8, 128),     # g = 12
+    "starcoder MQA 48/1 d128": (48, 1, 128),       # g = 48
+    "falcon-7b MQA 71/1 d64": (71, 1, 64),         # g = 71
+    "d512 g2 16/8": (16, 8, 512),
+}
 
 
 def _example():
@@ -352,9 +365,7 @@ def _zero_counts():
     """Every kernel's launch count to 0, before a main path is driven."""
     for fn in (ops.paged_attention, fa_ops.flash_attention, ml_ops.mlstm_scan):
         fn.launches = 0
-    ops.paged_attention.launches_sm90 = 0
     fa_ops.flash_attention.launches_bf16 = 0
-    ml_ops.mlstm_scan.launches_sm90 = 0
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -384,87 +395,182 @@ def phase_build():
 
 
 def _paged_case(errs, name, x, tol, *, softcap=0.0, splits=(None,)):
-    """K1 on x against its plain version: the sm90 route at each
-    pages_per_split (None: ``_pages_per_split``'s choice), every call
-    checked to have taken that route, and the simt kernel."""
+    """K1 on x against its plain version at each pages_per_split (None:
+    the public wrapper at ``_pages_per_split``'s choice, which must move
+    ``launches`` by one)."""
     want = paged_attention_ref(*x, softcap=softcap)
     for pps in splits:
-        before = ops.paged_attention.launches_sm90
         if pps is None:
+            before = ops.paged_attention.launches
             got = ops.paged_attention(*x, softcap=softcap)
-            if ops.paged_attention.launches_sm90 != before + 1:
-                raise AssertionError(f"paged_attention {name}: not the sm90 "
-                                     f"route")
+            if ops.paged_attention.launches != before + 1:
+                raise AssertionError(f"paged_attention {name}: the wrapper "
+                                     f"did not launch the kernel once")
         else:
             got = ops._run_sm90(*x, softcap, pps)
-        errs[f"{name} sm90 pps={pps or 'auto'}"] = _assert_close(
-            f"paged_attention {name} sm90 pps={pps}", got, want, tol)
-    errs[f"{name} simt"] = _assert_close(
-        f"paged_attention {name} simt", ops._run_simt(*x, softcap), want, tol)
+        errs[f"{name} pps={pps or 'auto'}"] = _assert_close(
+            f"paged_attention {name} pps={pps}", got, want, tol)
 
 
-def _paged_times(x, n_bytes, n_flops, enable_gqa=True):
+def _paged_bad_ids(errs, name, x, tol, seq, ids, *, softcap=0.0,
+                   splits=(None, 1, 2)):
+    """x with page ids set as ``ids`` ({(b, slot): id}), one of them outside
+    [0, P) inside sequence ``seq``'s length: that sequence's output must be
+    NaN at each split and the other sequences' must agree with the plain
+    version on x (ids past a length are never read)."""
+    want = paged_attention_ref(*x, softcap=softcap)
+    x = list(x)
+    x[3] = x[3].clone()
+    for (b, slot), pid in ids.items():
+        x[3][b, slot] = pid
+    rest = [b for b in range(x[0].shape[0]) if b != seq]
+    for pps in splits:
+        got = (ops.paged_attention(*x, softcap=softcap) if pps is None
+               else ops._run_sm90(*x, softcap, pps))
+        if not bool(torch.isnan(got[seq]).all()):
+            raise AssertionError(f"paged_attention {name} pps={pps}: a bad "
+                                 f"id inside the length must give NaN")
+        errs[f"{name}, the other sequences, pps={pps or 'auto'}"] = \
+            _assert_close(f"paged_attention {name} pps={pps}", got[rest],
+                          want[rest], tol)
+
+
+def _paged_work(x):
+    """K1's work on x: the bytes it must move (the live K and V rows, q in,
+    out, the lengths and the live page ids), its flops (q.k and p.v over the
+    live keys) and the live keys."""
+    q, kp, _, pt, ln = x
+    B, Hq, d = q.shape
+    page, elt = kp.shape[2], q.element_size()
+    lens = torch.clamp(ln.long(), 0, pt.shape[1] * page)
+    keys = int(lens.sum())
+    pages = int(((lens + page - 1) // page).sum())
+    n_bytes = (2 * keys * kp.shape[1] * d * elt + 2 * q.numel() * elt
+               + 4 * (B + pages))
+    return n_bytes, 4 * keys * Hq * d, keys
+
+
+def _paged_times(x, enable_gqa=True, previous=None):
     """K1 timed two ways: ``ms`` keys are one call between two CUDA events
     (median of 50), the wrapper's host work included, the kernels line's
     measure; ``device_ms`` keys are device time per call from CUDA-graph
-    replays of 20 calls. For the public wrapper (the sm90 route at
-    ``_pages_per_split``'s choice), the sm90 route at one split (device
-    only), the simt kernel behind the same input checks as the wrapper
-    (``_check`` + ``_run_simt``) and SDPA over
-    pre-gathered pages; beside the byte bound."""
-    n_slots = x[3].shape[1]
+    replays of 20 calls. For the public wrapper (``_pages_per_split``'s
+    choice), the kernel at one split (device only), SDPA over pre-gathered
+    pages and, where given, an earlier kernel behind the same input checks
+    as the wrapper; beside the bound, its flops at the card's peak rate for
+    the inputs' dtype (float32 on the CUDA cores, bfloat16 on the tensor
+    cores)."""
+    B, Hq, _ = x[0].shape
+    Hkv, n_slots = x[1].shape[1], x[3].shape[1]
+    n_bytes, n_flops, _ = _paged_work(x)
     wrapper = lambda: ops.paged_attention(*x)
-    simt = lambda: (ops._check(*x), ops._run_simt(*x, 0.0))
     lib = kernel_bench.paged_sdpa(x, enable_gqa)
+    plan = ops.sm90_plan(Hq // Hkv, x[0].shape[2], x[1].shape[2], x[0].dtype)
     t = {"pages_per_split": ops._pages_per_split(
-        x[0].shape[0], x[1].shape[1], n_slots, ops._sm_count(0)),
+        B, Hkv * plan["tiles"], n_slots, ops._sm_count(0)), **plan,
         "ms": _time_ms(wrapper, 50), "device_ms": _device_ms(wrapper),
         "device_ms_one_split": _device_ms(
             lambda: ops._run_sm90(*x, 0.0, n_slots)),
-        "simt_ms": _time_ms(simt, 50), "simt_device_ms": _device_ms(simt),
         "library_ms": _time_ms(lib, 50), "library_device_ms": _device_ms(lib)}
-    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops,
-                                            F32_FLOPS_PER_S)
+    if previous is not None:
+        prev = lambda: (ops._check(*x), previous(*x))
+        t["previous_ms"] = _time_ms(prev, 50)
+        t["previous_device_ms"] = _device_ms(prev)
+    rate = (F32_FLOPS_PER_S if x[0].dtype == torch.float32
+            else BF16_FLOPS_PER_S)
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, rate)
+    t["bound_bytes_ms"] = bound_ms(n_bytes, 0, rate)[0]
     for k in ("ms", "device_ms"):
         t[f"gb_s_{k}"] = n_bytes / t[k] / 1e6
         t[f"bound_share_{k}"] = t["bound_ms"] / t[k]
     return t
 
 
-def _paged_refused(errs, gen):
-    """Shapes ``_sm90_ok`` refuses, through the public wrapper: each must
-    move ``launches`` and not ``launches_sm90`` (the simt kernel), and
-    agree with the plain version."""
-    xa = _paged_inputs(gen, 3, 4, 2, 6, 16, 4, 16, [0, 37, 64],
-                       torch.float32)
-    xb = _paged_inputs(gen, 2, 4, 2, 256, 64, 3, 8, [100, 192],
-                       torch.float32)
-    xc = list(_paged_inputs(gen, 3, 4, 2, 32, 16, 4, 16, [20, 64, 41],
-                            torch.float32))
-    for i in (1, 2):                 # base 4 bytes past an aligned address
-        flat = torch.empty(xc[i].numel() + 1, device="cuda")
-        xc[i] = flat[1:].view(xc[i].shape).copy_(xc[i])
-    for name, x in (("f32 d=6, 24-byte rows", xa),
-                    ("f32 d=256 page 64, 64 KiB pages", xb),
-                    ("pools 4 bytes off 16-byte alignment", xc)):
-        if ops._sm90_ok(x[1], x[2]):
-            raise AssertionError(f"paged_attention (i) {name}: expected "
-                                 f"the sm90 route to refuse it")
-        n, n_sm90 = (ops.paged_attention.launches,
-                     ops.paged_attention.launches_sm90)
-        got = ops.paged_attention(*x)
-        if (ops.paged_attention.launches, ops.paged_attention.launches_sm90) \
-                != (n + 1, n_sm90):
-            raise AssertionError(f"paged_attention (i) {name}: not the simt "
-                                 f"route")
-        errs[f"(i) simt route via the wrapper, {name}"] = _assert_close(
-            f"paged_attention (i) {name}", got, paged_attention_ref(*x),
-            F32_TOL)
+def _paged_formerly_refused(errs, gen):
+    """Shapes that K1 once refused (g > 8, d > 256) or sent to an earlier
+    CUDA-core kernel (rows not a multiple of 16 bytes, pages over 256 keys
+    or 32 KiB, pools off 16-byte alignment), through the public wrapper and
+    at set splits: each wrapper call must move ``launches`` by one, and
+    every result agree with the plain version. Two of the pools the
+    producer warp's own loads stage get a bad page id inside a length."""
+    def off(x, elts):                  # both pools `elts` elements past
+        x = list(x)                    # an aligned address
+        for i in (1, 2):
+            flat = torch.empty(x[i].numel() + elts, dtype=x[i].dtype,
+                               device="cuda")
+            x[i] = flat[elts:].view(x[i].shape).copy_(x[i])
+        return x
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("f32 d=6, 24-byte rows", _paged_inputs(
+            gen, 3, 4, 2, 6, 16, 4, 16, [0, 37, 64], f32), F32_TOL),
+        ("bf16 d=12, 24-byte rows, g=9", _paged_inputs(
+            gen, 3, 9, 1, 12, 16, 4, 16, [5, 37, 64], bf16), BF16_TOL),
+        ("f32 d=256 page 64, 64 KiB pages", _paged_inputs(
+            gen, 2, 4, 2, 256, 64, 3, 8, [100, 192], f32), F32_TOL),
+        ("f32 page 512 keys, g=4", _paged_inputs(
+            gen, 3, 8, 2, 128, 512, 3, 16, [1, 700, 1536], f32), F32_TOL),
+        ("f32 pools 4 bytes off 16-byte alignment", off(_paged_inputs(
+            gen, 3, 4, 2, 32, 16, 4, 16, [20, 64, 41], f32), 1), F32_TOL),
+        ("bf16 pools 2 bytes off, d=7 page 300", off(_paged_inputs(
+            gen, 2, 12, 4, 7, 300, 2, 6, [301, 599], bf16), 1), BF16_TOL),
+        ("f32 g=9 (18/2)", _paged_inputs(
+            gen, 3, 18, 2, 128, 16, 5, 32, [0, 33, 80], f32), F32_TOL),
+        ("bf16 MQA g=16", _paged_inputs(
+            gen, 3, 16, 1, 128, 16, 5, 32, [17, 64, 80], bf16), BF16_TOL),
+        ("f32 d=512 g=2", _paged_inputs(
+            gen, 2, 4, 2, 512, 16, 4, 16, [0, 57], f32), F32_TOL),
+        ("bf16 d=2048 g=9 (9/1)", _paged_inputs(
+            gen, 2, 9, 1, 2048, 16, 3, 8, [40, 48], bf16), BF16_TOL),
+    ]
+    for name, x, tol in cases:
+        _paged_case(errs, f"(i) {name}", x, tol, softcap=30.0,
+                    splits=(None, 1, 2))
+    # bad ids: slot 1 starts at 16 < 37 and at 300 < 301
+    _paged_bad_ids(errs, "(i) bad id, " + cases[0][0], cases[0][1],
+                   F32_TOL, 1, {(1, 1): 16 + 3}, softcap=30.0)
+    _paged_bad_ids(errs, "(i) bad id, " + cases[5][0], cases[5][1],
+                   BF16_TOL, 0, {(0, 1): -2}, softcap=30.0)
 
 
-def phase_kernels():
-    """K1 against its plain version on both routes, timed; returns the
-    serving-shape record."""
+def _paged_group_shapes(errs, gen):
+    """K1 at published attention widths with more than eight query heads
+    per kv head and at d = 512 (``PAGED_GROUP_SHAPES``), B=32, page 16, 36
+    slots, random lengths, f32 and bf16: held against the plain version and
+    timed beside the bound and SDPA (``enable_gqa``)."""
+    rows = {}
+    for name, (Hq, Hkv, d) in PAGED_GROUP_SHAPES.items():
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            B, page, n_slots = 32, 16, 36
+            lens = torch.randint(1, page * n_slots + 1, (B,), generator=gen,
+                                 device="cuda")
+            x = _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, SERVE_PAGES,
+                              lens, dtype)
+            key = f"{name} {'f32' if dtype == torch.float32 else 'bf16'}"
+            _paged_case(errs, f"(j) {key}", x, tol, splits=(None, 1))
+            t = _paged_times(x)
+            t["plain_ms"] = _time_ms(lambda: paged_attention_ref(*x), 5)
+            rows[key] = t
+            print(f"[kernels] paged_attention {key}: B={B} Hq={Hq} Hkv={Hkv}"
+                  f" d={d} page={page} slots={n_slots}, {t['tiles']} tiles "
+                  f"of {t['tile_rows']} rows, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}; bytes alone {t['bound_bytes_ms']:.4f})"
+                  f"; one eager call {t['ms']:.4f} ms, device "
+                  f"{t['device_ms']:.4f} ms at {t['pages_per_split']} pages "
+                  f"per split ({t['bound_share_device_ms']:.3f} of the "
+                  f"bound), {t['device_ms_one_split']:.4f} at one split; "
+                  f"sdpa {t['library_ms']:.4f} eager, "
+                  f"{t['library_device_ms']:.4f} device; plain "
+                  f"{t['plain_ms']:.4f}")
+    return rows
+
+
+def phase_kernels(previous=None):
+    """K1 against its plain version, timed; returns the serving-shape
+    record. ``previous``: the earlier CUDA-core kernel
+    (benchmarks_torch/baselines.py),
+    timed beside K1 at the serving shape."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     B, H, d, page, n_slots, P = 32, 20, 128, 16, 36, SERVE_PAGES
@@ -473,7 +579,7 @@ def phase_kernels():
     x = _paged_inputs(gen, B, H, H, d, page, n_slots, P, lens, torch.float32)
     _paged_case(errs, "(a) serving shape f32", x, F32_TOL,
                 splits=(None, 1, 4, 9))
-    err_a = errs["(a) serving shape f32 sm90 pps=auto"]
+    err_a = errs["(a) serving shape f32 pps=auto"]
     lens_b = torch.randint(1, 16 * 8 + 1, (6,), generator=gen, device="cuda")
     xb = _paged_inputs(gen, 6, 8, 4, 256, 16, 8, 64, lens_b, torch.bfloat16)
     _paged_case(errs, "(b) GQA d=256 softcap bf16", xb, BF16_TOL,
@@ -508,53 +614,37 @@ def phase_kernels():
                 BF16_TOL, softcap=30.0, splits=(None, 1, 2, 3))
     bench = {}
     for shape in kernel_bench.PAGED_SHAPES:
-        xk, keys, pages = kernel_bench.paged_inputs("cuda", *shape)
+        xk, _, _ = kernel_bench.paged_inputs("cuda", *shape)
         name = "B{}H{}/{}d{}p{}".format(*shape[:5])
         _paged_case(errs, f"(g) kernel bench {name}", xk, F32_TOL,
                     splits=(None, 1, shape[5]))
-        Bk, Hq, Hkv, dk = shape[:4]
-        bench[name] = _paged_times(
-            xk, 4 * 2 * keys * Hkv * dk + 4 * 2 * xk[0].numel()
-            + 4 * (Bk + pages), 4 * keys * Hq * dk)
+        bench[name] = _paged_times(xk)
     # a page id outside [0, P) inside sequence 1's length: NaN there only;
-    # an id of -3 past sequence 2's length is never read
-    xh = list(_paged_inputs(gen, 3, 4, 2, 64, 16, 6, 32, [90, 70, 40],
-                            torch.float32))
-    want_h = paged_attention_ref(*xh)
-    xh[3] = xh[3].clone()
-    xh[3][1, 2], xh[3][2, 4] = 32 + 7, -3
-    for pps in (None, 1, 2, 6, "simt"):
-        got = (ops._run_simt(*xh, 0.0) if pps == "simt"
-               else ops.paged_attention(*xh) if pps is None
-               else ops._run_sm90(*xh, 0.0, pps))
-        if not bool(torch.isnan(got[1]).all()):
-            raise AssertionError(f"paged_attention (h) pps={pps}: a bad id "
-                                 f"inside the length must give NaN")
-        errs[f"(h) bad id, the other sequences, pps={pps or 'auto'}"] = \
-            _assert_close(f"paged_attention (h) pps={pps}", got[[0, 2]],
-                          want_h[[0, 2]], F32_TOL)
-    _paged_refused(errs, gen)
+    # an id of -3 past sequence 2's length is never read; g=16 (MQA) in two
+    # tiles and g=3 in one, f32 and bf16
+    for Hq, Hkv, dtype, tol in ((4, 2, torch.float32, F32_TOL),
+                                (16, 1, torch.bfloat16, BF16_TOL)):
+        xh = _paged_inputs(gen, 3, Hq, Hkv, 64, 16, 6, 32, [90, 70, 40],
+                           dtype)
+        _paged_bad_ids(errs, f"(h) bad id, g={Hq // Hkv}", xh, tol, 1,
+                       {(1, 2): 32 + 7, (2, 4): -3}, splits=(None, 1, 2, 6))
+    _paged_formerly_refused(errs, gen)
+    groups = _paged_group_shapes(errs, gen)
     print("[kernels] paged_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
     # timing at the serving shape
-    S = n_slots * page
-    keys = int(torch.clamp(x[4], max=S).sum())
-    elt = x[0].element_size()
-    n_bytes = (2 * keys * H * d * elt            # live K and V rows
-               + 2 * x[0].numel() * elt          # q in, out
-               + 4 * (B + int(((x[4] + page - 1) // page).sum())))
-    t = _paged_times(x, n_bytes, 4 * keys * H * d, enable_gqa=False)
+    t = _paged_times(x, enable_gqa=False, previous=previous)
+    _, _, keys = _paged_work(x)
     plain_ms = _time_ms(lambda: paged_attention_ref(*x), 10)
     _assert_close("sdpa yardstick",
                   kernel_bench.paged_sdpa(x, False)()[:, :, 0],
                   paged_attention_ref(*x), dict(atol=1e-4, rtol=1e-3))
-    plan = ops.sm90_plan(1, d, page, torch.float32)
     log = _build.build_log("paged_attention_sm90")
     regs = max(int(w) for w in re.findall(r"Used (\d+) registers", log))
     spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", log))
-    sm90_src = "src/repro_torch/csrc/paged_attention_sm90.cu"
-    rec = {"name": "paged_attention", "route": "cuda", "source": sm90_src,
+    rec = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/paged_attention_sm90.cu",
            "replaces": "src/repro/kernels/paged_attention/kernel.py:67",
            "launches": None, "max_abs_err": err_a, "ms": t["ms"],
            "plain_ms": plain_ms, "bound_ms": t["bound_ms"],
@@ -564,50 +654,51 @@ def phase_kernels():
                      "time per call, CUDA-graph replays of 20 calls",
            "device_ms": t["device_ms"],
            "library_device_ms": t["library_device_ms"],
-           "routes": {
-               "sm90": {"launches": None, "ms": t["ms"],
-                        "device_ms": t["device_ms"],
-                        "device_ms_one_split": t["device_ms_one_split"],
-                        "pages_per_split": t["pages_per_split"],
-                        "source": sm90_src, **plan},
-               "simt": {"launches": None, "ms": t["simt_ms"],
-                        "device_ms": t["simt_device_ms"],
-                        "source": "src/repro_torch/csrc/paged_attention.cu"}},
-           "kernel_bench_shapes": bench}
+           "device_ms_one_split": t["device_ms_one_split"],
+           "pages_per_split": t["pages_per_split"],
+           "stages": t["stages"], "smem_bytes": t["smem_bytes"],
+           "kernel_bench_shapes": bench, "group_shapes": groups}
+    prev_s = ""
+    if previous is not None:
+        rec["previous"] = {"source": "src/repro_torch/csrc/"
+                                     "paged_attention.cu (commit 8d1f884)",
+                           "ms": t["previous_ms"],
+                           "device_ms": t["previous_device_ms"]}
+        prev_s = (f"; the earlier CUDA-core kernel {t['previous_ms']:.4f} "
+                  f"ms eager, "
+                  f"{t['previous_device_ms']:.4f} ms device")
     print(f"[kernels] paged_attention serving shape B={B} H={H} d={d} "
           f"page={page} slots={n_slots} keys={keys}, bound "
           f"{t['bound_ms']:.4f} ms; one eager call (host work included): "
-          f"sm90 {t['ms']:.4f} ms ({t['gb_s_ms']:.1f} GB/s, "
-          f"{t['bound_share_ms']:.3f} of the bound), simt kernel "
-          f"{t['simt_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; device ms per call (graph replays): sm90 "
-          f"{t['device_ms']:.4f} ms at {t['pages_per_split']} pages per "
-          f"split ({t['gb_s_device_ms']:.1f} GB/s, "
+          f"{t['ms']:.4f} ms ({t['gb_s_ms']:.1f} GB/s, "
+          f"{t['bound_share_ms']:.3f} of the bound), sdpa "
+          f"{t['library_ms']:.4f} ms, plain {plain_ms:.4f} ms; device ms "
+          f"per call (graph replays): {t['device_ms']:.4f} ms at "
+          f"{t['pages_per_split']} pages per split "
+          f"({t['gb_s_device_ms']:.1f} GB/s, "
           f"{t['bound_share_device_ms']:.3f} of the bound), "
-          f"{t['device_ms_one_split']:.4f} ms at one split, simt kernel "
-          f"{t['simt_device_ms']:.4f} ms, sdpa {t['library_device_ms']:.4f}"
-          f" ms; sm90 kernel: {plan['stages']} stages, "
-          f"{plan['smem_bytes']} B dynamic shared memory, registers <= "
-          f"{regs} (all instances), spill bytes {spills}")
+          f"{t['device_ms_one_split']:.4f} ms at one split, sdpa "
+          f"{t['library_device_ms']:.4f} ms{prev_s}; kernel: "
+          f"{t['stages']} stages, {t['smem_bytes']} B dynamic shared "
+          f"memory, registers <= {regs} (all instances), spill bytes "
+          f"{spills}")
     if t["bound_share_ms"] < 0.5:
-        print(f"[kernels] note: one eager call of the sm90 route reaches "
+        print(f"[kernels] note: one eager call of K1 reaches "
               f"{t['bound_share_ms']:.3f} of the bound at the serving shape, "
               f"under half")
     for name, b in bench.items():
         print(f"[kernels] paged_attention kernel bench {name}, bound "
-              f"{b['bound_ms']:.4f} ms; one eager call: sm90 {b['ms']:.4f} "
-              f"ms, simt kernel {b['simt_ms']:.4f} ms, sdpa "
-              f"{b['library_ms']:.4f} ms; device ms per call: sm90 "
+              f"{b['bound_ms']:.4f} ms; one eager call {b['ms']:.4f} ms, "
+              f"sdpa {b['library_ms']:.4f} ms; device ms per call: "
               f"{b['device_ms']:.4f} ms at {b['pages_per_split']} pages per "
               f"split ({b['gb_s_device_ms']:.1f} GB/s, "
               f"{b['bound_share_device_ms']:.3f} of the bound), "
-              f"{b['device_ms_one_split']:.4f} ms at one split, simt kernel "
-              f"{b['simt_device_ms']:.4f} ms, sdpa "
+              f"{b['device_ms_one_split']:.4f} ms at one split, sdpa "
               f"{b['library_device_ms']:.4f} ms")
         for k in ("ms", "device_ms"):
-            if not b[k] < min(b[f"simt_{k}"], b[f"library_{k}"]):
-                print(f"[kernels] note: at {name} the sm90 route is not the "
-                      f"fastest of the three by {k}")
+            if not b[k] < b[f"library_{k}"]:
+                print(f"[kernels] note: at {name} K1 is not faster than SDPA "
+                      f"by {k}")
     return rec
 
 
@@ -922,13 +1013,11 @@ def _k3_edge_cases(rng):
 
 
 def phase_mlstm_kernels(baseline=None):
-    """K3 against its plain version, every call on the sm90 route; the
-    xLSTM-125m layer shape and the kernel bench's shapes timed, beside the
+    """K3 against its plain version; the xLSTM-125m layer shape and the kernel bench's shapes timed, beside the
     earlier CUDA-core kernel where ``baseline`` (``baselines.load``)
     gives it. Returns the layer-shape record."""
     rng = np.random.RandomState(3)
     errs = {}
-    n0, n0_sm90 = ml_ops.mlstm_scan.launches, ml_ops.mlstm_scan.launches_sm90
 
     def check(name, x, chunk, tol, plain_chunk=None):
         got = ml_ops.mlstm_scan(*x, chunk=chunk)
@@ -975,8 +1064,7 @@ def phase_mlstm_kernels(baseline=None):
            "timing": "ms: one call between two CUDA events, host work "
                      "included; device_ms: device time per call, CUDA-graph "
                      "replays; passes_device_ms: each pass alone, the same "
-                     "way",
-           "routes": {"sm90": {"launches": None, "source": src}}}
+                     "way"}
     for chunk in (XLSTM_CHUNK, 128):
         fn = lambda: ml_ops.mlstm_scan(*x, chunk=chunk)     # noqa: E731
         err, form = _scan_close(
@@ -1035,11 +1123,6 @@ def phase_mlstm_kernels(baseline=None):
             print(f"[kernels] note: at {name} the sm90 kernel is slower in "
                   f"device ms than the earlier kernel")
     rec["kernel_bench_shapes"] = bench
-    n, n_sm90 = (ml_ops.mlstm_scan.launches - n0,
-                 ml_ops.mlstm_scan.launches_sm90 - n0_sm90)
-    if n != n_sm90:
-        raise AssertionError(f"mlstm_scan: {n - n_sm90} of {n} calls left "
-                             f"the sm90 route")
     return rec
 
 
@@ -1224,7 +1307,6 @@ def phase_serve():
             raise AssertionError(f"step cap {SERVE_STEP_CAP}: finished "
                                  f"{finished}")
     launches = ops.paged_attention.launches
-    launches_sm90 = ops.paged_attention.launches_sm90
     stream.close()                     # frees the KV pools
     if fa_ops.flash_attention.launches:
         raise AssertionError("serving decode launched flash_attention")
@@ -1232,10 +1314,6 @@ def phase_serve():
     if launches != SERVE_LAYERS_PER_STEP * steps:
         raise AssertionError(f"paged_attention launches {launches} != "
                              f"{SERVE_LAYERS_PER_STEP} x {steps} steps")
-    if launches_sm90 != launches:
-        raise AssertionError(f"serve: {launches - launches_sm90} of "
-                             f"{launches} paged_attention calls did not "
-                             f"take the sm90 route")
     if calls["plain_err"] is None:
         raise AssertionError("the plain-attention check step never ran")
     total = sum(step_s)
@@ -1244,13 +1322,12 @@ def phase_serve():
           f"{finished.count('interactive')} interactive), decode "
           f"{tokens / total:.1f} tok/s, mean step {1e3 * total / len(step_s):.3f}"
           f" ms, median step {1e3 * statistics.median(step_s):.3f} ms, "
-          f"paged_attention launches {launches} (sm90 route "
-          f"{launches_sm90}); step {SERVE_CHECK_STEP}: "
+          f"paged_attention launches {launches}; step {SERVE_CHECK_STEP}: "
           f"attention vs plain max|err| {calls['attn_err']:.3e} (40 layers),"
           f" logits vs plain-attention step max|err| "
           f"{calls['plain_err']:.3e}, argmax agreement {calls['argmax']:.3f};"
           f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return launches, launches_sm90, params
+    return launches, params
 
 
 def phase_forward(params, flash_ms, dtype):
@@ -1373,14 +1450,6 @@ def phase_kernel_bench():
     if n_bf16:
         raise AssertionError(f"kernel bench: {n_bf16} f32 flash_attention "
                              f"calls took the bf16 route")
-    launches["paged_attention_sm90"] = ops.paged_attention.launches_sm90
-    if launches["paged_attention_sm90"] != launches["paged_attention"]:
-        raise AssertionError(f"kernel bench: paged_attention calls off the "
-                             f"sm90 route {launches}")
-    launches["mlstm_scan_sm90"] = ml_ops.mlstm_scan.launches_sm90
-    if launches["mlstm_scan_sm90"] != launches["mlstm_scan"]:
-        raise AssertionError(f"kernel bench: mlstm_scan calls off the sm90 "
-                             f"route {launches}")
     print(f"[kernel_bench] launches {json.dumps(launches)}, "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -3497,9 +3566,10 @@ def main(argv=None):
                     help=argparse.SUPPRESS)
     ap.add_argument("--baseline-src", default=None, metavar="DIR",
                     help="a directory holding the earlier CUDA-core kernels "
-                         "src/repro_torch/csrc/mlstm_scan.cu (K3) and/or "
-                         "flash_attention.cu (K2's f32 route), each timed "
-                         "beside the kernel that replaced it "
+                         "src/repro_torch/csrc/mlstm_scan.cu (K3), "
+                         "flash_attention.cu (K2's f32 route) and/or "
+                         "paged_attention.cu (K1), each timed beside the "
+                         "kernel that replaced it "
                          "(benchmarks_torch/baselines.py)")
     args = ap.parse_args(argv)
     if args.sim_cpu_worker:
@@ -3519,15 +3589,13 @@ def main(argv=None):
         baseline = baselines.load(args.baseline_src)
         print(f"[build] baselines from {args.baseline_src}: "
               f"{sorted(baseline)}")
-    rec_pa = phase_kernels()
+    rec_pa = phase_kernels(baseline.get("paged_attention"))
     rec_fa = phase_flash_kernels(baseline.get("flash_attention"))
     rec_ml = phase_mlstm_kernels(baseline.get("mlstm_scan"))
     phase_small_input()
     phase_small_forward()
     phase_small_xlstm()
-    rec_pa["launches"], n_sm90, params = phase_serve()
-    rec_pa["routes"]["sm90"]["launches"] = n_sm90
-    rec_pa["routes"]["simt"]["launches"] = rec_pa["launches"] - n_sm90
+    rec_pa["launches"], params = phase_serve()
     rec_fa["launches"], rec_fa["routes"]["bf16"]["launches"] = \
         phase_forward(params, rec_fa["ms"], torch.bfloat16)
     # the f32 route's main path: the same model's float32 forward
@@ -3541,7 +3609,6 @@ def main(argv=None):
     bench = phase_kernel_bench()
     # K3's main path is the kernel bench; the model path runs it 0 times
     rec_ml["launches"] = bench["mlstm_scan"]
-    rec_ml["routes"]["sm90"]["launches"] = bench["mlstm_scan_sm90"]
     # K2's f32 route runs on the kernel bench too (all its flash calls)
     rec_fa["launches"] += bench["flash_attention"]
     f32["launches"] += bench["flash_attention"]

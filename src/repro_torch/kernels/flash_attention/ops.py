@@ -8,8 +8,8 @@ one of two hand-written kernels, chosen by dtype, or the call raises:
   (``_sm90_layout_ok``);
 * float32 -> ``csrc/flash_attention_f32_sm90.cu``: every product as three
   TF32 tensor-core products (3xTF32: the float32 tolerance rules out a
-  single TF32 product, not the split one), for every shape ``_check``
-  accepts: any head_dim up to 256, any strides.
+  single TF32 product, not the split one), for any head_dim up to 256
+  (``_check_kernel``) and any strides.
 
 ``flash_attention.launches`` counts the launches of both kernels,
 ``flash_attention.launches_bf16`` those of the bfloat16 one.
@@ -85,10 +85,10 @@ def _check(q, k, v, window) -> None:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, Hq, _, d = q.shape
     Bk, Hkv, _, dk = k.shape
-    if Bk != B or dk != d or Hkv == 0 or Hq % Hkv or d > MAX_HEAD_DIM:
+    if Bk != B or dk != d or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} against k/v "
                          f"{tuple(k.shape)} (need one batch and head_dim, "
-                         f"Hq % Hkv == 0, d <= {MAX_HEAD_DIM})")
+                         f"Hq % Hkv == 0)")
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"flash_attention: window must be an int >= 0, "
                          f"got {window!r}")
@@ -96,6 +96,15 @@ def _check(q, k, v, window) -> None:
         if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              f"in its last dimension")
+
+
+def _check_kernel(q, k) -> None:
+    """What only the card's kernels cannot take, checked before a launch
+    (the plain version computes it): head_dim past ``MAX_HEAD_DIM``."""
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} against k/v "
+                         f"{tuple(k.shape)} (the kernels need d <= "
+                         f"{MAX_HEAD_DIM})")
 
 
 def _check_sm90(q, k, v) -> None:
@@ -126,6 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
+    _check_kernel(q, k)
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_sm90(q, k, v)

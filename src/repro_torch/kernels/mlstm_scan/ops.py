@@ -4,8 +4,9 @@ A CUDA tensor goes to the hand-written kernel ``csrc/mlstm_scan_sm90.cu``
 (three passes: the gate scalars, the state entering each chunk, the outputs;
 3xTF32 tensor-core products), or the call raises; a CPU tensor goes to the
 plain version (``ref.py``). The kernel takes every shape the wrapper
-accepts. ``mlstm_scan.launches`` counts the calls that launched it,
-``mlstm_scan.launches_sm90`` those on the sm90 route (all of them).
+accepts up to chunk ``MAX_CHUNK`` and dh ``MAX_HEAD_DIM`` (``_check_kernel``,
+on the CUDA branch only). ``mlstm_scan.launches`` counts the calls that
+launched it.
 
 The kernel takes (batch, head, seq) strides, so q, k, v, lf and li may be
 views as long as the last dimension of q, k and v is contiguous. The output
@@ -93,15 +94,21 @@ def _check(q, k, v, lf, li, chunk) -> int:
     if chunk < 1 or S % chunk:
         raise ValueError(f"mlstm_scan: S={S} must be a positive multiple of "
                          f"chunk={chunk}")
-    if chunk > MAX_CHUNK or dh > MAX_HEAD_DIM:
-        raise ValueError(f"mlstm_scan: chunk={chunk}, dh={dh}; the kernel "
-                         f"takes chunk <= {MAX_CHUNK} and dh <= "
-                         f"{MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if dh > 1 and t.stride(-1) != 1:
             raise ValueError(f"mlstm_scan: {name} must be contiguous in its "
                              f"last dimension")
     return chunk
+
+
+def _check_kernel(chunk: int, dh: int) -> None:
+    """What only the card's kernel cannot take, checked before a launch
+    (the plain version computes it): chunk past ``MAX_CHUNK`` or dh past
+    ``MAX_HEAD_DIM``."""
+    if chunk > MAX_CHUNK or dh > MAX_HEAD_DIM:
+        raise ValueError(f"mlstm_scan: chunk={chunk}, dh={dh}; the kernel "
+                         f"takes chunk <= {MAX_CHUNK} and dh <= "
+                         f"{MAX_HEAD_DIM}")
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,11 +124,11 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_scan_ref(q, k, v, lf, li, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan: no kernel for {q.device}")
+    _check_kernel(chunk, q.shape[3])
     if q.numel() == 0:
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     out = _run_sm90(q, k, v, lf, li, chunk)
     mlstm_scan.launches += 1
-    mlstm_scan.launches_sm90 += 1
     return out
 
 
@@ -167,4 +174,3 @@ def _run_sm90(q, k, v, lf, li, chunk, *, ws=None, out=None, passes=7):
 
 
 mlstm_scan.launches = 0
-mlstm_scan.launches_sm90 = 0

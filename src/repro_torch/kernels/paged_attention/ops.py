@@ -1,18 +1,15 @@
 """Public wrapper of paged decode attention.
 
 A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor goes to
-one of two hand-written kernels, chosen by shape (``_sm90_ok``), or the call
-raises:
+the hand-written kernel ``csrc/paged_attention_sm90.cu``, or the call
+raises. The kernel takes every shape the wrapper accepts up to a head dim of
+``KERNEL_MAX_HEAD_DIM``: any g = Hq / Hkv (the query rows of a kv head in
+group tiles of ``tile_rows``), any page size, any row width in bytes, any
+pool base address. Each sequence's pages are split across blocks; the run of
+pages per block comes from ``_pages_per_split``, which never reads
+``lengths``.
 
-* ``csrc/paged_attention_sm90.cu``: pages split across blocks, whole pages
-  fed by bulk TMA copies, for pools with 16-byte aligned bases and rows,
-  pages of at most 256 keys and 32 KiB; the run of pages per block comes
-  from ``_pages_per_split``, which never reads ``lengths``;
-* ``csrc/paged_attention.cu``: one block per (kv head, sequence), for any
-  other shape.
-
-``paged_attention.launches`` counts the calls that launched a kernel,
-``paged_attention.launches_sm90`` those of the first route.
+``paged_attention.launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -27,46 +24,72 @@ from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256      # gemma2's head_dim
-MAX_GROUP = 8           # query heads per kv head
-SM90_MAX_PAGE = 256             # keys per page on the sm90 route
-SM90_MAX_PAGE_BYTES = 32768     # one page of K (or V) for one kv head
 SPLIT_BLOCKS_PER_SM = 4         # blocks _pages_per_split aims to give an SM
-
-
-@functools.cache
-def _launcher():
-    from repro_torch.kernels import _build
-    fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+MAX_TILE_ROWS = 8               # query rows of a group tile
+MAX_LANE_FLOATS = 64            # a lane's floats of a tile's q rows
+KERNEL_MAX_HEAD_DIM = 2048      # a row in registers: 16 vectors a lane (f32)
 
 
 @functools.cache
 def _launcher_sm90():
     from repro_torch.kernels import _build
     fn = _build.load("paged_attention_sm90").paged_attention_sm90_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def sm90_plan(g: int, d: int, page: int, dtype: torch.dtype) -> Optional[dict]:
-    """The sm90 kernel's ring stages and dynamic shared memory bytes for a
-    shape, or None where it does not take it (builds the kernel; needs the
-    CUDA toolkit)."""
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def tile_rows(g: int, d: int, elt: int) -> int:
+    """Query rows per group tile for g rows per kv head, head dim d and elt
+    bytes per element: the power of two >= g up to ``MAX_TILE_ROWS``,
+    halved while the tile's q would pass ``MAX_LANE_FLOATS`` floats in a
+    lane that holds the fewest 16-byte vectors of a row that let 32 lanes
+    cover it. The g rows run as ``ceil(g / tile_rows)`` tiles.
+
+    The kernel's ``make_plan`` refuses a tile that breaks the same rule
+    (its ``kMaxRows``, ``kMaxLaneFloats``), and its launch switch holds
+    one instance per (rows, vectors per lane) pair that this choice gives;
+    tests/test_torch_paged_attention.py holds the three together."""
+    vec, nv = 16 // elt, -(-d * elt // 16)
+    nvl = _pow2_at_least(-(-nv // 32))
+    rows = min(MAX_TILE_ROWS, _pow2_at_least(g))
+    while rows > 1 and rows * nvl * vec > MAX_LANE_FLOATS:
+        rows //= 2
+    return rows
+
+
+def _bulk_copies(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
+    """Whether the kernel fills its ring stages from these pools by bulk
+    copies (both bases and the row width multiples of 16 bytes) rather than
+    by the producer warp's 2-byte loads."""
+    row = k_pages.shape[-1] * k_pages.element_size()
+    return (k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
+            and row % 16 == 0)
+
+
+def sm90_plan(g: int, d: int, page: int,
+              dtype: torch.dtype) -> Optional[dict]:
+    """The kernel's plan for a shape: query rows per group tile and tiles,
+    16-byte vectors of a row per lane, keys per ring stage, ring stages and
+    dynamic shared memory bytes. None where the kernel does not take the
+    shape (builds the kernel; needs the CUDA toolkit)."""
     from repro_torch.kernels import _build
-    stages, smem = ctypes.c_int(), ctypes.c_int()
+    rows = tile_rows(g, d, torch.empty((), dtype=dtype).element_size())
+    vals = [ctypes.c_int() for _ in range(4)]
     ok = _build.load("paged_attention_sm90").paged_attention_sm90_plan(
-        ctypes.c_int(g), ctypes.c_int(d), ctypes.c_int(page),
-        ctypes.c_int(_DTYPE_CODE[dtype]), ctypes.byref(stages),
-        ctypes.byref(smem))
-    return {"stages": stages.value, "smem_bytes": smem.value} if ok else None
+        ctypes.c_int(rows), ctypes.c_int(d), ctypes.c_int(page),
+        ctypes.c_int(_DTYPE_CODE[dtype]), *(ctypes.byref(x) for x in vals))
+    if not ok:
+        return None
+    return {"tile_rows": rows, "tiles": -(-g // rows),
+            **dict(zip(("vectors_per_lane", "keys_per_stage", "stages",
+                        "smem_bytes"), (x.value for x in vals)))}
 
 
 @functools.cache
@@ -75,25 +98,14 @@ def _sm_count(index: int) -> int:
 
 
 def _pages_per_split(B: int, Hkv: int, n_slots: int, n_sm: int) -> int:
-    """Pages each block of the sm90 route walks: the fewest splits of the
-    n_slots slots that give ``SPLIT_BLOCKS_PER_SM`` blocks per SM over the
-    B x Hkv (sequence, kv head) pairs, and one split where those pairs
-    already fill the card. The lengths are not an argument: reading them
-    would stall the serving loop on the device."""
+    """Pages each block walks: the fewest splits of the n_slots slots that
+    give ``SPLIT_BLOCKS_PER_SM`` blocks per SM over the B x Hkv blocks of one
+    split (the caller passes the kv heads times the group tiles), and one
+    split where those blocks already fill the card. The lengths are not an
+    argument: reading them would stall the serving loop on the device."""
     pairs = B * Hkv
     n_split = min(n_slots, max(1, -(-SPLIT_BLOCKS_PER_SM * n_sm // pairs)))
     return -(-n_slots // n_split)
-
-
-def _sm90_ok(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
-    """Whether the sm90 kernel takes these pools: bulk copies need 16-byte
-    aligned pages, the compute reads 16-byte vectors of a row, and a stage
-    of the shared-memory ring holds one page of K and one of V."""
-    _, _, page, d = k_pages.shape
-    row = d * k_pages.element_size()
-    return (k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
-            and row % 16 == 0 and page <= SM90_MAX_PAGE
-            and page * row <= SM90_MAX_PAGE_BYTES)
 
 
 def _check(q, k_pages, v_pages, page_table, lengths) -> None:
@@ -117,11 +129,10 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                          f"k {tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
     B, Hq, d = q.shape
     P, Hkv, page, dk = k_pages.shape
-    if dk != d or Hkv == 0 or Hq % Hkv or Hq // Hkv > MAX_GROUP \
-            or d > MAX_HEAD_DIM or P == 0 or page == 0:
+    if dk != d or Hkv == 0 or Hq % Hkv or P == 0 or page == 0:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} against pages "
-                         f"{tuple(k_pages.shape)} (need Hq % Hkv == 0, "
-                         f"Hq/Hkv <= {MAX_GROUP}, d <= {MAX_HEAD_DIM})")
+                         f"{tuple(k_pages.shape)} (need one head dim, "
+                         f"Hq % Hkv == 0, pages)")
     if page_table.dim() != 2 or page_table.shape[0] != B \
             or page_table.shape[1] == 0 or tuple(lengths.shape) != (B,):
         raise ValueError(f"paged_attention: page_table "
@@ -131,6 +142,14 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                     ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
+
+
+def _check_kernel(d: int) -> None:
+    """What only the card's kernel cannot take: a head dim whose row one
+    lane group cannot hold in registers."""
+    if d > KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: the kernel takes head_dim <= "
+                         f"{KERNEL_MAX_HEAD_DIM}, got {d}")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -150,29 +169,27 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
+    _check_kernel(q.shape[2])
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    sm90 = _sm90_ok(k_pages, v_pages)
-    if sm90:
-        out = _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap)
-    else:
-        out = _run_simt(q, k_pages, v_pages, page_table, lengths, softcap)
+    out = _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap)
     paged_attention.launches += 1
-    paged_attention.launches_sm90 += sm90
     return out
 
 
 def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
-              pages_per_split=None):
+         pages_per_split=None):
     """Launches ``csrc/paged_attention_sm90.cu`` on checked CUDA inputs
     (B >= 1) and returns the output; ``pages_per_split`` (None:
     ``_pages_per_split``'s choice) lets a measurement pick the split."""
     B, Hq, d = q.shape
     P, Hkv, page, _ = k_pages.shape
     n_slots = page_table.shape[1]
+    rows = tile_rows(Hq // Hkv, d, q.element_size())
     out = torch.empty_like(q)
     dev = q.device.index
-    pps = pages_per_split or _pages_per_split(B, Hkv, n_slots, _sm_count(dev))
+    pps = pages_per_split or _pages_per_split(
+        B, Hkv * -(-(Hq // Hkv) // rows), n_slots, _sm_count(dev))
     n_split = -(-n_slots // pps)
     ws = (torch.empty((B, Hq, n_split, d + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)
@@ -180,25 +197,8 @@ def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), B, Hq, Hkv, d, page, n_slots,
-        P, pps, 1.0 / math.sqrt(d), float(softcap), _DTYPE_CODE[q.dtype], dev,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_attention: sm90 kernel launch failed with "
-                           f"CUDA error {err}")
-    return out
-
-
-def _run_simt(q, k_pages, v_pages, page_table, lengths, softcap):
-    """Launches ``csrc/paged_attention.cu`` on checked CUDA inputs (B >= 1)
-    and returns the output."""
-    B, Hq, d = q.shape
-    P, Hkv, page, _ = k_pages.shape
-    out = torch.empty_like(q)
-    err = _launcher()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, d, page, page_table.shape[1], P, 1.0 / math.sqrt(d),
-        float(softcap), _DTYPE_CODE[q.dtype], q.device.index,
+        P, pps, rows, int(_bulk_copies(k_pages, v_pages)),
+        1.0 / math.sqrt(d), float(softcap), _DTYPE_CODE[q.dtype], dev,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention: kernel launch failed with "
@@ -207,4 +207,3 @@ def _run_simt(q, k_pages, v_pages, page_table, lengths, softcap):
 
 
 paged_attention.launches = 0
-paged_attention.launches_sm90 = 0

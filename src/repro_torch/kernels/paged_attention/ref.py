@@ -1,8 +1,7 @@
 """Plain PyTorch version of paged decode attention.
 
-Computes what the CUDA kernels (``csrc/paged_attention_sm90.cu`` and
-``csrc/paged_attention.cu``) compute, with the reference Pallas kernel's
-conventions:
+Computes what the CUDA kernel (``csrc/paged_attention_sm90.cu``) computes,
+with the reference Pallas kernel's conventions:
 
 * the scale is ``1/sqrt(d)``, then an optional tanh softcap;
 * keys at positions ``>= length`` are masked out, and page-table slots that

@@ -106,6 +106,14 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 4, 2, 64, 64, 32))
     kw = {}
+    if bad == "head_dim":
+        # only the card's kernels refuse it, before any launch; the CPU
+        # path computes it (test_head_dim_320_matches_pallas_kernel)
+        q, k = (torch.zeros(1, 2, 8, 320) for _ in range(2))
+        with pytest.raises(ValueError, match="d <= 256"):
+            ops._check_kernel(q, k)
+        ops._check_kernel(q[..., :256], k[..., :256])
+        return
     if bad == "mixed_device":
         k = k.to("meta")
     elif bad == "dtype":
@@ -114,14 +122,23 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         v = v.to(torch.bfloat16)
     elif bad == "group":
         q = torch.zeros(1, 3, 64, 32)
-    elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 2, 8, 320) for _ in range(3))
     elif bad == "window":
         kw = dict(window=-1)
     else:
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         ops.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_head_dim_320_matches_pallas_kernel(dtype):
+    """d = 320, which the Pallas kernel computes and only the card's
+    kernels refuse: the CPU wrapper against the Pallas kernel."""
+    jdt, tdt, tol = DTYPES[dtype]
+    x = _qkv(4, 1, 4, 2, 128, 128, 320)
+    want = _jax(x, jdt, jax_kernel, block_q=64, block_k=64, interpret=True,
+                causal=True)
+    np.testing.assert_allclose(_port(x, tdt, causal=True), want, **tol)
 
 
 # --- the bfloat16 tensor-core kernel: its arithmetic, route and layout rule --

@@ -108,14 +108,26 @@ def test_wrapper_refusals():
         scan(q, k, v, lf[:, :1], li, chunk=16)
     with pytest.raises(ValueError, match="one \\(B, H, S, dh\\)"):
         scan(q, k[:, :1], v, lf, li, chunk=16)
-    big = torch.zeros(1, 1, 512, 8)
-    gates = torch.zeros(1, 1, 512)
+    # the kernel's own limits: checked on the CUDA branch only
     with pytest.raises(ValueError, match=f"chunk <= {ops.MAX_CHUNK}"):
-        scan(big, big, big, gates, gates, chunk=512)
-    wide = torch.zeros(1, 1, 8, ops.MAX_HEAD_DIM + 8)
-    gates = torch.zeros(1, 1, 8)
+        ops._check_kernel(512, 8)
     with pytest.raises(ValueError, match=f"dh <= {ops.MAX_HEAD_DIM}"):
-        scan(wide, wide, wide, gates, gates, chunk=8)
+        ops._check_kernel(8, ops.MAX_HEAD_DIM + 8)
+    ops._check_kernel(ops.MAX_CHUNK, ops.MAX_HEAD_DIM)
+
+
+@pytest.mark.parametrize("S,dh,chunk", [(512, 8, 512), (16, 520, 8)])
+def test_wrapper_matches_the_pallas_kernel_past_the_kernel_s_limits(S, dh,
+                                                                    chunk):
+    """Chunk 512 and dh 520, which the Pallas kernel computes and only the
+    card's kernel refuses (``_check_kernel``): the CPU wrapper's plain
+    version against the Pallas kernel and the oracle."""
+    x = _inputs(np.random.RandomState(S + dh), 1, 2, S, dh)
+    kernel = np.asarray(jmlstm_scan(*_jax(x), chunk=chunk, interpret=True))
+    got = ops.mlstm_scan(*_torch(x), chunk=chunk).numpy()
+    np.testing.assert_allclose(got, kernel, **F32_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jmlstm_scan_ref(*_jax(x), chunk=chunk)), **F32_TOL)
 
 
 def test_strided_views_give_the_contiguous_result():
@@ -337,19 +349,20 @@ def test_workspace_shapes_and_the_cpu_route():
         (4, 6, 512), (3, 6, 5), (6, 3, 128), (6, 3, 96, 128)]
     assert ops.workspace(1, 1, 64, 16, 64, "cpu")[2:] == (None, None)
     x = _torch(_inputs(np.random.RandomState(9), 1, 1, 64, 16))
-    n, n90 = ops.mlstm_scan.launches, ops.mlstm_scan.launches_sm90
+    n = ops.mlstm_scan.launches
     ops.mlstm_scan(*x, chunk=32)
-    assert (ops.mlstm_scan.launches, ops.mlstm_scan.launches_sm90) == (n, n90)
+    assert ops.mlstm_scan.launches == n
 
 
 def test_wrapper_refuses_past_the_kernels_limits():
-    gates = torch.zeros(1, 1, 514)
-    wide = torch.zeros(1, 1, 514, ops.MAX_HEAD_DIM + 1)
+    """The limits of the card's kernel, through the helper the CUDA branch
+    calls before any launch; a device with no kernel raises."""
     with pytest.raises(ValueError, match="dh <= 512"):
-        ops.mlstm_scan(wide, wide, wide, gates, gates, chunk=257)
-    long = torch.zeros(1, 1, 514, 8)
+        ops._check_kernel(257, ops.MAX_HEAD_DIM + 1)
     with pytest.raises(ValueError, match="chunk <= 256"):
-        ops.mlstm_scan(long, long, long, gates, gates, chunk=257)
+        ops._check_kernel(257, 8)
+    gates = torch.zeros(1, 1, 514)
+    long = torch.zeros(1, 1, 514, 8)
     with pytest.raises(ValueError, match="no kernel for meta"):
         m = [t.to("meta") for t in (long, long, long, gates, gates)]
         ops.mlstm_scan(*m, chunk=2)

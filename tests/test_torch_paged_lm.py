@@ -1,4 +1,6 @@
 """Port's paged decode step vs the JAX package's, from the same weights."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,9 +23,13 @@ ARCHS = ["qwen1.5-4b", "gemma2-2b"]  # QKV bias + silu; softcap, post-norm,
                                      # tied embeddings + gelu
 
 
-def _setup(arch, n_layers=2):
-    jcfg = jreduced(jget_config(arch), n_layers=n_layers)
-    cfg = reduced(get_config(arch), n_layers=n_layers)
+def _setup(arch, n_layers=2, **replace):
+    """Both packages' reduced configs (``replace`` applied to each by
+    ``dataclasses.replace``) and one set of weights."""
+    jcfg = dataclasses.replace(jreduced(jget_config(arch), n_layers=n_layers),
+                               **replace)
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=n_layers),
+                              **replace)
     jparams = jlm.init(jax.random.PRNGKey(0), jcfg)
     # non-zero biases and norm scales, so every parameter takes part
     jparams = jax.tree_util.tree_map(
@@ -59,6 +65,31 @@ def test_paged_decode_matches_jax_across_pages(arch):
                                 device="cpu")
     for t in range(11):                       # crosses pages at 4 and 8
         tok = rng.randint(0, cfg.vocab_size, 3)
+        jl, tl, jpools, pools = _step_both(jcfg, cfg, jparams, params,
+                                           jpools, pools, tok, start + t, pt,
+                                           page)
+        np.testing.assert_allclose(tl, jl, **TOL)
+    for kv in ("k", "v"):
+        np.testing.assert_allclose(pools[kv].numpy(), np.asarray(jpools[kv]),
+                                   **TOL)
+
+
+def test_paged_decode_matches_jax_at_sixteen_heads_over_one_kv_head():
+    """A reduced dense config with 16 query heads over one kv head (MQA,
+    g = 16: two group tiles of the kernel), which the JAX package serves
+    through its paged decode step."""
+    jcfg, cfg, jparams, params = _setup("qwen1.5-4b", n_heads=16,
+                                        n_kv_heads=1)
+    page, n_pages = 4, 12
+    pt = np.array([[3, 0, 7], [1, 11, 5]], np.int32)
+    start = np.array([0, 3])
+    rng = np.random.RandomState(1)
+    jpools = jpaged.init_pools(jcfg, n_pages=n_pages, page_size=page)
+    pools = paged_lm.init_pools(cfg, n_pages=n_pages, page_size=page,
+                                device="cpu")
+    assert pools["k"].shape[2] == 1                  # one kv head
+    for t in range(7):                       # crosses pages at 4 and 8
+        tok = rng.randint(0, cfg.vocab_size, 2)
         jl, tl, jpools, pools = _step_both(jcfg, cfg, jparams, params,
                                            jpools, pools, tok, start + t, pt,
                                            page)
