@@ -1,6 +1,6 @@
-"""Earlier CUDA-core kernels, built from another checkout, as yardsticks.
+"""Earlier kernels, built from another checkout, as yardsticks.
 
-Three kernels the port has replaced are no longer in this tree:
+Three CUDA-core kernels the port has replaced are no longer in this tree:
 
 * K3's ``csrc/mlstm_scan.cu`` (last in commit df97d3b's parent): one
   block per (batch x head, 64 value columns), the chunks in order inside
@@ -12,6 +12,12 @@ Three kernels the port has replaced are no longer in this tree:
   attention on the CUDA cores, one block per (kv head, sequence), g <= 8
   and d <= 256; replaced for every shape by ``csrc/paged_attention_sm90.cu``.
 
+The four sm90 sources of commit 3933d41 (``flash_attention_sm90.cu``,
+bfloat16 only and TMA layouts only; ``flash_attention_f32_sm90.cu``, d <=
+256; ``paged_attention_sm90.cu``; ``mlstm_scan_sm90.cu``) are the
+yardsticks of the routes that took float16, d > 256 and the own loads
+after it: those routes' earlier shapes must keep their times.
+
 To time them beside the current kernels on one card, unpack commits that
 have them with ``git archive`` into one git-ignored directory and pass it,
 e.g.
@@ -20,14 +26,16 @@ e.g.
   git archive df97d3b^ src/repro_torch/csrc/mlstm_scan.cu | tar -x -C build/base
   git archive 2142486 src/repro_torch/csrc/flash_attention.cu | tar -x -C build/base
   git archive 8d1f884 src/repro_torch/csrc/paged_attention.cu | tar -x -C build/base
+  git archive 3933d41 src/repro_torch/csrc | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
 
-``load(dir)`` builds each of the three sources it finds under
+``load(dir)`` builds every one of those sources it finds under
 ``dir/src/repro_torch/csrc/`` with the port's nvcc flags into
-``build/kernels/`` (keyed by the source's hash) and returns, by name
-(``mlstm_scan``, ``flash_attention``, ``paged_attention``), a function with
-the public wrapper's signature that launches the earlier kernel on CUDA
-tensors the wrapper would accept (K1's: at g <= 8 and d <= 256).
+``build/kernels/`` (keyed by the source's hash; one nvcc each, all at
+once) and returns, by source name, a function with the public wrapper's
+signature that launches the earlier kernel on CUDA tensors it takes (K1's
+CUDA-core kernel: g <= 8 and d <= 256; the sm90 sources: what they took at
+3933d41).
 """
 from __future__ import annotations
 
@@ -42,25 +50,35 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
 
 CSRC = Path("src") / "repro_torch" / "csrc"
 
 
-def _library(src: Path, name: str) -> ctypes.CDLL:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(_build.NVCC_FLAGS).encode())
-    lib = _build.BUILD_DIR / f"{name}_baseline-{digest.hexdigest()[:12]}.so"
-    if not lib.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                               str(tmp), str(src)], capture_output=True,
-                              text=True)
-        if done.returncode:
-            raise RuntimeError(f"baselines: nvcc failed on {src}:\n"
-                               f"{done.stdout}{done.stderr}")
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+def _libraries(srcs: Dict[str, Path]) -> Dict[str, ctypes.CDLL]:
+    """Each source's library, built where missing, one nvcc each, all at
+    once."""
+    libs, procs = {}, {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name, src in srcs.items():
+        digest = hashlib.sha1(src.read_bytes()
+                              + " ".join(_build.NVCC_FLAGS).encode())
+        libs[name] = _build.BUILD_DIR / (f"{name}_baseline-"
+                                         f"{digest.hexdigest()[:12]}.so")
+        if not libs[name].exists():
+            tmp = libs[name].with_name(f"{libs[name].name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"baselines: nvcc failed on {srcs[name]}:\n"
+                               f"{out}")
+        os.replace(tmp, libs[name])
+    return {name: ctypes.CDLL(str(lib)) for name, lib in libs.items()}
 
 
 def _check(err: int, name: str) -> None:
@@ -142,18 +160,75 @@ def _paged_attention(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
     return run
 
 
+def _flash_attention_sm90(name: str):
+    """Commit 3933d41's two K2 sources (``name``), whose C entries took no
+    dtype and no unit: bfloat16 by TMA, or float32 at d <= 256."""
+    def wrap(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+        def run(q, k, v, *, causal: bool = True, window: int = 0,
+                softcap: float = 0.0) -> torch.Tensor:
+            B, Hq, Sq, d = q.shape
+            Hkv, Sk = k.shape[1], k.shape[2]
+            out = torch.empty_like(q)
+            strides = (ctypes.c_longlong * 12)(
+                *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+            _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), ctypes.addressof(strides), B, Hq, Hkv,
+                      Sq, Sk, d, int(causal), window, 1.0 / math.sqrt(d),
+                      float(softcap), q.device.index,
+                      torch.cuda.current_stream(q.device).cuda_stream), name)
+            return out
+
+        return run
+    return wrap
+
+
+def _paged_attention_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
+    """Commit 3933d41's K1, whose C entry the wrapper's call still fits."""
+    fn = lib.paged_attention_sm90_launch
+    fn.argtypes, fn.restype = pa_ops.LAUNCH_ARGTYPES, ctypes.c_int
+
+    def run(q, k_pages, v_pages, page_table, lengths, *,
+            softcap: float = 0.0) -> torch.Tensor:
+        return pa_ops._run_sm90(q, k_pages, v_pages, page_table, lengths,
+                                softcap, launcher=fn)
+
+    return run
+
+
+def _mlstm_scan_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
+    """Commit 3933d41's K3, whose C entry the wrapper's call still fits."""
+    fn = lib.mlstm_scan_sm90_launch
+    fn.argtypes, fn.restype = ml_ops.LAUNCH_ARGTYPES, ctypes.c_int
+
+    def run(q, k, v, lf, li, *, chunk: int = 128) -> torch.Tensor:
+        return ml_ops._run_sm90(q, k, v, lf, li, min(chunk, q.shape[2]),
+                                launcher=fn)
+
+    return run
+
+
 _KERNELS = {"mlstm_scan": _mlstm_scan, "flash_attention": _flash_attention,
-            "paged_attention": _paged_attention}
+            "paged_attention": _paged_attention,
+            "flash_attention_sm90": _flash_attention_sm90(
+                "flash_attention_sm90"),
+            "flash_attention_f32_sm90": _flash_attention_sm90(
+                "flash_attention_f32_sm90"),
+            "paged_attention_sm90": _paged_attention_sm90,
+            "mlstm_scan_sm90": _mlstm_scan_sm90}
 
 
 def load(checkout: str) -> Dict[str, Callable[..., torch.Tensor]]:
-    """The earlier kernels whose sources lie under ``checkout``, by name;
-    raises if there is none."""
-    found = {}
-    for name, wrap in _KERNELS.items():
-        src = Path(checkout) / CSRC / f"{name}.cu"
-        if src.exists():
-            found[name] = wrap(_library(src, name))
+    """The earlier kernels whose sources lie under ``checkout``, by source
+    name; raises if there is none."""
+    srcs = {name: Path(checkout) / CSRC / f"{name}.cu" for name in _KERNELS}
+    libs = _libraries({n: s for n, s in srcs.items() if s.exists()})
+    found = {name: _KERNELS[name](lib) for name, lib in libs.items()}
     if not found:
         raise FileNotFoundError(
             f"baselines: none of {', '.join(f'{n}.cu' for n in _KERNELS)} "

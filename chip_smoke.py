@@ -31,23 +31,37 @@ Phases (any failure exits non-zero):
              split, beside SDPA and the bound (bytes, or the f32 CUDA-core
              flops where larger); with --baseline-src, the earlier CUDA-core
              kernel (csrc/paged_attention.cu) at the serving shape.
-             K2 flash attention has two routes, by dtype: bf16 goes to the
-             wgmma/TMA kernel (csrc/flash_attention_sm90.cu), f32 to the
-             3xTF32 wgmma kernel (csrc/flash_attention_f32_sm90.cu). Both
-             are held against the plain version on the tests/test_kernels.py
-             sweep, gemma2's widths (d=256, softcap 50), ragged tails,
-             strided (B,S,H,d) views and rows that see no key (against each
-             kernel's own tiles); the f32 route also on k, v off 16-byte
-             alignment and d=37. At the forward shape (B=2, H=20, S=4096,
-             d=128, causal) the bf16 kernel prints its TFLOP/s, registers,
-             shared memory and spills beside SDPA; then the same inputs in
-             f32 go through the f32 route, held against the plain version
+             K2 flash attention has two routes, by dtype: bf16 and f16 go
+             to the 2-byte wgmma kernel (csrc/flash_attention_sm90.cu; TMA,
+             or the producers' own loads where TMA cannot read a tensor),
+             f32 to the 3xTF32 wgmma kernel (csrc/flash_attention_f32_sm90
+             .cu); both take any head dim (past 256 in slices of the
+             output). All three types are held against the plain version
+             on the tests/test_kernels.py sweep, gemma2's widths (d=256,
+             softcap 50), ragged tails, strided (B,S,H,d) views, rows that
+             see no key (against each kernel's own tiles, at d=64 and 320)
+             and d=288, 320, 512 and 1024; the f32 route also on k, v off
+             16-byte alignment and d=37; the 2-byte route (bf16, f16) at
+             d=37, 40, 72, 100 and 330, contiguous, 2 bytes off 16-byte
+             alignment and as views of rows of d+1 (every own-load unit
+             must run). At the forward shape (B=2, H=20, S=4096, d=128,
+             causal) the bf16 kernel prints its TFLOP/s, registers, shared
+             memory and spills beside SDPA; the same inputs in f16 are
+             timed beside SDPA is_causal on them and the bound; then in f32
+             they go through the f32 route, held against the plain version
              and a float64 plain run (the yardstick of f32 rounding), timed
              as one eager call and in device time from CUDA-graph replays
              beside SDPA on them, the earlier CUDA-core kernel (with
              --baseline-src), its bound at the 3xTF32 rate (the record's
              bound_ms) and at the f32 rate, with the f32 kernel's
-             registers and spills.
+             registers and spills. With --baseline-src holding commit
+             3933d41's sources, the bf16 and f32 routes, K1 at the serving
+             shape and K3 at the layer shape are timed in turns beside them
+             (device ms). FLASH_SHAPES times d=512 and SigLIP-so400m's
+             d=72 (by TMA and by the own loads) on every route. K1 and K3
+             are also held in f16 (K1 at the serving shape and Qwen3-235B-
+             A22B's group, K3 on the sweep and at the layer shape) and
+             timed there.
 3. small   — the reduced models, kernel path on the card against the plain
              path on the CPU from the same weights: the serving example
              (same generated tokens) and a 2-layer Qwen forward with
@@ -64,15 +78,16 @@ Phases (any failure exits non-zero):
              per layer per forward, every launch through the bf16 route,
              K2 at the first and last layer is held
              against the plain version, and the logits and loss against a
-             forward with the plain attention. Then the same in float32
-             (``RunConfig(compute_dtype="float32", use_pallas=True)``, all
-             40 layers): exactly 40 K2 launches per forward, all on the f32
-             route, the first and last layers' attention at the f32
-             tolerance, the logits against a plain-path f32 run at the f32
-             tolerance with the rtol of the largest |logit|; forward+loss ms
-             (median of 3 after a warm-up), peak memory and one profiled
+             forward with the plain attention. Then the same in float16
+             and in float32 (``RunConfig(compute_dtype=..., use_pallas=
+             True)``, all 40 layers): exactly 40 K2 launches per forward,
+             all on that type's route, the first and last layers'
+             attention at its tolerance (f16: atol 1e-3, rtol 2e-3), the
+             logits against a plain-path run of the same type at that
+             tolerance with the rtol of the largest |logit|; forward+loss
+             ms (median of 3 after a warm-up), peak memory and one profiled
              forward. One function, ``phase_forward(params, ms, dtype)``,
-             runs both.
+             runs all three.
 6. kernel bench — ``benchmarks_torch/kernel_bench.py``'s main: K1, K2 and
              K3 at the reference bench's sweeps against their plain
              versions, timed beside their bounds. It is K3's main path: the xLSTM model keeps its
@@ -284,6 +299,9 @@ from repro_torch.train.trainer import Trainer
 
 F32_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_kernels.py
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)
+F16_TOL = dict(atol=1e-3, rtol=2e-3)     # float16: 11 significant bits
+TOLS = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
+        torch.float16: F16_TOL}
 
 SERVE_LAYERS_PER_STEP = 40       # Qwen1.5-4B depth
 SERVE_PAGE, SERVE_PAGES, SERVE_SLOTS = 16, 2048, 32
@@ -366,6 +384,26 @@ def _zero_counts():
     for fn in (ops.paged_attention, fa_ops.flash_attention, ml_ops.mlstm_scan):
         fn.launches = 0
     fa_ops.flash_attention.launches_bf16 = 0
+    fa_ops.flash_attention.launches_f16 = 0
+
+
+def _against_previous(name, fn, previous, tol, **kw):
+    """A kernel beside an earlier build's (``previous``, commit 3933d41's
+    source: benchmarks_torch/baselines.py) on the same inputs: the two
+    outputs at ``tol``, then device ms per call in turns, previous, this,
+    this, previous (CUDA-graph replays). None without a baseline."""
+    if previous is None:
+        return None
+    err = _assert_close(f"{name}: this build vs commit 3933d41's", fn(),
+                        previous(), tol, **kw)
+    t = [_device_ms(f, 10, 5) for f in (previous, fn, fn, previous)]
+    rec = {"source_commit": "3933d41", "max_abs_err_vs_previous": err,
+           "device_ms": t[1:3], "previous_device_ms": [t[0], t[3]],
+           "ratio": (t[1] + t[2]) / (t[0] + t[3])}
+    print(f"[kernels] {name}: device ms this build {t[1]:.4f} / {t[2]:.4f}, "
+          f"commit 3933d41's {t[0]:.4f} / {t[3]:.4f} (ratio "
+          f"{rec['ratio']:.4f})")
+    return rec
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -566,11 +604,12 @@ def _paged_group_shapes(errs, gen):
     return rows
 
 
-def phase_kernels(previous=None):
+def phase_kernels(baseline):
     """K1 against its plain version, timed; returns the serving-shape
-    record. ``previous``: the earlier CUDA-core kernel
-    (benchmarks_torch/baselines.py),
-    timed beside K1 at the serving shape."""
+    record. ``baseline`` (benchmarks_torch/baselines.py, maybe empty): the
+    earlier CUDA-core kernel and commit 3933d41's K1, timed beside K1 at
+    the serving shape."""
+    previous = baseline.get("paged_attention")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     B, H, d, page, n_slots, P = 32, 20, 128, 16, 36, SERVE_PAGES
@@ -612,6 +651,18 @@ def phase_kernels(previous=None):
                        torch.bfloat16)
     _paged_case(errs, "(f) GQA g=4 softcap bf16, length 0", xf,
                 BF16_TOL, softcap=30.0, splits=(None, 1, 2, 3))
+    # float16: the serving shape's inputs, and Qwen3-235B-A22B's group (64
+    # q heads on 4 kv heads) with lengths 0 and 1 among them
+    x16 = [t.half() if t.is_floating_point() else t for t in x]
+    _paged_case(errs, "(j) serving shape f16", x16, F16_TOL,
+                splits=(None, 1, 4))
+    lens_j = torch.randint(1, 16 * 36 + 1, (32,), generator=gen,
+                           device="cuda")
+    lens_j[:2] = torch.tensor([0, 1])
+    _paged_case(errs, "(j) Qwen3-235B-A22B 64/4 d=128 f16",
+                _paged_inputs(gen, 32, 64, 4, 128, 16, 36, SERVE_PAGES,
+                              lens_j, torch.float16), F16_TOL, softcap=30.0,
+                splits=(None, 1))
     bench = {}
     for shape in kernel_bench.PAGED_SHAPES:
         xk, _, _ = kernel_bench.paged_inputs("cuda", *shape)
@@ -633,8 +684,24 @@ def phase_kernels(previous=None):
     print("[kernels] paged_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
-    # timing at the serving shape
+    # timing at the serving shape, in f32 (beside commit 3933d41's K1)
+    # and in f16
     t = _paged_times(x, enable_gqa=False, previous=previous)
+    old = baseline.get("paged_attention_sm90")
+    prev_sm90 = _against_previous(
+        "paged_attention serving shape f32", lambda: ops.paged_attention(*x),
+        None if old is None else (lambda: old(*x)), F32_TOL)
+    t16 = _paged_times(x16, enable_gqa=False)
+    rec16 = {k: t16[k] for k in ("ms", "device_ms", "library_ms",
+                                 "library_device_ms", "bound_ms", "bound_by",
+                                 "pages_per_split")}
+    rec16["max_abs_err"] = errs["(j) serving shape f16 pps=auto"]
+    rec16["plain_ms"] = _time_ms(lambda: paged_attention_ref(*x16), 10)
+    print(f"[kernels] paged_attention serving shape f16: "
+          f"{t16['ms']:.4f} ms eager, {t16['device_ms']:.4f} ms device "
+          f"({t16['bound_share_device_ms']:.3f} of the {t16['bound_ms']:.4f} "
+          f"ms bound, {t16['bound_by']}), sdpa {t16['library_device_ms']:.4f} "
+          f"ms device, plain {rec16['plain_ms']:.4f} ms")
     _, _, keys = _paged_work(x)
     plain_ms = _time_ms(lambda: paged_attention_ref(*x), 10)
     _assert_close("sdpa yardstick",
@@ -657,7 +724,8 @@ def phase_kernels(previous=None):
            "device_ms_one_split": t["device_ms_one_split"],
            "pages_per_split": t["pages_per_split"],
            "stages": t["stages"], "smem_bytes": t["smem_bytes"],
-           "kernel_bench_shapes": bench, "group_shapes": groups}
+           "kernel_bench_shapes": bench, "group_shapes": groups,
+           "previous_sm90": prev_sm90, "f16": rec16}
     prev_s = ""
     if previous is not None:
         rec["previous"] = {"source": "src/repro_torch/csrc/"
@@ -739,33 +807,33 @@ def _build_regs(name):
             sum(int(w) for w in re.findall(r"(\d+) bytes spill", log)))
 
 
-def phase_flash_kernels(baseline=None):
-    """K2 against its plain version, both routes; returns the record, with
-    the earlier CUDA-core f32 kernel timed beside the f32 route where
-    ``baseline`` (``benchmarks_torch/baselines.load``) gives it."""
+def phase_flash_kernels(baseline):
+    """K2 against its plain version, both routes and both 2-byte types;
+    returns the record. ``baseline`` (``benchmarks_torch/baselines.load``,
+    maybe empty): the earlier CUDA-core f32 kernel and commit 3933d41's two
+    sm90 sources, timed beside the routes at the forward shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
+    units = {}
 
     def check(name, x, tol, **kw):
         errs[name] = _assert_close(f"flash_attention {name}",
                                    fa_ops.flash_attention(*x, **kw),
                                    attention_ref(*x, **kw), tol)
+        units[name] = fa_ops._sm90_unit(*x)
 
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+    for dtype, tol in TOLS.items():
         for B, Hq, Hkv, Sq, Sk, d, causal, window, cap in FLASH_SWEEP:
             x = _flash_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype)
             check(f"(b) {str(dtype)[6:]} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
                   f"Sk={Sk} d={d} causal={causal} window={window} "
                   f"softcap={cap}", x, tol, causal=causal, window=window,
                   softcap=cap)
-    check("(c) gemma2 widths d=256 GQA softcap 50 bf16",
-          _flash_inputs(gen, 2, 8, 4, 512, 512, 256, torch.bfloat16),
-          BF16_TOL, softcap=50.0)
-    check("(c) gemma2 widths d=256 GQA softcap 50 f32",
-          _flash_inputs(gen, 2, 8, 4, 512, 512, 256, torch.float32),
-          F32_TOL, softcap=50.0)
+        check(f"(c) gemma2 widths d=256 GQA softcap 50 {str(dtype)[6:]}",
+              _flash_inputs(gen, 2, 8, 4, 512, 512, 256, dtype), tol,
+              softcap=50.0)
     # tails that are no multiple of a tile, and the model's strided views
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+    for dtype, tol in TOLS.items():
         name = str(dtype)[6:]
         check(f"(d) ragged Sq=Sk=200 window 70 d=80 {name}",
               _flash_inputs(gen, 1, 4, 2, 200, 200, 80, dtype), tol,
@@ -778,7 +846,16 @@ def phase_flash_kernels(baseline=None):
         check(f"(d) strided (B,S,H,d) views {name}", views, tol)
         errs[f"(e) rows that see no key, causal Sq=256 Sk=64 window 32 "
              f"{name}"] = _check_no_key_rows(gen, 256, 64, 32, dtype, tol)
-    # the f32 kernel's other loads: rows off 16-byte alignment, d = 37
+        # past d = 256 (slices of the output), both routes
+        for d in (288, 320, 512, 1024):
+            check(f"(h) d={d} GQA causal Sq=Sk=300 {name}",
+                  _flash_inputs(gen, 1, 4, 2, 300, 300, d, dtype), tol)
+        check(f"(h) d=320 non-causal softcap 50 Sq=130 Sk=150 {name}",
+              _flash_inputs(gen, 2, 2, 2, 130, 150, 320, dtype), tol,
+              causal=False, softcap=50.0)
+        errs[f"(h) rows that see no key d=320 {name}"] = _check_no_key_rows(
+            gen, 256, 64, 32, dtype, tol, d=320)
+    # the f32 route's other loads: rows off 16-byte alignment, d = 37
     flat = torch.randn(2 * 100 * 64 + 1, generator=gen, device="cuda")
     q = _flash_inputs(gen, 1, 4, 2, 100, 100, 64, torch.float32)[0]
     check("(f) k, v 4 bytes off 16-byte alignment f32",
@@ -786,8 +863,37 @@ def phase_flash_kernels(baseline=None):
           F32_TOL)
     check("(f) d=37 Sq=130 Sk=70 causal f32",
           _flash_inputs(gen, 1, 2, 1, 130, 70, 37, torch.float32), F32_TOL)
+    # (i) the 2-byte route at head dims off 16 (TMA or the own loads),
+    # bases 2 bytes off 16-byte alignment and strides TMA cannot step
+    for dtype in (torch.bfloat16, torch.float16):
+        name, tol = str(dtype)[6:], TOLS[dtype]
+        for d in (37, 40, 72, 100):
+            check(f"(i) d={d} Sq=130 Sk=70 causal {name}",
+                  _flash_inputs(gen, 1, 4, 2, 130, 70, d, dtype), tol)
+            n = 2 * 256 * d
+            flat = torch.randn(3 * n + 1, generator=gen,
+                               device="cuda").to(dtype)[1:]
+            check(f"(i) d={d} q, k, v 2 bytes off alignment window 50 "
+                  f"{name}", [flat[i * n:(i + 1) * n].view(1, 2, 256, d)
+                              for i in range(3)], tol, window=50)
+            rows = torch.randn(3, 2, 192, 3, d + 1, generator=gen,
+                               device="cuda").to(dtype)[..., :d]
+            check(f"(i) d={d} (B,S,H,d) views of rows of d+1 softcap 30 "
+                  f"{name}", [t.transpose(1, 2) for t in rows], tol,
+                  softcap=30.0)
+        rows = torch.randn(3, 1, 150, 2, 331, generator=gen,
+                           device="cuda").to(dtype)[..., :330]
+        check(f"(i) d=330 views of rows of 331 (own loads, sliced) {name}",
+              [t.transpose(1, 2) for t in rows], tol)
     print("[kernels] flash_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
+    print("[kernels] flash_attention cases by unit (2-byte route: 16 TMA, "
+          "8, 4, 2 own loads of that many bytes; f32: 16- or 4-byte "
+          "copies): " + json.dumps(
+              {u: sum(v == u for v in units.values()) for u in (16, 8, 4, 2)}))
+    if not {8, 4, 2} <= set(units.values()):
+        raise AssertionError(f"flash_attention: an own-load unit never "
+                             f"ran: {sorted(set(units.values()))}")
 
     # (a) the forward's shape: Qwen1.5-4B attention at S=4096
     B, H, S, d = FWD_B, 20, FWD_S, 128
@@ -801,9 +907,14 @@ def phase_flash_kernels(baseline=None):
     _assert_close("sdpa yardstick", sdpa(*x, is_causal=True), want,
                   dict(atol=3e-2, rtol=5e-2))
     del want
-    ms = _time_ms(lambda: fa_ops.flash_attention(*x), 20)
+    fn = lambda: fa_ops.flash_attention(*x)        # noqa: E731
+    ms = _time_ms(fn, 20)
+    dev_ms = _device_ms(fn, 10, 5)
     plain_ms = _time_ms(lambda: attention_ref(*x), 5)
     library_ms = _time_ms(lambda: sdpa(*x, is_causal=True), 20)
+    prev_bf16 = _against_previous(
+        "flash_attention forward shape bf16", fn,
+        _previous(baseline, "flash_attention_sm90", x), BF16_TOL)
     elt = x[0].element_size()
     n_bytes = 4 * B * H * S * d * elt             # q, k, v in; out
     n_flops = kernel_bench.flash_flops(B, H, S, d)
@@ -817,16 +928,39 @@ def phase_flash_kernels(baseline=None):
     kernel_flops = tiles * cfg["block_q"] * cfg["block_k"] * d * 2 * 3
     regs, spills = _build_regs("flash_attention_sm90")
     print(f"[kernels] flash_attention forward shape B={B} H={H} S={S} d={d} "
-          f"bf16 causal: {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s of "
-          f"the function's {n_flops / 1e9:.1f} GFLOP, "
-          f"{kernel_flops / ms / 1e9:.1f} TFLOP/s executed by the kernel: "
+          f"bf16 causal: {ms:.4f} ms eager, {dev_ms:.4f} ms device "
+          f"({n_flops / dev_ms / 1e9:.1f} TFLOP/s of the function's "
+          f"{n_flops / 1e9:.1f} GFLOP, "
+          f"{kernel_flops / dev_ms / 1e9:.1f} TFLOP/s executed by the kernel: "
           f"{kernel_flops / 1e9:.1f} GFLOP with whole diagonal tiles and the "
           f"split P.V), bound {bound:.4f} ms at the bf16 tensor-core peak; "
           f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; max|err| "
-          f"{err_a:.3e}; bf16 kernel: {cfg['block_q']} q rows x "
+          f"{err_a:.3e}; 2-byte kernel: {cfg['block_q']} q rows x "
           f"{cfg['block_k']} keys per tile, 384 threads, registers <= "
           f"{regs} (launch), {cfg['smem_bytes']} B dynamic shared memory, "
-          f"spill bytes {spills}")
+          f"spill bytes {spills} (all instances)")
+
+    # (j) the float16 route at the forward shape: the same inputs in f16
+    xh = [t.half() for t in x]
+    fh = lambda: fa_ops.flash_attention(*xh)       # noqa: E731
+    lib_h = lambda: sdpa(*xh, is_causal=True)      # noqa: E731
+    err_h = _assert_close("flash_attention (j) forward shape f16", fh(),
+                          attention_ref(*xh), F16_TOL)
+    f16 = {"dtype": "float16", "launches": None, "ms": _time_ms(fh, 20),
+           "device_ms": _device_ms(fh, 10, 5),
+           "plain_ms": _time_ms(lambda: attention_ref(*xh), 5),
+           "library_ms": _time_ms(lib_h, 20),
+           "library_device_ms": _device_ms(lib_h, 10, 5),
+           "max_abs_err": err_h, "bound_ms": bound, "bound_by": by,
+           "source": "src/repro_torch/csrc/flash_attention_sm90.cu"}
+    del xh
+    print(f"[kernels] flash_attention forward shape f16 (one P.V product): "
+          f"{f16['ms']:.4f} ms eager, {f16['device_ms']:.4f} ms device "
+          f"({n_flops / f16['device_ms'] / 1e9:.1f} TFLOP/s); sdpa "
+          f"is_causal on the same inputs {f16['library_ms']:.4f} ms eager, "
+          f"{f16['library_device_ms']:.4f} ms device; bound {bound:.4f} ms "
+          f"(the fp16 tensor-core rate, the bf16 one); plain "
+          f"{f16['plain_ms']:.4f} ms; max|err| {err_h:.3e}")
 
     # (g) the f32 route at the forward shape: the same inputs in f32
     xf = [t.float() for t in x]
@@ -847,11 +981,16 @@ def phase_flash_kernels(baseline=None):
            "library_ms": _time_ms(lib, 10),
            "library_device_ms": _device_ms(lib, 10, 5)}
     prev = None
-    if baseline is not None:
-        old = lambda: baseline(*xf)                # noqa: E731
+    old = baseline.get("flash_attention")
+    if old is not None:
         prev = {"max_abs_err_vs_new": _assert_close(
-                    "earlier f32 kernel vs the f32 route", old(), got, F32_TOL),
-                "ms": _time_ms(old, 5), "device_ms": _device_ms(old, 5, 3)}
+                    "earlier f32 kernel vs the f32 route", old(*xf), got,
+                    F32_TOL),
+                "ms": _time_ms(lambda: old(*xf), 5),
+                "device_ms": _device_ms(lambda: old(*xf), 5, 3)}
+    prev_f32 = _against_previous(
+        "flash_attention forward shape f32", fn,
+        _previous(baseline, "flash_attention_f32_sm90", xf), F32_TOL)
     f32["ms_2"] = _time_ms(fn, 20)                 # the route again, last
     f32["device_ms_2"] = _device_ms(fn, 10, 5)
     del xf, got
@@ -863,9 +1002,11 @@ def phase_flash_kernels(baseline=None):
     regs32, spills32 = _build_regs("flash_attention_f32_sm90")
     routes = {
         "bf16": {"dtype": "bfloat16", "launches": None, "ms": ms,
-                 "plain_ms": plain_ms, "max_abs_err": err_a,
-                 "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                 "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "max_abs_err": err_a, "bound_ms": bound, "bound_by": by,
+                 "library_ms": library_ms, "previous_sm90": prev_bf16,
                  "source": "src/repro_torch/csrc/flash_attention_sm90.cu"},
+        "f16": f16,
         "f32": {"dtype": "float32", "launches": None, "ms": f32["ms"],
                 "device_ms": f32["device_ms"], "plain_ms": f32["plain_ms"],
                 "max_abs_err": err_f, "max_abs_err_vs_f64": err_f64,
@@ -873,14 +1014,15 @@ def phase_flash_kernels(baseline=None):
                 "bound_by": tf32_by, "bound_f32_rate_ms": f32_bound,
                 "library_ms": f32["library_ms"],
                 "library_device_ms": f32["library_device_ms"],
-                "earlier_kernel": prev,
+                "earlier_kernel": prev, "previous_sm90": prev_f32,
                 "source": "src/repro_torch/csrc/flash_attention_f32_sm90.cu"}}
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
            "launches": None, "max_abs_err": err_a, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": library_ms, "routes": routes}
+           "library_ms": library_ms, "routes": routes,
+           "shapes": _flash_other_shapes(gen)}
     prev_s = ("not measured (no --baseline-src)" if prev is None else
               f"{prev['ms']:.4f} ms eager, {prev['device_ms']:.4f} ms device")
     print(f"[kernels] flash_attention forward shape f32 (3xTF32 route): "
@@ -899,12 +1041,70 @@ def phase_flash_kernels(baseline=None):
     return rec
 
 
-def _check_no_key_rows(gen, Sq, Sk, window, dtype, tol):
+def _previous(baseline, name, x):
+    """commit 3933d41's K2 source ``name`` on x, or None."""
+    old = baseline.get(name)
+    return None if old is None else (lambda: old(*x))
+
+
+# K2 timed past the forward's shape: a head dim past 256 (the output's
+# slices), and SigLIP-so400m's vision tower (1152 / 16 = 72, 729 patches,
+# no mask) by TMA and by the own loads (rows of 73)
+FLASH_SHAPES = {
+    "d512 B=1 H=8 S=2048 causal": (1, 8, 2048, 512, True, 0),
+    "siglip d72 B=8 H=16 S=729 non-causal": (8, 16, 729, 72, False, 0),
+    "siglip d72 rows of 73 (own loads)": (8, 16, 729, 72, False, 1),
+}
+
+
+def _flash_other_shapes(gen):
+    """K2 at FLASH_SHAPES, every route: device ms beside the bound (the
+    dtype's tensor-core rate; 3xTF32 at the TF32 rate for f32), the plain
+    version and SDPA on the same inputs."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (B, H, S, d, causal, pad) in FLASH_SHAPES.items():
+        for dtype in TOLS:
+            rows = torch.randn(3, B, S, H, d + pad, generator=gen,
+                               device="cuda").to(dtype)[..., :d]
+            x = [t.transpose(1, 2) for t in rows]
+            if not pad:
+                x = [t.contiguous() for t in x]
+            fn = lambda: fa_ops.flash_attention(*x, causal=causal)  # noqa
+            lib = lambda: sdpa(*x, is_causal=causal)               # noqa
+            # SDPA's kernels refuse rows off 16-byte alignment: no library
+            # call computes the own-load inputs
+            err = _assert_close(f"flash_attention {name} {dtype}", fn(),
+                                attention_ref(*x, causal=causal),
+                                TOLS[dtype])
+            pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+            n_flops, n_bytes = 4 * d * pairs, 4 * B * H * S * d * \
+                x[0].element_size()
+            f32 = dtype == torch.float32
+            b, by = bound_ms(n_bytes, 3 * n_flops if f32 else n_flops,
+                             TF32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+            r = {"unit": fa_ops._sm90_unit(*x), "max_abs_err": err,
+                 "device_ms": _device_ms(fn, 5, 3),
+                 "plain_ms": _time_ms(lambda: attention_ref(
+                     *x, causal=causal), 3),
+                 "library_device_ms": None if pad else _device_ms(lib, 5, 3),
+                 "bound_ms": b, "bound_by": by}
+            out[f"{name} {str(dtype)[6:]}"] = r
+            lib_s = ("none" if pad else
+                     f"{r['library_device_ms']:.4f} ms device")
+            print(f"[kernels] flash_attention {name} {str(dtype)[6:]} "
+                  f"(unit {r['unit']}): {r['device_ms']:.4f} ms device, "
+                  f"bound {b:.4f} ms ({by}; {b / r['device_ms']:.3f} of "
+                  f"it), sdpa {lib_s}, plain {r['plain_ms']:.4f} ms; "
+                  f"max|err| {err:.3e}")
+    return out
+
+
+def _check_no_key_rows(gen, Sq, Sk, window, dtype, tol, d=64):
     """Causal with a window, Sk < Sq: rows q >= Sk + window - 1 see no key.
     Rows that see one are held against the plain version; the others
     against the kernel's convention, the mean of v over the keys of the
     tiles their q tile visited (or 0 when it visited none)."""
-    d = 64
     x = _flash_inputs(gen, 1, 2, 2, Sq, Sk, d, dtype)
     got = fa_ops.flash_attention(*x, window=window)
     want = attention_ref(*x, window=window).float()
@@ -1012,10 +1212,12 @@ def _k3_edge_cases(rng):
     return cases
 
 
-def phase_mlstm_kernels(baseline=None):
-    """K3 against its plain version; the xLSTM-125m layer shape and the kernel bench's shapes timed, beside the
-    earlier CUDA-core kernel where ``baseline`` (``baselines.load``)
-    gives it. Returns the layer-shape record."""
+def phase_mlstm_kernels(baselines):
+    """K3 against its plain version; the xLSTM-125m layer shape and the
+    kernel bench's shapes timed, beside the earlier CUDA-core kernel and
+    commit 3933d41's K3 where ``baselines`` (``baselines.load``) gives
+    them. Returns the layer-shape record."""
+    baseline = baselines.get("mlstm_scan")
     rng = np.random.RandomState(3)
     errs = {}
 
@@ -1036,6 +1238,8 @@ def phase_mlstm_kernels(baseline=None):
         check(f"(b) f32 {name} vs plain chunk 8", x, chunk, F32_TOL, 8)
         bf = [t.bfloat16() for t in x[:3]] + list(x[3:])
         check(f"(c) bf16 {name}", bf, chunk, BF16_TOL)
+        check(f"(c) f16 {name}", [t.half() for t in x[:3]] + list(x[3:]),
+              chunk, F16_TOL)
     # tests/test_kernels.py:118-131's property inputs and tolerance
     x = kernel_bench.mlstm_inputs(rng, 1, 2, 48, 8, "cuda", (0.3, 0.999), 1.0)
     check("(b) f32 property B=1 H=2 S=48 dh=8 chunk=16 vs plain chunk 48", x,
@@ -1086,6 +1290,12 @@ def phase_mlstm_kernels(baseline=None):
         bound3 = kernel_bench.mlstm_bound_3xtf32(B, H, S, dh, chunk)
         prev = _k3_previous(baseline, x, chunk, fn())
         sfx = "" if chunk == XLSTM_CHUNK else f"_chunk{chunk}"
+        if chunk == XLSTM_CHUNK:
+            old = baselines.get("mlstm_scan_sm90")
+            rec["previous_sm90"] = _against_previous(
+                f"mlstm_scan layer shape f32 chunk {chunk}", fn,
+                None if old is None else (lambda: old(*x, chunk=chunk)),
+                F32_TOL, rtol_of_max=True)
         rec.update({f"max_abs_err{sfx}": err, f"check{sfx}": form,
                     f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
                     f"passes_device_ms{sfx}": passes,
@@ -1105,6 +1315,23 @@ def phase_mlstm_kernels(baseline=None):
         if ms > 2 * bound:
             print(f"[kernels] note: one eager call at chunk {chunk} is "
                   f"under half the f32 bound")
+    # float16 at the layer shape, chunk 256: the same inputs
+    xh = [t.half() for t in x[:3]] + list(x[3:])
+    fh = lambda: ml_ops.mlstm_scan(*xh, chunk=XLSTM_CHUNK)   # noqa: E731
+    rec["f16"] = {"max_abs_err": _assert_close(
+        "mlstm_scan (a) layer shape chunk=256 f16", fh(),
+        mlstm_scan_ref(*xh, chunk=XLSTM_CHUNK), F16_TOL),
+        "ms": _time_ms(fh, 10), "device_ms": _device_ms(fh, 5, 5),
+        "plain_ms": _time_ms(lambda: mlstm_scan_ref(*xh, chunk=XLSTM_CHUNK),
+                             5),
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None}
+    del xh
+    print(f"[kernels] mlstm_scan layer shape chunk={XLSTM_CHUNK} f16: "
+          f"{rec['f16']['ms']:.4f} ms one eager call, device "
+          f"{rec['f16']['device_ms']:.4f} ms; plain "
+          f"{rec['f16']['plain_ms']:.4f} ms; max|err| "
+          f"{rec['f16']['max_abs_err']:.3e}")
     bench = {}
     for B_, H_, S_, dh_, chunk in kernel_bench.MLSTM_SHAPES:
         xb = kernel_bench.mlstm_inputs(np.random.RandomState(0), B_, H_, S_,
@@ -1330,19 +1557,26 @@ def phase_serve():
     return launches, params
 
 
+FWD_ROUTES = {torch.bfloat16: ("bf16", "launches_bf16"),
+              torch.float16: ("f16", "launches_f16"),
+              torch.float32: ("f32", None)}
+
+
 def phase_forward(params, flash_ms, dtype):
     """Full-width, full-depth Qwen1.5-4B: the full-sequence forward and loss
     through ``get_model(cfg).train_loss`` with K2, computed in ``dtype``
     (the same bf16 weights), every attention on that dtype's route; returns
-    K2's launches, all of them and those of the bf16 route. The float32
-    forward is profiled once as well."""
+    K2's launches. The float32 and float16 forwards are profiled once as
+    well."""
     cfg = get_config("qwen1.5-4b")
     bundle = get_model(cfg)
     bf16 = dtype == torch.bfloat16
-    name, tol = ("bf16", BF16_TOL) if bf16 else ("f32", F32_TOL)
+    name, counter = FWD_ROUTES[dtype]
+    tol = TOLS[dtype]
     run = RunConfig(compute_dtype=str(dtype)[6:], use_pallas=True)
     assert run.seq_len == FWD_S
-    gen = torch.Generator(device="cuda").manual_seed(2 if bf16 else 3)
+    gen = torch.Generator(device="cuda").manual_seed(
+        {torch.bfloat16: 2, torch.float32: 3, torch.float16: 4}[dtype])
     toks = torch.randint(0, cfg.vocab_size, (FWD_B, FWD_S + 1), generator=gen,
                          device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -1385,7 +1619,9 @@ def phase_forward(params, flash_ms, dtype):
                                      flash=checked_flash)
         n_fwd += 1
         launches = fa_ops.flash_attention.launches
-        launches_bf16 = fa_ops.flash_attention.launches_bf16
+        on_route = (getattr(fa_ops.flash_attention, counter) if counter
+                    else launches - fa_ops.flash_attention.launches_bf16
+                    - fa_ops.flash_attention.launches_f16)
         if ops.paged_attention.launches:
             raise AssertionError(f"the {name} forward launched "
                                  f"paged_attention")
@@ -1402,10 +1638,9 @@ def phase_forward(params, flash_ms, dtype):
         del logits, plain
         err_loss = _assert_close(f"{name} forward loss vs plain attention",
                                  loss_k, loss_p, tol)
-    if launches != cfg.n_layers * n_fwd or \
-            launches_bf16 != (launches if bf16 else 0):
+    if launches != cfg.n_layers * n_fwd or on_route != launches:
         raise AssertionError(f"{name} forward: flash_attention launches "
-                             f"{launches} (bf16 route {launches_bf16}) != "
+                             f"{launches} ({name} route {on_route}) != "
                              f"{cfg.n_layers} x {n_fwd} forwards, all on the "
                              f"{name} route")
     if len(checked["err"]) != 2:
@@ -1420,7 +1655,7 @@ def phase_forward(params, flash_ms, dtype):
         f"{prof['device_idle_share']:.3f}")
     print(f"[forward] {cfg.name} B={FWD_B} S={FWD_S} {name} use_pallas: "
           f"{n_fwd} forwards, flash_attention launches {launches} "
-          f"({launches // n_fwd} per forward; bf16 route {launches_bf16}); "
+          f"({launches // n_fwd} per forward; {name} route {on_route}); "
           f"loss {float(loss):.6f} (plain attention {float(loss_p):.6f}, "
           f"|err| {err_loss:.3e}); logits vs plain attention max|err| "
           f"{err_logits:.3e} (max |logit| {max_logit:.3f}); K2 vs plain at "
@@ -1432,7 +1667,7 @@ def phase_forward(params, flash_ms, dtype):
           f"{flash_ms:.4f} ms); peak memory {peak / 2**30:.1f} GiB{prof_s}")
     if prof is not None:
         print(json.dumps({f"forward_{name}_profile": prof}))
-    return launches, launches_bf16
+    return launches
 
 
 def phase_kernel_bench():
@@ -3565,11 +3800,12 @@ def main(argv=None):
     ap.add_argument("--sim-cycles", default=f"{SIM_WARMUP},{SIM_CYCLES}",
                     help=argparse.SUPPRESS)
     ap.add_argument("--baseline-src", default=None, metavar="DIR",
-                    help="a directory holding the earlier CUDA-core kernels "
-                         "src/repro_torch/csrc/mlstm_scan.cu (K3), "
-                         "flash_attention.cu (K2's f32 route) and/or "
-                         "paged_attention.cu (K1), each timed beside the "
-                         "kernel that replaced it "
+                    help="a directory holding earlier kernels under "
+                         "src/repro_torch/csrc: the CUDA-core mlstm_scan.cu "
+                         "(K3), flash_attention.cu (K2's f32 route) and "
+                         "paged_attention.cu (K1), and commit 3933d41's four "
+                         "*_sm90.cu sources, each timed beside the kernel "
+                         "that took its place "
                          "(benchmarks_torch/baselines.py)")
     args = ap.parse_args(argv)
     if args.sim_cpu_worker:
@@ -3589,20 +3825,24 @@ def main(argv=None):
         baseline = baselines.load(args.baseline_src)
         print(f"[build] baselines from {args.baseline_src}: "
               f"{sorted(baseline)}")
-    rec_pa = phase_kernels(baseline.get("paged_attention"))
-    rec_fa = phase_flash_kernels(baseline.get("flash_attention"))
-    rec_ml = phase_mlstm_kernels(baseline.get("mlstm_scan"))
+    rec_pa = phase_kernels(baseline)
+    rec_fa = phase_flash_kernels(baseline)
+    rec_ml = phase_mlstm_kernels(baseline)
     phase_small_input()
     phase_small_forward()
     phase_small_xlstm()
     rec_pa["launches"], params = phase_serve()
-    rec_fa["launches"], rec_fa["routes"]["bf16"]["launches"] = \
+    rec_fa["launches"] = rec_fa["routes"]["bf16"]["launches"] = \
         phase_forward(params, rec_fa["ms"], torch.bfloat16)
-    # the f32 route's main path: the same model's float32 forward
+    # the f16 and f32 routes' main paths: the same model's float16 and
+    # float32 forwards
+    f16 = rec_fa["routes"]["f16"]
+    f16["launches"] = f16["forward_launches"] = phase_forward(
+        params, f16["ms"], torch.float16)
     f32 = rec_fa["routes"]["f32"]
     f32["launches"] = f32["forward_launches"] = phase_forward(
-        params, f32["ms"], torch.float32)[0]
-    rec_fa["launches"] += f32["launches"]
+        params, f32["ms"], torch.float32)
+    rec_fa["launches"] += f16["launches"] + f32["launches"]
     del params
     gc.collect()
     torch.cuda.empty_cache()

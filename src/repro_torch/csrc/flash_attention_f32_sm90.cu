@@ -3,8 +3,8 @@
 // float32 online softmax.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention (the
-// Pallas TPU kernel, body `_kernel`) for float32 inputs; bfloat16 inputs go
-// to flash_attention_sm90.cu. Causal, sliding-window and softcapped
+// Pallas TPU kernel, body `_kernel`) for float32 inputs; bfloat16 and
+// float16 inputs go to flash_attention_sm90.cu. Causal, sliding-window and softcapped
 // attention with grouped kv heads:
 //
 //   q    (B, Hq, Sq, d)     k/v (B, Hkv, Sk, d)     out (B, Hq, Sq, d)
@@ -12,7 +12,7 @@
 // each given by (batch, head, seq) strides in elements with a contiguous
 // last dimension, so the caller's (B, S, H, d) -> (B, H, S, d) transposes
 // stay views; q-head h reads kv-head h / g (g = Hq / Hkv), never expanded.
-// Any d up to 256, any Sq, Sk (Sq != Sk) and any strides are taken.
+// Any d, any Sq, Sk (Sq != Sk) and any strides are taken.
 //
 // Semantics follow the TPU kernel: the score is (q.k) / sqrt(d), then the
 // optional tanh softcap, then the mask (causal q_pos >= k_pos with both
@@ -63,8 +63,11 @@
 //   (0, 2, 4, 6, 1, 3, 5, 7), the order in which the split pass writes V^T.
 //   O is rescaled only when a row's max moved.
 //
-// Tiles (q rows x keys): 128 x 32 at d <= 128, 64 x 16 at d = 256; d is
-// padded with zeros to 32, 64, 128 or 256. Shared memory at d = 128: q's lo
+// Tiles (q rows x keys): 128 x 32 at d <= 128, 64 x 16 above; d is padded
+// with zeros to 32, 64, 128 or 256. Past d = 256 a third grid axis cuts the
+// output into slices of 256 columns (flash_attention_f32_wide_kernel): O
+// holds 128 registers a thread at 256 columns, and q in hi and lo fills
+// half the shared memory there already. Shared memory at d = 128: q's lo
 // 64 KiB, K and V^T hi/lo 64 KiB, raw K and V 32 KiB; at d = 256 q's hi and
 // lo 128 KiB, the rest the same. One block per SM.
 //
@@ -369,6 +372,147 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 
+// The score side of one key tile, shared by both kernels. Per warpgroup of
+// 64 q rows: qc0 its first row, row0 this thread's (and row0 + 8), col its
+// first key of each 8.
+struct Score {
+  int Sk, window, qc0, row0, col;
+  bool causal;
+  float softcap, scale_log2, cap_scale, softcap_log2;
+};
+
+__device__ __forceinline__ Score score_params(const Args& a, int qc0, int row0,
+                                              int col) {
+  return {a.Sk, a.window, qc0, row0, col, a.causal != 0, a.softcap,
+          a.scale * kLog2e, a.scale / a.softcap, a.softcap * kLog2e};
+}
+
+// S (sc: 64 rows x BK keys from k0) to P and into O: scores to log2 units,
+// softcap, masks; the online max and sum (m, l); O rescaled where a row's
+// max moved; O += P.V as 3xTF32 products with V^T's hi and lo tiles at v_hi
+// and v_lo, waited for.
+template <int D, int BK>
+__device__ __forceinline__ void softmax_pv(const Score& sp, int k0,
+                                           float (&sc)[BK / 2],
+                                           float (&o)[D / 2], float (&m)[2],
+                                           float (&l)[2], uint32_t v_hi,
+                                           uint32_t v_lo) {
+  constexpr bool kSw64 = BK == 16;              // V^T rows of 64 bytes
+  const int Sk = sp.Sk, window = sp.window, qc0 = sp.qc0, row0 = sp.row0;
+  const int col = sp.col;
+  const bool causal = sp.causal;
+  const float softcap = sp.softcap, scale_log2 = sp.scale_log2;
+  const float cap_scale = sp.cap_scale, softcap_log2 = sp.softcap_log2;
+  // scores to log2 units, softcap, masks; sc[4j + 2i + c] is row row0 +
+  // 8i, key k0 + 8j + col + c
+  if (softcap != 0.f) {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e)
+      sc[e] = softcap_log2 * tanhf(sc[e] * cap_scale);
+  } else {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] *= scale_log2;
+  }
+  if (k0 + BK > Sk || (causal && k0 + BK - 1 > qc0) ||
+      (window > 0 && qc0 + kRows - 1 - k0 >= window)) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kp = k0 + 8 * j + col + c, qp = row0 + 8 * i;
+          float& y = sc[4 * j + 2 * i + c];
+          if (kp >= Sk)
+            y = -INFINITY;
+          else if ((causal && qp < kp) || (window > 0 && qp - kp >= window))
+            y = kMasked;
+        }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+  float corr[2];
+  bool moved = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+    corr[i] = exp2f(m[i] - mx[i]);
+    moved |= mx[i] != m[i];
+    m[i] = mx[i];
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    sc[e] = exp2f(sc[e] - m[(e >> 1) & 1]);
+    rs[(e >> 1) & 1] += sc[e];
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+  if (__any_sync(kFull, moved)) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+  }
+
+  // P as the A fragment of k-step kk: (row g, k t4) = key 2t4, (g + 8,
+  // t4), (g, t4 + 4) = key 2t4 + 1, (g + 8, t4 + 4); hi and lo
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    const float p[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                        sc[4 * kk + 3]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float hi, lo;
+      split(p[r], hi, lo);
+      ph[kk][r] = __float_as_uint(hi);
+      pl[kk][r] = __float_as_uint(lo);
+    }
+  }
+  uint64_t dv_hi = desc(v_hi, kSw64 ? 512 : 1024, kSw64);
+  uint64_t dv_lo = desc(v_lo, kSw64 ? 512 : 1024, kSw64);
+  asm volatile("" : "+l"(dv_hi), "+l"(dv_lo));
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    wgmma_rs(o, pl[kk], dv_hi + 2 * kk);    // + 32 bytes per k-step
+    wgmma_rs(o, ph[kk], dv_lo + 2 * kk);
+    wgmma_rs(o, ph[kk], dv_hi + 2 * kk);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(o);
+}
+
+// out = O / max(l, 1e-30) for this thread's rows, O's columns from col0;
+// rows past Sq and columns past d are not written.
+template <int D>
+__device__ __forceinline__ void store_out(const Args& a, int b, int h,
+                                          const Score& sp, int col0,
+                                          float (&o)[D / 2], float (&l)[2]) {
+  const int dl = a.d - col0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(kFull, lt, 1);
+    lt += __shfl_xor_sync(kFull, lt, 2);
+    lt = fmaxf(lt, 1e-30f);
+    const int qp = sp.row0 + 8 * i;
+    if (qp >= a.Sq) continue;
+    float* orow = a.o + b * a.so[0] + h * a.so[1] + (long long)qp * a.so[2] +
+                  col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int e = 8 * j + sp.col;
+      if (e < dl) orow[e] = o[4 * j + 2 * i] / lt;
+      if (e + 1 < dl) orow[e + 1] = o[4 * j + 2 * i + 1] / lt;
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     flash_attention_f32_kernel(const Args a) {
@@ -457,14 +601,10 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   }
   const int qc0 = q0 + wg * kRows;
   const int row0 = qc0 + 16 * warp + lane / 4;
-  const int col = 2 * (lane % 4);
   const uint32_t q_hi_w = q_hi + wg * (D / 32) * kRows * 128;
   const uint32_t q_lo_w = q_lo + wg * (D / 32) * kRows * 128;
-  const int Sq = a.Sq, window = a.window;
   const bool causal = a.causal;
-  const float softcap = a.softcap, scale_log2 = a.scale * kLog2e;
-  const float cap_scale = a.scale / a.softcap;
-  const float softcap_log2 = a.softcap * kLog2e;
+  const Score sp = score_params(a, qc0, row0, 2 * (lane % 4));
 
   float o[D / 2];
 #pragma unroll
@@ -531,107 +671,131 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     wgmma_wait_all();
     fence_regs(sc);
 
-    // scores to log2 units, softcap, masks; sc[4j + 2i + c] is row row0 +
-    // 8i, key k0 + 8j + col + c
-    if (softcap != 0.f) {
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e)
-        sc[e] = softcap_log2 * tanhf(sc[e] * cap_scale);
-    } else {
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e) sc[e] *= scale_log2;
-    }
-    if (k0 + BK > Sk || (causal && k0 + BK - 1 > qc0) ||
-        (window > 0 && qc0 + kRows - 1 - k0 >= window)) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int kp = k0 + 8 * j + col + c, qp = row0 + 8 * i;
-            float& y = sc[4 * j + 2 * i + c];
-            if (kp >= Sk)
-              y = -INFINITY;
-            else if ((causal && qp < kp) || (window > 0 && qp - kp >= window))
-              y = kMasked;
-          }
-    }
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
-    float corr[2];
-    bool moved = false;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-      corr[i] = exp2f(m[i] - mx[i]);
-      moved |= mx[i] != m[i];
-      m[i] = mx[i];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int e = 0; e < BK / 2; ++e) {
-      sc[e] = exp2f(sc[e] - m[(e >> 1) & 1]);
-      rs[(e >> 1) & 1] += sc[e];
-    }
-    l[0] = l[0] * corr[0] + rs[0];
-    l[1] = l[1] * corr[1] + rs[1];
-    if (__any_sync(kFull, moved)) {
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
-    }
+    softmax_pv<D, BK>(sp, k0, sc, o, m, l, v_hi, v_lo);
+  }
 
-    // P as the A fragment of k-step kk: (row g, k t4) = key 2t4, (g + 8,
-    // t4), (g, t4 + 4) = key 2t4 + 1, (g + 8, t4 + 4); hi and lo
-    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+  store_out<D>(a, b, h, sp, 0, o, l);
+}
+
+// d > 256: the output in slices of kSlice columns (the grid's third axis),
+// 64 q rows and 16 keys per tile as at d = 256, one warpgroup. q and K at
+// full d have no room in shared memory, so for every key tile a block stages
+// them in 64-column chunks, split into hi and lo as they are read (plain
+// loads), and sums S over the chunks; then its own columns of V as V^T in hi
+// and lo, as the d = 256 kernel's split pass lays them out. Every q chunk is
+// split again for every key tile, and S is recomputed once per slice.
+constexpr int kSlice = 256;
+struct Wide {
+  static constexpr int BQ = kRows, BK = 16, NT = 128;
+  static constexpr int kQBytes = BQ * 64 * 4;   // a q chunk, hi or lo
+  static constexpr int kKBytes = BK * 64 * 4;   // a K chunk, hi or lo
+  static constexpr int kVBytes = kSlice * BK * 4;  // V^T, hi or lo
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + 2 * kKBytes;
+  static constexpr int kSmem = kVOff + 2 * kVBytes + 1024;
+};
+
+__global__ void __launch_bounds__(Wide::NT, 1)
+    flash_attention_f32_wide_kernel(const Args a) {
+  constexpr int BQ = Wide::BQ, BK = Wide::BK, NT = Wide::NT, D = kSlice;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_lo = base, q_hi = base + Wide::kQBytes;
+  const uint32_t k_lo = base + Wide::kKOff, k_hi = k_lo + Wide::kKBytes;
+  const uint32_t v_hi = base + Wide::kVOff, v_lo = v_hi + Wide::kVBytes;
+  uint8_t* sm = smem_raw + (base - smem_u32(smem_raw));
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.g;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int col0 = blockIdx.z * kSlice;
+  const float* qg = a.q + b * a.sq[0] + h * a.sq[1];
+  const float* kg = a.k + b * a.sk[0] + hk * a.sk[1];
+  const float* vg = a.v + b * a.sv[0] + hk * a.sv[1];
+  const int dd = a.d, Sk = a.Sk, nc = (dd + 63) / 64;
+  const int q_last = min(q0 + BQ, a.Sq) - 1;
+  const int k_end = a.causal ? min(Sk, q_last + 1) : Sk;
+  const int k_first = (a.window > 0 ? max(0, q0 - a.window + 1) : 0) / BK * BK;
+  const int n_tiles = k_end > k_first ? (k_end - k_first + BK - 1) / BK : 0;
+  const Score sp = score_params(a, q0, q0 + 16 * warp + lane / 4,
+                                2 * (lane % 4));
+  // a chunk's 16-byte unit u of row r (64 floats a row: two chunk tiles of
+  // 32), split
+  auto stage = [&](uint32_t hi_t, uint32_t lo_t, int tile_rows,
+                   const float* row, bool live, int r, int u, int e) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), hi, lo;
+    if (live) {
+      if (e < dd) x.x = row[e];
+      if (e + 1 < dd) x.y = row[e + 1];
+      if (e + 2 < dd) x.z = row[e + 2];
+      if (e + 3 < dd) x.w = row[e + 3];
+    }
+    split4(x, hi, lo);
+    const uint32_t off = (u / 8) * (tile_rows * 128) + sw128(r, u % 8);
+    *reinterpret_cast<float4*>(sm + (hi_t - base) + off) = hi;
+    *reinterpret_cast<float4*>(sm + (lo_t - base) + off) = lo;
+  };
+
+  float o[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      const float p[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
-                          sc[4 * kk + 3]};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float hi, lo;
-        split(p[r], hi, lo);
-        ph[kk][r] = __float_as_uint(hi);
-        pl[kk][r] = __float_as_uint(lo);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * BK;
+    float sc[BK / 2];
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // the products before are done with these tiles
+      for (int i = tid; i < BQ * 16; i += NT) {
+        const int r = i / 16, u = i % 16, qp = q0 + r;
+        stage(q_hi, q_lo, BQ, qg + (long long)qp * a.sq[2], qp < a.Sq, r, u,
+              64 * c + 4 * u);
       }
-    }
-    uint64_t dv_hi = desc(v_hi, kSw64 ? 512 : 1024, kSw64);
-    uint64_t dv_lo = desc(v_lo, kSw64 ? 512 : 1024, kSw64);
-    asm volatile("" : "+l"(dv_hi), "+l"(dv_lo));
-    wgmma_fence();
+      for (int i = tid; i < BK * 16; i += NT) {
+        const int j = i / 16, u = i % 16, kp = k0 + j;
+        stage(k_hi, k_lo, BK, kg + (long long)kp * a.sk[2], kp < Sk, j, u,
+              64 * c + 4 * u);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      uint64_t dq_hi = desc(q_hi, 1024, false), dq_lo = desc(q_lo, 1024, false);
+      uint64_t dk_hi = desc(k_hi, 1024, false), dk_lo = desc(k_lo, 1024, false);
+      asm volatile("" : "+l"(dq_hi), "+l"(dq_lo), "+l"(dk_hi), "+l"(dk_lo));
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      wgmma_rs(o, pl[kk], dv_hi + 2 * kk);    // + 32 bytes per k-step
-      wgmma_rs(o, ph[kk], dv_lo + 2 * kk);
-      wgmma_rs(o, ph[kk], dv_hi + 2 * kk);
+      for (int ks = 0; ks < 8; ++ks) {
+        const uint32_t qa = ((ks / 4) * BQ * 128 + (ks % 4) * 32) >> 4;
+        const uint32_t kb = ((ks / 4) * BK * 128 + (ks % 4) * 32) >> 4;
+        wgmma_ss(sc, dq_lo + qa, dk_hi + kb, c > 0 || ks > 0);
+        wgmma_ss(sc, dq_hi + qa, dk_lo + kb, 1);
+        wgmma_ss(sc, dq_hi + qa, dk_hi + kb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
+    // V^T: row e (a column of this slice), unit w of 4 keys in the order
+    // 8kk + (0, 2, 4, 6) (w = 2kk) or 8kk + (1, 3, 5, 7); the P.V before
+    // was waited for, and every thread is past the last chunk's barrier
+    for (int i = tid; i < D * (BK / 4); i += NT) {
+      const int e = i % D, w = i / D, key = k0 + 8 * (w >> 1) + (w & 1);
+      const int ec = col0 + e;
+      float4 x, hi, lo;
+      float* xs = &x.x;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        xs[n] = key + 2 * n < Sk && ec < dd
+                    ? vg[(long long)(key + 2 * n) * a.sv[2] + ec]
+                    : 0.f;
+      split4(x, hi, lo);
+      *reinterpret_cast<float4*>(sm + (v_hi - base) + sw64(e, w)) = hi;
+      *reinterpret_cast<float4*>(sm + (v_lo - base) + sw64(e, w)) = lo;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    softmax_pv<D, BK>(sp, k0, sc, o, m, l, v_hi, v_lo);
   }
-
-  // out = O / max(l, 1e-30); rows past Sq and columns past d not written
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float lt = l[i];
-    lt += __shfl_xor_sync(kFull, lt, 1);
-    lt += __shfl_xor_sync(kFull, lt, 2);
-    lt = fmaxf(lt, 1e-30f);
-    const int qp = row0 + 8 * i;
-    if (qp >= Sq) continue;
-    float* orow = a.o + b * a.so[0] + h * a.so[1] + (long long)qp * a.so[2];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int e = 8 * j + col;
-      if (e < dd) orow[e] = o[4 * j + 2 * i] / lt;
-      if (e + 1 < dd) orow[e + 1] = o[4 * j + 2 * i + 1] / lt;
-    }
-  }
+  store_out<D>(a, b, h, sp, col0, o, l);
 }
 
 template <int D>
@@ -654,25 +818,39 @@ void config(int* block_q, int* block_k, int* smem_bytes) {
 
 }  // namespace
 
-// C entry for ctypes. strides: 12 int64, the (batch, head, seq) strides in
-// elements of q, k, v and out, in that order (the last dimension of each is
-// contiguous). Launches on `stream` of `device` and returns the CUDA error
-// (0 when the launch was accepted); shapes it does not take return
-// cudaErrorInvalidValue without launching.
+// C entry for ctypes; float32 q, k, v and out (dtype 0). strides: 12 int64,
+// the (batch, head, seq) strides in elements of q, k, v and out, in that
+// order (the last dimension of each is contiguous). unit (ops._sm90_unit):
+// 16 copies k and v rows 16 bytes at a time, which needs their bases and
+// every stride of a dimension longer than 1 to be multiples of 16 bytes; 4
+// takes any. Any d >= 1; Sq up to 65,535 q tiles (128 rows at d <= 128, 64
+// above: the grid's second dimension). Launches on `stream` of `device` and
+// returns the CUDA error (0 when the launch was accepted); arguments it does
+// not take return cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
                                                const void* v, void* out,
                                                const long long* strides,
                                                int B, int Hq, int Hkv, int Sq,
                                                int Sk, int d, int causal,
                                                int window, float scale,
-                                               float softcap, int device,
+                                               float softcap, int dtype,
+                                               int unit, int device,
                                                void* stream) {
   const int bq = d <= 128 ? Cfg<128>::BQ : Cfg<256>::BQ;
   const long long n_qt = (Sq + bq - 1) / bq;
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk < 0 ||
-      d <= 0 || d > 256 || window < 0 || n_qt > 65535 ||
-      (long long)B * Hq > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  bool ok = B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk >= 0 &&
+            d > 0 && window >= 0 && n_qt <= 65535 &&
+            (long long)B * Hq <= 0x7fffffffLL && dtype == 0 &&
+            (unit == 16 || unit == 4);
+  const int extent[3] = {B, Hkv, Sk};
+  if (unit == 16) {
+    ok = ok && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0;
+    for (int i = 0; i < 3; ++i)
+      ok = ok && (extent[i] <= 1 ||
+                  (strides[3 + i] % 4 == 0 && strides[6 + i] % 4 == 0));
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a;
@@ -686,11 +864,7 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
     a.sv[i] = strides[6 + i];
     a.so[i] = strides[9 + i];
   }
-  // 16-byte copies need 16-byte aligned rows of k and v
-  bool vec = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  for (int i = 3; i < 9; ++i) vec = vec && strides[i] % 4 == 0;
-  a.vec = vec;
+  a.vec = unit == 16;
   a.Hq = Hq;
   a.g = Hq / Hkv;
   a.Sq = Sq;
@@ -700,16 +874,27 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
   a.window = window;
   a.scale = scale;
   a.softcap = softcap;
-  const dim3 grid((unsigned)(B * Hq), (unsigned)n_qt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kSlice) {
+    constexpr int bytes = Wide::kSmem;
+    err = cudaFuncSetAttribute(flash_attention_f32_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)(B * Hq), (unsigned)n_qt,
+                    (unsigned)((d + kSlice - 1) / kSlice));
+    flash_attention_f32_wide_kernel<<<grid, Wide::NT, bytes, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((unsigned)(B * Hq), (unsigned)n_qt);
   if (d <= 32) return (int)launch<32>(a, grid, s);
   if (d <= 64) return (int)launch<64>(a, grid, s);
   if (d <= 128) return (int)launch<128>(a, grid, s);
   return (int)launch<256>(a, grid, s);
 }
 
-// The launch configuration for head_dim d (1 <= d <= 256): q rows per block,
-// keys per tile, dynamic shared memory bytes.
+// The launch configuration for head_dim d >= 1: q rows per block, keys per
+// tile, dynamic shared memory bytes (d > 256: per slice of the output).
 extern "C" void flash_attention_f32_sm90_config(int d, int* block_q,
                                                 int* block_k,
                                                 int* smem_bytes) {
@@ -719,6 +904,8 @@ extern "C" void flash_attention_f32_sm90_config(int d, int* block_q,
     config<64>(block_q, block_k, smem_bytes);
   else if (d <= 128)
     config<128>(block_q, block_k, smem_bytes);
-  else
+  else if (d <= 256)
     config<256>(block_q, block_k, smem_bytes);
+  else
+    *block_q = Wide::BQ, *block_k = Wide::BK, *smem_bytes = Wide::kSmem;
 }

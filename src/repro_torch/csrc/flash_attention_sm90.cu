@@ -1,35 +1,47 @@
-// Blocked (flash) attention forward for Hopper (sm_90a), bfloat16: bf16
-// tensor-core products (wgmma) fed by TMA, warp-specialised.
+// Blocked (flash) attention forward for Hopper (sm_90a), bfloat16 and
+// float16: 2-byte tensor-core products (wgmma), warp-specialised, fed by TMA
+// or, where TMA cannot read a tensor, by the producer warpgroup's own loads.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention (the
-// Pallas TPU kernel, body `_kernel`) for bfloat16 inputs; float32 inputs keep
-// the CUDA-core kernel of flash_attention.cu, since its tolerance rules out
-// TF32 products. Same function and conventions as that kernel:
+// Pallas TPU kernel, body `_kernel`) for bfloat16 and float16 inputs; float32
+// inputs go to flash_attention_f32_sm90.cu. Same function and conventions as
+// that kernel, which computes in float32 whatever its input type:
 //
 //   q    (B, Hq, Sq, d)     k/v (B, Hkv, Sk, d)     out (B, Hq, Sq, d)
 //
 // given by (batch, head, seq) strides with a contiguous last dimension (the
-// caller's (B, S, H, d) transposes stay views), q-head h reading kv-head
-// h / g. The score is (q.k) / sqrt(d), then the optional tanh softcap, then
-// the causal (q_pos >= k_pos, both from 0) and window (q_pos - k_pos <
-// window) masks write -1e30; keys past Sk score -inf. The online softmax is
-// float32 from -1e30; out = acc / max(l, 1e-30) in bf16. Key tiles wholly
-// outside the band of a 128-row q tile are skipped, so a row that sees no key
-// gets the mean of v over the keys of the tiles its q tile visited, or 0.
+// caller's (B, S, H, d) transposes stay views), any d, any base address,
+// q-head h reading kv-head h / g. The score is (q.k) / sqrt(d), then the
+// optional tanh softcap, then the causal (q_pos >= k_pos, both from 0) and
+// window (q_pos - k_pos < window) masks write -1e30; keys past Sk score
+// -inf. The online softmax is float32 from -1e30; out = acc / max(l, 1e-30)
+// in the input's type. Key tiles wholly outside the band of a 128-row q tile
+// are skipped, so a row that sees no key gets the mean of v over the keys of
+// the tiles its q tile visited, or 0.
 //
 // Bound: at the model's shape (S = 4096, d = 128, causal) the work is 4 d
 // operations per visible (q, k) pair, far above the bytes of q, k, v and out,
-// so the bf16 tensor-core rate bounds it. The design feeds the tensor cores:
+// so the 2-byte tensor-core rate bounds it. The design feeds the tensor cores:
 //
 // * One block per (b*Hq + h, 128-row q tile), heaviest causal tiles first.
-//   384 threads: a producer warpgroup (its registers cut to 24 by setmaxnreg)
-//   and two consumer warpgroups (240 registers), each owning 64 q rows.
+//   384 threads: a producer warpgroup (its registers cut to 24 by setmaxnreg;
+//   40 where it loads on its own) and two consumer warpgroups (240
+//   registers; 232), each owning 64 q rows.
 // * TMA. Host-built 4-D tensor maps over (d, S, H, B) read the strided views
 //   as they are, in 64-column boxes with the 128-byte swizzle; rows and keys
 //   out of bounds arrive as zeros. q is loaded once; K and V tiles (128 keys
 //   at d <= 128, 64 at d = 256) go through a 2-stage ring, each with its own
 //   full and empty mbarriers: Q.K^T starts before V lands, and a K buffer is
 //   refilled as soon as its product is done. One thread issues every copy.
+// * Own loads. TMA needs a 16-byte aligned base and strides that are
+//   multiples of 16 bytes. Where a tensor breaks that (a view off alignment,
+//   a row of d = 37 or 100 elements), the producer warpgroup's 128 threads
+//   fill the same boxes in the same swizzled layout by plain loads of the
+//   widest unit (8, 4 or 2 bytes) that every base, stride and row allows
+//   (`unit`, ops._sm90_unit), zeros past d and past the sequence; then a
+//   proxy fence (wgmma reads shared memory through the async proxy) and one
+//   arrive each on the stage's full barrier (128 arrivals, not one
+//   expect_tx). The consumers do not know which filled a stage.
 // * S = Q.K^T: wgmma m64n{BK}k16, both operands from shared memory (K is
 //   K-major as stored), f32 accumulators in registers. The softmax runs on
 //   the accumulator fragment in log2 units (ex2): row max and sum across the
@@ -37,21 +49,37 @@
 //   diagonal, the window edge or Sk.
 // * O += P.V: wgmma with P in registers (the S fragment is the A fragment,
 //   converted in place) and V from shared memory as an MN-major operand (the
-//   descriptor's transpose bit). P goes in two bf16 parts, P_hi = bf16(p) and
-//   P_lo = bf16(p - P_hi), two products into one f32 accumulator: with a
-//   single rounding of P, gemma2's widths (d = 256, softcap 50) reached 1.1x
-//   the bf16 tolerance (atol 2e-3, rtol 2e-2) against the float32 plain
-//   version; the split stays under a third of it. It costs 1.5x the
-//   function's operations. l is summed from the f32 p.
+//   descriptor's transpose bit). bfloat16: P goes in two parts, P_hi =
+//   bf16(p) and P_lo = bf16(p - P_hi), two products into one f32
+//   accumulator: with a single rounding of P, gemma2's widths (d = 256,
+//   softcap 50) reached 1.1x the bf16 tolerance (atol 2e-3, rtol 2e-2)
+//   against the float32 plain version; the split stays under a third of it
+//   and costs 1.5x the function's operations. float16: one product of P =
+//   f16(p). Its 11 significant bits keep a single rounding within 0.39 of
+//   the float16 bar (atol 1e-3, rtol 2e-3) of the Pallas kernel on the test
+//   sweep and gemma2's widths, where the split reaches 0.36
+//   (tests/test_torch_flash_attention.py), so the split would buy nothing.
+//   l is summed from the f32 p.
 // * Schedule. A warpgroup issues P.V of one tile and S of the next back to
 //   back and waits for both once; the two warpgroups take turns at that (two
 //   named barriers), so one's softmax runs while the other's products do.
-// * Epilogue: O / max(l, 1e-30) to bf16, plain stores into q's layout; rows
-//   past Sq are not written.
+// * Epilogue: O / max(l, 1e-30) to the input's type, plain stores into q's
+//   layout (pairs where out's base, strides and d allow 4-byte stores); rows
+//   past Sq and columns past d are not written.
+// * d > 256 (`kWide`). The O accumulator takes D/2 f32 registers a thread,
+//   and q with its K/V ring fills shared memory already at d = 256, so a
+//   third grid axis cuts the output into slices of 256 columns. A block
+//   streams q and K in 64-column chunks through a 4-stage ring (a 128 x 64 q
+//   chunk beside a 64 x 64 K chunk per stage) and sums S over the chunks,
+//   then applies P to its own 256 columns of V (a 2-stage ring of 64 x 256
+//   tiles). S is recomputed once per slice: 1.5x the function's operations
+//   at d = 512. The tiles are d = 256's (128 q rows, 64 keys); the
+//   warpgroups do not take turns.
 //
 // Two things ptxas punishes here: an S accumulator carried across loop
 // iterations makes it serialize every wgmma (warning C7515), so S is fresh
-// in each iteration; and branches on kernel parameters inside the unrolled
+// in each iteration (the wide kernel's chunk loop carries it, and waits for
+// each chunk anyway); and branches on kernel parameters inside the unrolled
 // score loop (softcap, masks) cost more than the arithmetic, so each is a
 // loop of its own over the fragment.
 //
@@ -59,40 +87,59 @@
 // (FA3's intra-warpgroup pipelining), a persistent grid, clusters, fp8.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kBQ = 128;          // q rows per block
 constexpr int kRows = 64;         // q rows per consumer warpgroup
 constexpr int kThreads = 384;     // producer + two consumer warpgroups
-constexpr int kStages = 2;        // K/V ring depth
+constexpr int kProducers = 128;   // the producer warpgroup's threads
 constexpr int kChunk = 64;        // d columns per TMA box (128 bytes)
 constexpr int kChunkBytes = kChunk * 2;
+constexpr int kSlice = 256;       // output columns per block where d > 256
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
+
 struct Args {
+  const void* src[3];   // q, k, v, for the own loads
+  long long st[3][3];   // their (batch, head, seq) strides, in elements
   void* o;
-  long long so[3];  // out's (batch, head, seq) strides, in elements
+  long long so[3];      // out's (batch, head, seq) strides, in elements
   int Hq, g, Sq, Sk, d, causal, window, n_qt;
+  int unit;             // 16: TMA; 8, 4 or 2: own loads of that many bytes
+  int pairs;            // out takes 4-byte stores of two values
   float scale, softcap;
 };
 
-// D: d rounded up to a multiple of 64 (TMA fills the columns past d with 0).
-template <int D>
+// D: d rounded up to a multiple of 64 (the columns past d are 0), or the
+// output slice (256) where d > 256 (kWide). Byte offsets into shared memory.
+template <int D, bool kWide>
 struct Cfg {
   static constexpr int BK = D <= 128 ? 128 : 64;  // keys per tile
-  static constexpr int NC = D / kChunk;           // 64-column chunks
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = BK * D * 2;   // one K or V tile
+  static constexpr int NC = D / kChunk;           // 64-column chunks of O
+  static constexpr int kKStages = kWide ? 4 : 2;  // K (wide: q and K) ring
+  static constexpr int kVStages = 2;              // V ring
+  static constexpr int kQBytes = kWide ? 0 : kBQ * D * 2;
+  // one K tile, or (wide) a 64-column chunk of q's tile and of K's
+  static constexpr int kKTileBytes = BK * (kWide ? kChunk : D) * 2;
+  static constexpr int kKStageBytes =
+      (kWide ? kBQ * kChunkBytes : 0) + kKTileBytes;
+  static constexpr int kVTileBytes = BK * D * 2;
   static constexpr int kKOff = kQBytes;
-  static constexpr int kVOff = kKOff + kStages * kTileBytes;
-  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  static constexpr int kVOff = kKOff + kKStages * kKStageBytes;
+  static constexpr int kBarOff = kVOff + kVStages * kVTileBytes;
   // + 1024 to align the base to the swizzle atom
-  static constexpr int kSmem = kBarOff + 8 * (1 + 4 * kStages) + 1024;
+  static constexpr int kSmem =
+      kBarOff + 8 * (1 + 2 * kKStages + 2 * kVStages) + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -119,6 +166,8 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
       : "memory");
 }
 
+// Spins on try_wait. (No trap after a count of tries, as K1 has: the
+// counter's register made ptxas serialize the wgmmas at d = 64-256.)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   do {
@@ -142,6 +191,42 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+template <int U>
+using Word = typename std::conditional<
+    U == 8, uint64_t,
+    typename std::conditional<U == 4, uint32_t, uint16_t>::type>::type;
+
+__device__ __forceinline__ void st_shared(uint32_t a, uint16_t w) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a), "h"(w) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, uint32_t w) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(w) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, uint64_t w) {
+  asm volatile("st.shared.b64 [%0], %1;\n" ::"r"(a), "l"(w) : "memory");
+}
+
+// A box of `rows` rows x 64 columns, laid out as TMA's 128-byte swizzle lays
+// it out (16-byte unit u of row r at r * 128 + ((u ^ (r & 7)) << 4)), by the
+// producer warpgroup's own loads of U bytes: src is the box's first element,
+// rs the row stride in bytes, n the rows that exist, lim the bytes of a row
+// before d (a multiple of U; <= 0 or >= 128 where the box is past d or
+// inside it). Zeros elsewhere.
+template <int U>
+__device__ __forceinline__ void own_box(uint32_t dst, const uint8_t* src,
+                                        long long rs, int rows, int n,
+                                        int lim, int pt) {
+  constexpr int kPer = kChunkBytes / U;
+  for (int i = pt; i < rows * kPer; i += kProducers) {
+    const int r = i / kPer, cb = (i - r * kPer) * U;
+    Word<U> w = 0;
+    if (r < n && cb < lim)
+      w = *reinterpret_cast<const Word<U>*>(src + r * rs + cb);
+    st_shared(dst + r * kChunkBytes + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15)),
+              w);
+  }
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
@@ -179,176 +264,196 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two values of T from two floats (round to nearest), as one register, and
+// back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  if constexpr (kHalf<T>) {
+    const __half2 v = __floats2half2_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  if constexpr (kHalf<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&r));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
 }
 
-// D (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major.
+#define FA_ACC32 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" \
+  "}"
+#define FA_OUT32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define FA_ACC64 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define FA_OUT64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define FA_ACC128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, " \
+  "%88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127" \
+  "}"
+#define FA_OUT128(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+  "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+  "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+  "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+  "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+  "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// D (64 x N, f32) (+)= A (64 x 16, smem) * B (16 x N, smem), both K-major;
+// N = 64 or 128, the two types' forms.
+#define FA_SS(ACC, OUT, P, TY)                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n" FA_N "k16.f32." TY "." TY  \
+               " " ACC ", %" FA_A ", %" FA_B ", p, 1, 1, 0, 0;\n}\n"        \
+               : OUT(d)                                                    \
+               : "l"(a), "l"(b), "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+#define FA_N "64"
+#define FA_A "32"
+#define FA_B "33"
+  if constexpr (kHalf<T>)
+    FA_SS(FA_ACC32, FA_OUT32, "34", "f16");
+  else
+    FA_SS(FA_ACC32, FA_OUT32, "34", "bf16");
+#undef FA_N
+#undef FA_A
+#undef FA_B
 }
-
-// D (64 x 128, f32) (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+#define FA_N "128"
+#define FA_A "64"
+#define FA_B "65"
+  if constexpr (kHalf<T>)
+    FA_SS(FA_ACC64, FA_OUT64, "66", "f16");
+  else
+    FA_SS(FA_ACC64, FA_OUT64, "66", "bf16");
+#undef FA_N
+#undef FA_A
+#undef FA_B
 }
+#undef FA_SS
 
-// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
+// D (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem, MN-major);
+// N = 64, 128 or 256.
+#define FA_RS(N, ACC, OUT, A0, A1, A2, A3, B, TY)                           \
+  asm volatile("wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY    \
+               " " ACC ", {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" B         \
+               ", 1, 1, 1, 1;\n"                                            \
+               : OUT(d)                                                    \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kHalf<T>)
+    FA_RS("64", FA_ACC32, FA_OUT32, "32", "33", "34", "35", "36", "f16");
+  else
+    FA_RS("64", FA_ACC32, FA_OUT32, "32", "33", "34", "35", "36", "bf16");
 }
-
-// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kHalf<T>)
+    FA_RS("128", FA_ACC64, FA_OUT64, "64", "65", "66", "67", "68", "f16");
+  else
+    FA_RS("128", FA_ACC64, FA_OUT64, "64", "65", "66", "67", "68", "bf16");
 }
-
-// D (64 x 256, f32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kHalf<T>)
+    FA_RS("256", FA_ACC128, FA_OUT128, "128", "129", "130", "131", "132",
+          "f16");
+  else
+    FA_RS("256", FA_ACC128, FA_OUT128, "128", "129", "130", "131", "132",
+          "bf16");
 }
+#undef FA_RS
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -366,54 +471,150 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
 
 // S (64 x BK) = Q (64 x D) . K^T over d in steps of 16: 32 bytes inside a
 // swizzled 64-column chunk, the next chunk one chunk tile further.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[Cfg<D>::BK / 2],
+template <typename T, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[Cfg<D, false>::BK / 2],
                                          uint32_t q_smem, uint32_t k_smem) {
-  constexpr int BK = Cfg<D>::BK;
+  constexpr int BK = Cfg<D, false>::BK;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t in = (kk % 4) * 32;
-    wgmma_ss(sc,
-             desc_sw128(q_smem + (kk / 4) * kRows * kChunkBytes + in, 16, 1024),
-             desc_sw128(k_smem + (kk / 4) * BK * kChunkBytes + in, 16, 1024),
-             kk > 0);
+    wgmma_ss<T>(sc,
+                desc_sw128(q_smem + (kk / 4) * kRows * kChunkBytes + in, 16,
+                           1024),
+                desc_sw128(k_smem + (kk / 4) * BK * kChunkBytes + in, 16,
+                           1024),
+                kk > 0);
   }
 }
 
 // O (64 x D) += P (64 x BK, registers) . V (BK x D). V is MN-major: 8-key
 // groups 1024 bytes apart (SBO), 64-column chunks one chunk tile apart (LBO).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         uint32_t (&p)[Cfg<D>::BK / 16][4],
+                                         uint32_t (&p)[Cfg<D, false>::BK / 16]
+                                                      [4],
                                          uint32_t v_smem) {
-  constexpr int BK = Cfg<D>::BK;
+  constexpr int BK = Cfg<D, false>::BK;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs(o, p[kk],
-             desc_sw128(v_smem + kk * 16 * kChunkBytes, BK * kChunkBytes,
-                        1024));
+    wgmma_rs<T>(o, p[kk],
+                desc_sw128(v_smem + kk * 16 * kChunkBytes, BK * kChunkBytes,
+                           1024));
 }
 
-template <int D>
+// Fills the rings: q once (not kWide), then per key tile K (kWide: q's and
+// K's 64-column chunks) and V, by TMA (one thread) or by the producer
+// warpgroup's own loads (all 128; `pt` the thread). A stage's full barrier
+// takes one expect_tx arrive (TMA) or an arrive from every producer thread
+// after its stores.
+template <typename T, int D, bool kWide, bool kTma>
+__device__ __forceinline__ void produce(const Args& a, uint32_t base,
+                                        const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int b, int h,
+                                        int hk, int q0, int k_first,
+                                        int n_tiles, int col0, int pt) {
+  using C = Cfg<D, kWide>;
+  constexpr int BK = C::BK;
+  const uint32_t q_full = base + C::kBarOff;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * C::kKStages;
+  const uint32_t k_empty = v_full + 8 * C::kVStages;
+  const uint32_t v_empty = k_empty + 8 * C::kKStages;
+  // a box of 64 columns from column c and `rows` rows from row r of q (0),
+  // k (1) or v (2) into dst
+  auto box = [&](int t, uint32_t dst, uint32_t bar, int c, int r, int rows) {
+    const int hh = t == 0 ? h : hk;
+    if constexpr (kTma) {
+      tma_load(dst, t == 0 ? tq : t == 1 ? tk : tv, bar, c, r, hh, b);
+    } else {
+      const long long* st = a.st[t];
+      const uint8_t* src = static_cast<const uint8_t*>(a.src[t]) +
+                           2 * (b * st[0] + hh * st[1] + r * st[2] + c);
+      const int n = (t == 0 ? a.Sq : a.Sk) - r, lim = 2 * (a.d - c);
+      if (a.unit == 8)
+        own_box<8>(dst, src, 2 * st[2], rows, n, lim, pt);
+      else if (a.unit == 4)
+        own_box<4>(dst, src, 2 * st[2], rows, n, lim, pt);
+      else
+        own_box<2>(dst, src, 2 * st[2], rows, n, lim, pt);
+    }
+  };
+  auto begin = [&](uint32_t bar, uint32_t bytes) {
+    if constexpr (kTma) mbar_expect_tx(bar, bytes);
+  };
+  auto end = [&](uint32_t bar) {
+    if constexpr (!kTma) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(bar);
+    }
+  };
+  if constexpr (!kWide) {
+    begin(q_full, C::kQBytes);
+    for (int c = 0; c < kBQ / kRows; ++c)
+      for (int kb = 0; kb < C::NC; ++kb)
+        box(0, base + (c * C::NC + kb) * kRows * kChunkBytes, q_full,
+            kb * kChunk, q0 + c * kRows, kRows);
+    end(q_full);
+  }
+  const int nc = kWide ? (a.d + kChunk - 1) / kChunk : 1;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * BK;
+    for (int c = 0; c < nc; ++c) {
+      const int n = it * nc + c, s = n % C::kKStages;
+      const uint32_t stage = base + C::kKOff + s * C::kKStageBytes;
+      mbar_wait(k_empty + 8 * s, ((n / C::kKStages) & 1) ^ 1);
+      begin(k_full + 8 * s, C::kKStageBytes);
+      if constexpr (kWide) {
+        for (int r = 0; r < kBQ / kRows; ++r)
+          box(0, stage + r * kRows * kChunkBytes, k_full + 8 * s, c * kChunk,
+              q0 + r * kRows, kRows);
+        box(1, stage + kBQ * kChunkBytes, k_full + 8 * s, c * kChunk, k0, BK);
+      } else {
+        for (int kb = 0; kb < C::NC; ++kb)
+          box(1, stage + kb * BK * kChunkBytes, k_full + 8 * s, kb * kChunk,
+              k0, BK);
+      }
+      end(k_full + 8 * s);
+    }
+    const int s = it % C::kVStages;
+    const uint32_t stage = base + C::kVOff + s * C::kVTileBytes;
+    mbar_wait(v_empty + 8 * s, ((it / C::kVStages) & 1) ^ 1);
+    begin(v_full + 8 * s, C::kVTileBytes);
+    for (int kb = 0; kb < C::NC; ++kb)
+      box(2, stage + kb * BK * kChunkBytes, v_full + 8 * s,
+          col0 + kb * kChunk, k0, BK);
+    end(v_full + 8 * s);
+  }
+}
+
+// kTma: the producers fill the rings by TMA (one thread), else by their own
+// loads (all 128), an instance of its own so that the TMA instance carries
+// none of that code: the own loads need more than 24 registers, so that
+// instance gives its producers 40 and its consumers 232.
+template <typename T, int D, bool kWide, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                             __grid_constant__ const CUtensorMap tk,
                             __grid_constant__ const CUtensorMap tv,
                             const Args a) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kWide>;
   constexpr int BK = C::BK;
+  // float16 takes P as one product, bfloat16 as two (P_hi, P_lo)
+  constexpr int kParts = kHalf<T> ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_full = base + C::kBarOff;
-  const uint32_t k_full = q_full + 8;               // + 8 s
-  const uint32_t v_full = k_full + 8 * kStages;     // + 8 s
-  const uint32_t k_empty = v_full + 8 * kStages;    // + 8 s
-  const uint32_t v_empty = k_empty + 8 * kStages;   // + 8 s
+  const uint32_t k_full = q_full + 8;                  // + 8 s
+  const uint32_t v_full = k_full + 8 * C::kKStages;    // + 8 s
+  const uint32_t k_empty = v_full + 8 * C::kVStages;   // + 8 s
+  const uint32_t v_empty = k_empty + 8 * C::kKStages;  // + 8 s
 
   const int bh = blockIdx.x;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.g;
   const int q0 = (a.n_qt - 1 - (int)blockIdx.y) * kBQ;  // heaviest tiles first
+  const int col0 = kWide ? (int)blockIdx.z * kSlice : 0;
   // the key tiles any row of this q tile can see
   const int q_last = min(q0 + kBQ, a.Sq) - 1;
   const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
@@ -422,11 +623,14 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const int n_tiles = k_end > k_first ? (k_end - k_first + BK - 1) / BK : 0;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full + 8 * s, 1);
-      mbar_init(v_full + 8 * s, 1);
+    constexpr uint32_t fills = kTma ? 1 : kProducers;
+    mbar_init(q_full, fills);
+    for (int s = 0; s < C::kKStages; ++s) {
+      mbar_init(k_full + 8 * s, fills);
       mbar_init(k_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    for (int s = 0; s < C::kVStages; ++s) {
+      mbar_init(v_full + 8 * s, fills);
       mbar_init(v_empty + 8 * s, 2 * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -435,35 +639,17 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // producer: one thread issues every copy
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, C::kQBytes);
-      for (int c = 0; c < kBQ / kRows; ++c)
-        for (int kb = 0; kb < C::NC; ++kb)
-          tma_load(base + (c * C::NC + kb) * kRows * kChunkBytes, &tq, q_full,
-                   kb * kChunk, q0 + c * kRows, h, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        const uint32_t free_phase = ((it / kStages) & 1) ^ 1;
-        const int k0 = k_first + it * BK;
-        mbar_wait(k_empty + 8 * s, free_phase);
-        mbar_expect_tx(k_full + 8 * s, C::kTileBytes);
-        for (int kb = 0; kb < C::NC; ++kb)
-          tma_load(base + C::kKOff + s * C::kTileBytes + kb * BK * kChunkBytes,
-                   &tk, k_full + 8 * s, kb * kChunk, k0, hk, b);
-        mbar_wait(v_empty + 8 * s, free_phase);
-        mbar_expect_tx(v_full + 8 * s, C::kTileBytes);
-        for (int kb = 0; kb < C::NC; ++kb)
-          tma_load(base + C::kVOff + s * C::kTileBytes + kb * BK * kChunkBytes,
-                   &tv, v_full + 8 * s, kb * kChunk, k0, hk, b);
-      }
-    }
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTma ? 24 : 40)
+                 : "memory");
+    if (!kTma || threadIdx.x == 0)
+      produce<T, D, kWide, kTma>(a, base, &tq, &tk, &tv, b, h, hk, q0,
+                                 k_first, n_tiles, col0, threadIdx.x);
     return;
   }
 
   // consumer warpgroup cw owns q rows qc0 .. qc0 + 63
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTma ? 240 : 232)
+               : "memory");
   const int cw = wg - 1;
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
@@ -472,6 +658,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const int row0 = qc0 + 16 * warp + lane / 4;
   const int col = 2 * (lane % 4);
   const uint32_t q_smem = base + cw * C::NC * kRows * kChunkBytes;
+  const int nc = kWide ? (a.d + kChunk - 1) / kChunk : 1;
   // scores are kept in log2 units: y = log2(e) * score. The parameters the
   // score loops use are read into registers once.
   const int Sk = a.Sk, window = a.window;
@@ -489,23 +676,49 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   // time (a loop-carried one makes ptxas serialize every wgmma). A turn
   // spans P.V(it - 1) and S(it): warpgroup 0 takes the first, and each
   // warpgroup passes the turn once per turn it took.
-  mbar_wait(q_full, 0);
-  if (cw == 1 && n_tiles > 0) turn_pass(cw);
+  if constexpr (!kWide) {
+    mbar_wait(q_full, 0);
+    if (cw == 1 && n_tiles > 0) turn_pass(cw);
+  }
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % kStages;
-    const uint32_t phase = (it / kStages) & 1;
+    const int sv = it % C::kVStages;
+    const uint32_t phase_v = (it / C::kVStages) & 1;
     const int k0 = k_first + it * BK;
     float sc[BK / 2];
-    if (it == 0) turn_wait(cw);
-    mbar_wait(k_full + 8 * s, phase);
-    issue_qk<D>(sc, q_smem, base + C::kKOff + s * C::kTileBytes);
-    wgmma_commit();
-    turn_pass(cw);
-    wgmma_wait_all();
-    fence_regs(sc);
-    fence_regs(o);
-    mbar_arrive(k_empty + 8 * s);
-    if (it > 0) mbar_arrive(v_empty + 8 * ((it - 1) % kStages));
+    if constexpr (kWide) {
+      // S over d, a chunk of q and K per stage
+      for (int c = 0; c < nc; ++c) {
+        const int n = it * nc + c, s = n % C::kKStages;
+        const uint32_t stage = base + C::kKOff + s * C::kKStageBytes;
+        mbar_wait(k_full + 8 * s, (n / C::kKStages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          wgmma_ss<T>(sc,
+                      desc_sw128(stage + cw * kRows * kChunkBytes + kk * 32,
+                                 16, 1024),
+                      desc_sw128(stage + kBQ * kChunkBytes + kk * 32, 16,
+                                 1024),
+                      c > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        mbar_arrive(k_empty + 8 * s);
+      }
+      fence_regs(o);
+    } else {
+      const int s = it % C::kKStages;
+      if (it == 0) turn_wait(cw);
+      mbar_wait(k_full + 8 * s, (it / C::kKStages) & 1);
+      issue_qk<T, D>(sc, q_smem, base + C::kKOff + s * C::kKStageBytes);
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(o);
+      mbar_arrive(k_empty + 8 * s);
+    }
+    if (it > 0) mbar_arrive(v_empty + 8 * ((it - 1) % C::kVStages));
 
     // scores to log2 units, softcap, masks, each a loop of its own so the
     // common tile runs one multiply per score; sc[4j + 2i + c] is row
@@ -549,9 +762,10 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       m[i] = mx[i];
     }
 
-    // P in two bf16 parts, laid out as the A fragment of m64nDk16: for keys
-    // 16kk.., register r holds sc[8kk + 2r], sc[8kk + 2r + 1] (row half r & 1)
-    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+    // P in kParts parts of T, laid out as the A fragment of m64nDk16: for
+    // keys 16kk.., register r holds sc[8kk + 2r], sc[8kk + 2r + 1] (row half
+    // r & 1)
+    uint32_t p[kParts][BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
@@ -559,11 +773,11 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
         const int i = r & 1, e = 8 * kk + 2 * r;
         const float p0 = ex2(sc[e] - m[i]), p1 = ex2(sc[e + 1] - m[i]);
         rs[i] += p0 + p1;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const float2 back = __bfloat1622float2(hi);
-        p_hi[kk][r] = pack_bf16(hi);
-        p_lo[kk][r] =
-            pack_bf16(__floats2bfloat162_rn(p0 - back.x, p1 - back.y));
+        p[0][kk][r] = pack2<T>(p0, p1);
+        if constexpr (kParts == 2) {
+          const float2 back = unpack2<T>(p[0][kk][r]);
+          p[1][kk][r] = pack2<T>(p0 - back.x, p1 - back.y);
+        }
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
@@ -575,25 +789,27 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
         o[4 * j + 2 * i + 1] *= corr[i];
       }
 
-    // O += P_hi.V + P_lo.V, waited for with the next tile's S
+    // O += P.V (P_hi.V + P_lo.V for bfloat16), waited for with the next
+    // tile's S
     fence_regs(o);
-    fence_frags(p_hi);
-    fence_frags(p_lo);
-    mbar_wait(v_full + 8 * s, phase);
-    turn_wait(cw);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) fence_frags(p[q]);
+    mbar_wait(v_full + 8 * sv, phase_v);
+    if constexpr (!kWide) turn_wait(cw);
     wgmma_fence();
-    issue_pv<D>(o, p_hi, base + C::kVOff + s * C::kTileBytes);
-    issue_pv<D>(o, p_lo, base + C::kVOff + s * C::kTileBytes);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q)
+      issue_pv<T, D>(o, p[q], base + C::kVOff + sv * C::kVTileBytes);
     wgmma_commit();
   }
   // the last turn: warpgroup 1 has none left to take
-  if (cw == 0 && n_tiles > 0) turn_pass(cw);
+  if (!kWide && cw == 0 && n_tiles > 0) turn_pass(cw);
   wgmma_wait_all();
   fence_regs(o);
 
   // epilogue: rows past Sq and columns past d are not written
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + b * a.so[0] +
-                       h * a.so[1];
+  T* out = static_cast<T*>(a.o) + b * a.so[0] + h * a.so[1] + col0;
+  const int dl = a.d - col0;  // this block's columns before d
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float lt = l[i];
@@ -602,13 +818,20 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     lt = fmaxf(lt, 1e-30f);
     const int qp = row0 + 8 * i;
     if (qp >= a.Sq) continue;
-    __nv_bfloat16* orow = out + (long long)qp * a.so[2];
+    T* orow = out + (long long)qp * a.so[2];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (8 * j + col < a.d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col) =
-            __floats2bfloat162_rn(o[4 * j + 2 * i] / lt,
-                                  o[4 * j + 2 * i + 1] / lt);
+    for (int j = 0; j < D / 8; ++j) {
+      const int e = 8 * j + col;
+      const float x = o[4 * j + 2 * i] / lt, y = o[4 * j + 2 * i + 1] / lt;
+      if (a.pairs) {  // d even: e < d takes e + 1 too
+        if (e < dl)
+          *reinterpret_cast<uint32_t*>(orow + e) = pack2<T>(x, y);
+      } else {
+        const uint32_t xy = pack2<T>(x, y);
+        if (e < dl) reinterpret_cast<uint16_t*>(orow)[e] = xy & 0xffffu;
+        if (e + 1 < dl) reinterpret_cast<uint16_t*>(orow)[e + 1] = xy >> 16;
+      }
+    }
   }
 }
 
@@ -639,10 +862,11 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-D map over (d, S, H, B) of a bf16 tensor with (batch, head, seq)
+// A 4-D map over (d, S, H, B) of a 2-byte tensor with (batch, head, seq)
 // strides `st` (elements), boxes of 64 columns x `rows`, 128-byte swizzle.
-CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
-                int S, int H, int B, const long long* st, int rows) {
+CUresult encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type,
+                const void* ptr, int d, int S, int H, int B,
+                const long long* st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   // a dimension of extent 1 is never stepped: give it any valid stride
@@ -651,71 +875,113 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
       B > 1 ? (cuuint64_t)st[0] * 2 : 16};
   const cuuint32_t box[4] = {kChunk, (cuuint32_t)rows, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const long long* st,
-           int B, int Hkv, const Args& a, cudaStream_t stream) {
-  EncodeTiled fn = encoder();
-  if (!fn) return (int)cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv;
-  CUresult r = encode(fn, &tq, q, a.d, a.Sq, a.Hq, B, st, kRows);
-  if (r == CUDA_SUCCESS)
-    r = encode(fn, &tk, k, a.d, a.Sk > 0 ? a.Sk : 1, Hkv, B, st + 3,
-               Cfg<D>::BK);
-  if (r == CUDA_SUCCESS)
-    r = encode(fn, &tv, v, a.d, a.Sk > 0 ? a.Sk : 1, Hkv, B, st + 6,
-               Cfg<D>::BK);
-  if (r != CUDA_SUCCESS) return -(int)r;
-  constexpr int bytes = Cfg<D>::kSmem;
+template <typename T, int D, bool kWide, bool kTma>
+int launch_k(const CUtensorMap& tq, const CUtensorMap& tk,
+             const CUtensorMap& tv, int B, const Args& a,
+             cudaStream_t stream) {
+  constexpr int bytes = Cfg<D, kWide>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<D>,
+      flash_attention_sm90_kernel<T, D, kWide, kTma>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * a.Hq), (unsigned)a.n_qt);
-  flash_attention_sm90_kernel<D><<<grid, kThreads, bytes, stream>>>(tq, tk, tv,
-                                                                    a);
+  const dim3 grid((unsigned)(B * a.Hq), (unsigned)a.n_qt,
+                  kWide ? (unsigned)((a.d + kSlice - 1) / kSlice) : 1u);
+  flash_attention_sm90_kernel<T, D, kWide, kTma>
+      <<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool kWide>
+int launch(const long long* st, int B, int Hkv, const Args& a,
+           cudaStream_t stream) {
+  // the maps are unused (left zero) where the producers load on their own
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  if (a.unit == 16) {
+    EncodeTiled fn = encoder();
+    if (!fn) return (int)cudaErrorNotSupported;
+    const CUtensorMapDataType type = kHalf<T>
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    constexpr int BK = Cfg<D, kWide>::BK;
+    const int Sk = a.Sk > 0 ? a.Sk : 1;
+    CUresult r = encode(fn, &tq, type, a.src[0], a.d, a.Sq, a.Hq, B, st,
+                        kRows);
+    if (r == CUDA_SUCCESS)
+      r = encode(fn, &tk, type, a.src[1], a.d, Sk, Hkv, B, st + 3, BK);
+    if (r == CUDA_SUCCESS)
+      r = encode(fn, &tv, type, a.src[2], a.d, Sk, Hkv, B, st + 6, BK);
+    if (r != CUDA_SUCCESS) return -(int)r;
+    return launch_k<T, D, kWide, true>(tq, tk, tv, B, a, stream);
+  }
+  return launch_k<T, D, kWide, false>(tq, tk, tv, B, a, stream);
+}
+
+template <typename T>
+int launch_t(const long long* st, int B, int Hkv, const Args& a,
+             cudaStream_t s) {
+  if (a.d > 256) return launch<T, 256, true>(st, B, Hkv, a, s);
+  if (a.d <= 64) return launch<T, 64, false>(st, B, Hkv, a, s);
+  if (a.d <= 128) return launch<T, 128, false>(st, B, Hkv, a, s);
+  return launch<T, 256, false>(st, B, Hkv, a, s);
 }
 
 }  // namespace
 
-// C entry for ctypes; bfloat16 q, k, v and out. strides: 12 int64, the
-// (batch, head, seq) strides in elements of q, k, v and out, in that order
-// (the last dimension of each is contiguous). d must be a multiple of 16 and
-// at most 256; q, k and v 16-byte aligned, with every stride of a dimension
-// longer than 1 a multiple of 8 elements (TMA's rule). Launches on `stream`
-// of `device` and returns 0 when the launch was accepted, a CUDA error, or
-// -CUresult when a tensor map could not be encoded; shapes it does not take
-// return cudaErrorInvalidValue without launching.
+// C entry for ctypes. q, k, v and out of one type, dtype 1 = bfloat16, 2 =
+// float16. strides: 12 int64, the (batch, head, seq) strides in elements of
+// q, k, v and out, in that order (the last dimension of each is
+// contiguous). unit (ops._sm90_unit): 16 reads q, k and v by TMA, which
+// needs each base 16-byte aligned and every stride of a dimension longer
+// than 1 a multiple of 8 elements; 8, 4 or 2 by the producers' own loads of
+// that many bytes, which needs the bases, those strides and d * 2 bytes to
+// be multiples of it. Any d >= 1; Sq up to 65,535 q tiles of 128 rows (the
+// grid's second dimension). Launches on `stream` of `device` and returns 0
+// when the launch was accepted, a CUDA error, or -CUresult when a tensor
+// map could not be encoded; arguments it does not take return
+// cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* out,
                                            const long long* strides, int B,
                                            int Hq, int Hkv, int Sq, int Sk,
                                            int d, int causal, int window,
                                            float scale, float softcap,
-                                           int device, void* stream) {
+                                           int dtype, int unit, int device,
+                                           void* stream) {
   const long long n_qt = (Sq + kBQ - 1) / kBQ;
   bool ok = B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk >= 0 &&
-            d > 0 && d <= 256 && d % 16 == 0 && window >= 0 && n_qt <= 65535 &&
-            (long long)B * Hq <= 0x7fffffffLL;
+            d > 0 && window >= 0 && n_qt <= 65535 &&
+            (long long)B * Hq <= 0x7fffffffLL && (dtype == 1 || dtype == 2) &&
+            (unit == 16 || unit == 8 || unit == 4 || unit == 2) &&
+            (unit == 16 || (2 * d) % unit == 0);
   const void* ptrs[3] = {q, k, v};
   const int extent[3][3] = {{B, Hq, Sq}, {B, Hkv, Sk}, {B, Hkv, Sk}};
   for (int t = 0; t < 3; ++t) {
-    ok = ok && reinterpret_cast<uintptr_t>(ptrs[t]) % 16 == 0;
+    ok = ok && reinterpret_cast<uintptr_t>(ptrs[t]) % unit == 0;
     for (int i = 0; i < 3; ++i)
-      ok = ok && (extent[t][i] <= 1 || strides[3 * t + i] % 8 == 0);
+      ok = ok && (extent[t][i] <= 1 || (2 * strides[3 * t + i]) % unit == 0);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a;
+  for (int t = 0; t < 3; ++t) {
+    a.src[t] = ptrs[t];
+    for (int i = 0; i < 3; ++i) a.st[t][i] = strides[3 * t + i];
+  }
   a.o = out;
-  for (int i = 0; i < 3; ++i) a.so[i] = strides[9 + i];
+  bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 && d % 2 == 0;
+  for (int i = 0; i < 3; ++i) {
+    a.so[i] = strides[9 + i];
+    pairs = pairs && strides[9 + i] % 2 == 0;
+  }
+  a.pairs = pairs;
+  a.unit = unit;
   a.Hq = Hq;
   a.g = Hq / Hkv;
   a.Sq = Sq;
@@ -727,19 +993,19 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   a.scale = scale;
   a.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch<64>(q, k, v, strides, B, Hkv, a, s);
-  if (d <= 128) return launch<128>(q, k, v, strides, B, Hkv, a, s);
-  return launch<256>(q, k, v, strides, B, Hkv, a, s);
+  return dtype == 1 ? launch_t<__nv_bfloat16>(strides, B, Hkv, a, s)
+                    : launch_t<__half>(strides, B, Hkv, a, s);
 }
 
-// The launch configuration for head_dim d (1 <= d <= 256): q rows per block,
-// keys per tile and dynamic shared memory bytes, for the callers' checks and
-// reports.
+// The launch configuration for head_dim d >= 1, either type: q rows per
+// block, keys per tile and dynamic shared memory bytes, for the callers'
+// checks and reports (d > 256: per 256-column slice of the output).
 extern "C" void flash_attention_sm90_config(int d, int* block_q, int* block_k,
                                             int* smem_bytes) {
   *block_q = kBQ;
-  *block_k = d <= 128 ? Cfg<128>::BK : Cfg<256>::BK;
-  *smem_bytes = d <= 64    ? Cfg<64>::kSmem
-                : d <= 128 ? Cfg<128>::kSmem
-                           : Cfg<256>::kSmem;
+  *block_k = d <= 128 ? Cfg<128, false>::BK : Cfg<256, false>::BK;
+  *smem_bytes = d <= 64    ? Cfg<64, false>::kSmem
+                : d <= 128 ? Cfg<128, false>::kSmem
+                : d <= 256 ? Cfg<256, false>::kSmem
+                           : Cfg<256, true>::kSmem;
 }

@@ -1,6 +1,7 @@
 // Chunkwise-parallel stabilized mLSTM forward for Hopper (sm_90a) in the
-// chunk-state form: three passes, float32 or bfloat16 q/k/v, float32 gates,
-// every product on the tensor cores as 3xTF32 with float32 accumulation.
+// chunk-state form: three passes, float32, bfloat16 or float16 q/k/v,
+// float32 gates, every product on the tensor cores as 3xTF32 with float32
+// accumulation.
 //
 // Replaces src/repro/kernels/mlstm_scan/kernel.py::mlstm_scan (the Pallas TPU
 // kernel, body `_kernel`). From a zero state (C = 0, n = 0, m = -40) it
@@ -55,7 +56,7 @@
 //    the states pass's last wave.
 //
 // Passes 2 and 3 stream their operands through shared memory in slices of
-// 32 along the contraction with cp.async (3 and 2 stages); bfloat16 inputs
+// 32 along the contraction with cp.async (3 and 2 stages); 2-byte inputs
 // are widened to float32 on the way in, so the tiles are float32 throughout.
 // Keys above the diagonal are skipped or get weight 0: the TPU kernel's
 // masked weight e^(-1e30 - m_i) is exactly 0 in float32.
@@ -72,6 +73,7 @@
 // fragment loads and splits between barriers, which the outputs pass hides
 // with 16 warps (a 256-thread block, free of spills, was slower).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -174,6 +176,21 @@ __device__ __forceinline__ void load4(float* dst, const __nv_bfloat16* row,
   }
   *reinterpret_cast<float4*>(dst) = f;
 }
+__device__ __forceinline__ void load4(float* dst, const __half* row, int d,
+                                      int lim, bool vec) {
+  float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec && d + 4 <= lim) {
+    const __half2* p = reinterpret_cast<const __half2*>(row + d);
+    const float2 a = __half22float2(p[0]), b = __half22float2(p[1]);
+    f = make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    if (d < lim) f.x = __half2float(row[d]);
+    if (d + 1 < lim) f.y = __half2float(row[d + 1]);
+    if (d + 2 < lim) f.z = __half2float(row[d + 2]);
+    if (d + 3 < lim) f.w = __half2float(row[d + 3]);
+  }
+  *reinterpret_cast<float4*>(dst) = f;
+}
 
 template <typename T>
 __device__ __forceinline__ void store(T* p, float x);
@@ -183,6 +200,10 @@ template <>
 __device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* p,
                                                      float x) {
   *p = __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ void store<__half>(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // Programmatic dependent launch: the states pass lets the outputs pass
@@ -811,9 +832,9 @@ bool aligned(const void* p, long long n) {
 // C entry for ctypes. strides: 15 int64, the (batch, head, seq) strides in
 // elements of q, k, v, lf and li, in that order (the last dimension of q, k
 // and v is contiguous); out is a contiguous (B, H, S, dh) tensor. lf and li
-// are float32; dtype: 0 = float32, 1 = bfloat16 (q, k, v and out). The
-// float32 workspace: scal (4, B*H, S), chunks (3, B*H, S/chunk + 1), and where
-// S/chunk > 1 nst (B*H, S/chunk - 1, 64 nt) and cst (B*H, S/chunk - 1, dh,
+// are float32; dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and
+// out). The float32 workspace: scal (4, B*H, S), chunks (3, B*H, S/chunk +
+// 1), and where S/chunk > 1 nst (B*H, S/chunk - 1, 64 nt) and cst (B*H, S/chunk - 1, dh,
 // 64 nt). The plan (nt: output n tiles per warp, the least of 1, 2, 4, 6, 8
 // with 64 nt >= dh; bn: state columns per block, 128 where 64 nt is a
 // multiple of 128 from 256 up, else 64; smem2, smem3: the dynamic shared
@@ -829,7 +850,7 @@ extern "C" int mlstm_scan_sm90_launch(
     int chunk, int nt, int bn, int smem2, int smem3, float scale, int dtype,
     int passes, int device, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || dh <= 0 || dh > kMaxDh || chunk <= 0 ||
-      chunk > kMaxChunk || S % chunk != 0 || (dtype != 0 && dtype != 1) ||
+      chunk > kMaxChunk || S % chunk != 0 || dtype < 0 || dtype > 2 ||
       (long long)B * H > 0x7fffffffLL ||
       (long long)((chunk + 63) / 64) * (S / chunk) * B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -884,7 +905,11 @@ extern "C" int mlstm_scan_sm90_launch(
   a.nst = nst;
   a.Cst = cst;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = dtype == 0 ? run<float>(a, nt, bn, smem2, smem3, passes, s)
-                   : run<__nv_bfloat16>(a, nt, bn, smem2, smem3, passes, s);
+  if (dtype == 0)
+    err = run<float>(a, nt, bn, smem2, smem3, passes, s);
+  else if (dtype == 1)
+    err = run<__nv_bfloat16>(a, nt, bn, smem2, smem3, passes, s);
+  else
+    err = run<__half>(a, nt, bn, smem2, smem3, passes, s);
   return (int)err;
 }

@@ -1,4 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), float32 or bfloat16 pools:
+// Paged decode attention for Hopper (sm_90a), float32, bfloat16 or float16
+// pools:
 // pages split across blocks (flash-decoding), the query rows of a kv head
 // split into group tiles, pages fed to a shared-memory ring by bulk TMA
 // copies (or by the producer warp's own loads where a bulk copy cannot read
@@ -83,6 +84,7 @@
 //   of latencies (shared loads, shuffles, exp), so warps that waited on
 //   each other at every stage would set the pace instead of the copies.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -169,6 +171,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -177,6 +180,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // 16 bytes of T from shared memory, as floats.
@@ -204,6 +211,21 @@ struct Vec<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              float* f) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __half22float2(h[i]);
       f[2 * i] = t.x;
       f[2 * i + 1] = t.y;
     }
@@ -262,9 +284,9 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // nr rows of row_bytes each from global memory (contiguous, 2-byte
-// aligned, as every float32 or bfloat16 pool is) into shared memory rows of
-// row_stride bytes, the padding zeroed; the producer warp's 32 lanes, 2
-// bytes at a time.
+// aligned, as every float32, bfloat16 or float16 pool is) into shared
+// memory rows of row_stride bytes, the padding zeroed; the producer warp's
+// 32 lanes, 2 bytes at a time.
 __device__ __forceinline__ void load_rows(unsigned char* dst,
                                           const unsigned char* src, int nr,
                                           int row_bytes, int row_stride,
@@ -672,7 +694,7 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
       PA_CASE(8, 1) PA_CASE(8, 2)
     }
   } else {
-    switch (G * 100 + pl.nvl) {  // and bf16
+    switch (G * 100 + pl.nvl) {  // and bf16, f16
       PA_CASE(1, 4) PA_CASE(1, 8)
       PA_CASE(2, 2) PA_CASE(2, 4)
       PA_CASE(4, 1) PA_CASE(4, 2)
@@ -690,7 +712,8 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
 
 }  // namespace
 
-// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16 (q, pools and out).
+// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, pools
+// and out).
 // tile_rows: G, query rows per group tile (ops.tile_rows). pages_per_split
 // >= 1; with n_split = ceil(n_slots / pages_per_split) > 1, ws is float32
 // scratch of B * Hq * n_split * (d + 2). bulk (ops._bulk_copies): 1 fills
@@ -713,7 +736,7 @@ extern "C" int paged_attention_sm90_launch(
   const int row = d * elt;
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
       n_slots <= 0 || P <= 0 || pages_per_split <= 0 ||
-      (dtype != 0 && dtype != 1) || kb % 2 || vb % 2 ||
+      dtype < 0 || dtype > 2 || kb % 2 || vb % 2 ||
       (bulk && (kb % 16 || vb % 16 || row % 16)) ||
       !make_plan(tile_rows, d, page, elt, &pl))
     return (int)cudaErrorInvalidValue;
@@ -747,20 +770,21 @@ extern "C" int paged_attention_sm90_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_t<float>(p, tile_rows, B, Hq, s, pl)
-                    : launch_t<__nv_bfloat16>(p, tile_rows, B, Hq, s, pl);
+  if (dtype == 0) return launch_t<float>(p, tile_rows, B, Hq, s, pl);
+  if (dtype == 1) return launch_t<__nv_bfloat16>(p, tile_rows, B, Hq, s, pl);
+  return launch_t<__half>(p, tile_rows, B, Hq, s, pl);
 }
 
 // The launch plan for tile_rows query rows per group tile, head_dim d,
-// `page` keys per page and dtype (0 float32, 1 bfloat16): 16-byte vectors
-// of a row per lane, keys per ring stage, ring stages and dynamic shared
-// memory bytes. Returns 0 where the kernel does not take the shape.
+// `page` keys per page and dtype (0 float32, 1 bfloat16, 2 float16): 16-byte
+// vectors of a row per lane, keys per ring stage, ring stages and dynamic
+// shared memory bytes. Returns 0 where the kernel does not take the shape.
 extern "C" int paged_attention_sm90_plan(int tile_rows, int d, int page,
                                          int dtype, int* vectors_per_lane,
                                          int* keys_per_stage, int* stages,
                                          int* smem_bytes) {
   Plan pl;
-  if ((dtype != 0 && dtype != 1) ||
+  if (dtype < 0 || dtype > 2 ||
       !make_plan(tile_rows, d, page, dtype == 0 ? 4 : 2, &pl))
     return 0;
   *vectors_per_lane = pl.nvl;

@@ -3,16 +3,21 @@
 A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor goes to
 one of two hand-written kernels, chosen by dtype, or the call raises:
 
-* bfloat16 -> ``csrc/flash_attention_sm90.cu``: wgmma products fed by TMA,
-  for head_dim a multiple of 16 up to 256, with TMA's layout rule
-  (``_sm90_layout_ok``);
+* bfloat16 and float16 -> ``csrc/flash_attention_sm90.cu``: wgmma products
+  fed by TMA where its layout rule holds (``_sm90_layout_ok``), else by the
+  producer warpgroup's own loads (``_sm90_unit``);
 * float32 -> ``csrc/flash_attention_f32_sm90.cu``: every product as three
   TF32 tensor-core products (3xTF32: the float32 tolerance rules out a
-  single TF32 product, not the split one), for any head_dim up to 256
-  (``_check_kernel``) and any strides.
+  single TF32 product, not the split one).
+
+Both take any head_dim (past 256 in slices of 256 output columns, a grid
+axis of their own) and any layout whose last dimension is contiguous. The
+one limit left is the grid's: at most ``MAX_Q_TILES`` q tiles of
+``q_rows_per_block`` rows (``_check_kernel``).
 
 ``flash_attention.launches`` counts the launches of both kernels,
-``flash_attention.launches_bf16`` those of the bfloat16 one.
+``flash_attention.launches_bf16`` and ``flash_attention.launches_f16`` those
+of the 2-byte kernel by type.
 
 The kernels take strides, so q, k, v and the output may be views (the
 model's ``(B, S, H, d) -> (B, H, S, d)`` transposes) as long as the last
@@ -29,10 +34,12 @@ import torch
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-MAX_HEAD_DIM = 256      # gemma2's head_dim
 # the source of each route's kernel, by dtype (csrc/<name>.cu)
 SOURCES = {torch.float32: "flash_attention_f32_sm90",
-           torch.bfloat16: "flash_attention_sm90"}
+           torch.bfloat16: "flash_attention_sm90",
+           torch.float16: "flash_attention_sm90"}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_Q_TILES = 65535     # the grid's second dimension
 
 
 @functools.cache
@@ -42,7 +49,7 @@ def _launcher(dtype: torch.dtype):
     name = SOURCES[dtype]
     fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_int]
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -61,13 +68,42 @@ def kernel_config(dtype: torch.dtype, d: int) -> dict:
                     (x.value for x in vals)))
 
 
+def q_rows_per_block(dtype: torch.dtype, d: int) -> int:
+    """A block's q rows, as ``kernel_config`` gives them: 128, or 64 on the
+    float32 route past d = 128."""
+    return 64 if dtype == torch.float32 and d > 128 else 128
+
+
+def _aligned(t: torch.Tensor, unit: int) -> bool:
+    """The base and the stride of every non-innermost dimension longer than
+    1 are multiples of ``unit`` bytes."""
+    return t.data_ptr() % unit == 0 and all(
+        n <= 1 or (st * t.element_size()) % unit == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
 def _sm90_layout_ok(t: torch.Tensor) -> bool:
-    """TMA's rule for a bfloat16 operand: a 16-byte aligned base, and the
+    """TMA's rule for a 2-byte operand: a 16-byte aligned base, and the
     stride of every non-innermost dimension longer than 1 a multiple of 16
     bytes (8 elements)."""
-    return t.data_ptr() % 16 == 0 and all(
-        n <= 1 or (st * t.element_size()) % 16 == 0
-        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+    return _aligned(t, 16)
+
+
+def _sm90_unit(q, k, v) -> int:
+    """How a kernel reads q, k and v, in bytes per copy (the C entries'
+    ``unit``). 2-byte types: 16 where TMA reads all three
+    (``_sm90_layout_ok``); else the widest of 8, 4 and 2 bytes that every
+    base, every stride of a dimension longer than 1 and a row of d
+    elements are multiples of, for the producer warpgroup's own loads.
+    float32: 16 where k's and v's rows may be copied 16 bytes at a time,
+    else 4."""
+    if q.dtype == torch.float32:
+        return 16 if _aligned(k, 16) and _aligned(v, 16) else 4
+    if all(_sm90_layout_ok(t) for t in (q, k, v)):
+        return 16
+    row = q.shape[-1] * q.element_size()
+    return next(u for u in (8, 4, 2)
+                if row % u == 0 and all(_aligned(t, u) for t in (q, k, v)))
 
 
 def _check(q, k, v, window) -> None:
@@ -77,7 +113,7 @@ def _check(q, k, v, window) -> None:
                              f"q on {q.device}")
     if q.dtype not in SOURCES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
-                        f"(float32, bfloat16)")
+                        f"(float32, bfloat16, float16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share one dtype")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -98,36 +134,36 @@ def _check(q, k, v, window) -> None:
                              f"in its last dimension")
 
 
-def _check_kernel(q, k) -> None:
-    """What only the card's kernels cannot take, checked before a launch
-    (the plain version computes it): head_dim past ``MAX_HEAD_DIM``."""
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} against k/v "
-                         f"{tuple(k.shape)} (the kernels need d <= "
-                         f"{MAX_HEAD_DIM})")
+def _check_kernel(q) -> None:
+    """The one thing the card's kernels cannot take (the plain version
+    computes it): more q tiles than the grid's second dimension holds."""
+    rows = q_rows_per_block(q.dtype, q.shape[-1])
+    if -(-q.shape[2] // rows) > MAX_Q_TILES:
+        raise ValueError(f"flash_attention: Sq={q.shape[2]} is more than "
+                         f"{MAX_Q_TILES} q tiles of {rows} rows (the "
+                         f"kernel's grid)")
 
 
-def _check_sm90(q, k, v) -> None:
-    d = q.shape[-1]
-    if d % 16:
-        raise ValueError(f"flash_attention: the bfloat16 kernel takes "
-                         f"head_dim a multiple of 16 up to {MAX_HEAD_DIM}, "
-                         f"got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _sm90_layout_ok(t):
-            raise ValueError(
-                f"flash_attention: {name} (strides {tuple(t.stride())}, "
-                f"address {t.data_ptr():#x}) does not fit TMA: the bfloat16 "
-                f"kernel needs a 16-byte aligned base and every stride but "
-                f"the last a multiple of 8 elements")
+def _launch_args(q, k, v, out, *, causal, window, softcap) -> tuple:
+    """The C entry's arguments up to the device and stream, and the strides
+    array they point to (the caller keeps it alive through the call)."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    return strides, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), ctypes.addressof(strides), B, Hq, Hkv,
+                     Sq, Sk, d, int(causal), window, 1.0 / math.sqrt(d),
+                     float(softcap), _DTYPE_CODE[q.dtype],
+                     _sm90_unit(q, k, v))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d), one dtype (float32 or
-    bfloat16). Returns (B, Hq, Sq, d). See ``ref.py`` for the semantics.
-    Raises where a gradient is needed (``refuse_grad``)."""
+    """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d), one dtype (float32,
+    bfloat16 or float16). Returns (B, Hq, Sq, d). See ``ref.py`` for the
+    semantics. Raises where a gradient is needed (``refuse_grad``)."""
     refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type == "cpu":
@@ -135,20 +171,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    _check_kernel(q, k)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_sm90(q, k, v)
-    B, Hq, Sq, d = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_kernel(q)
     out = torch.empty_like(q)       # q's strides where q is dense
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ctypes.addressof(strides), B, Hq, Hkv, Sq, Sk, d, int(causal),
-            window, 1.0 / math.sqrt(d), float(softcap))
+    strides, args = _launch_args(q, k, v, out, causal=causal, window=window,
+                                 softcap=softcap)
     err = _launcher(q.dtype)(*args, q.device.index,
                              torch.cuda.current_stream(q.device).cuda_stream)
     if err < 0:
@@ -158,9 +186,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: kernel launch failed with "
                            f"CUDA error {err}")
     flash_attention.launches += 1
-    flash_attention.launches_bf16 += bf16
+    flash_attention.launches_bf16 += q.dtype == torch.bfloat16
+    flash_attention.launches_f16 += q.dtype == torch.float16
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_bf16 = 0
+flash_attention.launches_f16 = 0

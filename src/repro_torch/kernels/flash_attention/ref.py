@@ -1,8 +1,9 @@
 """Plain PyTorch version of blocked (flash) attention.
 
 Computes what the CUDA kernels (``csrc/flash_attention_f32_sm90.cu`` for
-float32, ``csrc/flash_attention_sm90.cu`` for bfloat16) compute, with the
-reference Pallas kernel's conventions:
+float32, ``csrc/flash_attention_sm90.cu`` for bfloat16 and float16)
+compute, with the reference Pallas kernel's conventions (float32 math
+whatever the input type, the output in q's type):
 
 * the scale is ``1/sqrt(d)``, then an optional tanh softcap, then the mask;
 * the causal mask keeps ``q_pos >= k_pos`` with both positions counted
@@ -17,8 +18,8 @@ the Pallas kernel differs from its own oracle there: this version gives
 the mean of ``v`` over every key, a kernel the mean over the keys (those
 below Sk) of the key tiles its q tile visited, or 0 when it visited none.
 That depends on the tiles (q rows x keys): float32 128 x 32 at head_dim
-<= 128, 64 x 16 above; bfloat16 128 x 128 at head_dim <= 128, 128 x 64
-above (``ops.kernel_config``).
+<= 128, 64 x 16 above; bfloat16 and float16 128 x 128 at head_dim <= 128,
+128 x 64 above (``ops.kernel_config``).
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 512      # 8 warps x 8 n tiles of output columns
 MAX_CHUNK = 256         # one scalar-pass thread per chunk row
 OUTPUT_TILES = (1, 2, 4, 6, 8)  # output n tiles per warp: 64 x this >= dh
@@ -57,13 +57,17 @@ def plan(S: int, dh: int, chunk: int) -> dict:
                                  + OUT_THREADS // 64 * ROWS + ROWS)}
 
 
+# the C entry's arguments (csrc/mlstm_scan_sm90.cu)
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+
+
 @functools.cache
 def _launcher():
     from repro_torch.kernels import _build
     fn = _build.load("mlstm_scan_sm90").mlstm_scan_sm90_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
+    fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,7 +80,7 @@ def _check(q, k, v, lf, li, chunk) -> int:
                              f"{q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"mlstm_scan: dtype {q.dtype} not supported "
-                        f"(float32, bfloat16)")
+                        f"(float32, bfloat16, float16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("mlstm_scan: q, k, v must share one dtype")
     if lf.dtype != torch.float32 or li.dtype != torch.float32:
@@ -114,9 +118,9 @@ def _check_kernel(chunk: int, dh: int) -> None:
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lf: torch.Tensor, li: torch.Tensor, *,
                chunk: int = 128) -> torch.Tensor:
-    """q, k, v: (B, H, S, dh), float32 or bfloat16; lf, li: (B, H, S)
-    float32 log-forget and log-input gates. The scan starts from a zero
-    state. Returns h (B, H, S, dh) in q's dtype; see ``ref.py``. Raises
+    """q, k, v: (B, H, S, dh), float32, bfloat16 or float16; lf, li: (B,
+    H, S) float32 log-forget and log-input gates. The scan starts from a
+    zero state. Returns h (B, H, S, dh) in q's dtype; see ``ref.py``. Raises
     where a gradient is needed (``refuse_grad``)."""
     refuse_grad("mlstm_scan", q, k, v, lf, li)
     chunk = _check(q, k, v, lf, li, chunk)
@@ -148,11 +152,13 @@ def workspace(B: int, H: int, S: int, dh: int, chunk: int,
             torch.empty((3, BH, nc + 1), **f32), *states)
 
 
-def _run_sm90(q, k, v, lf, li, chunk, *, ws=None, out=None, passes=7):
+def _run_sm90(q, k, v, lf, li, chunk, *, ws=None, out=None, passes=7,
+              launcher=None):
     """Launches ``csrc/mlstm_scan_sm90.cu`` on checked, non-empty CUDA
     inputs and returns the output. A measurement may pass the workspace
-    and output of an earlier call and a mask of the passes to run (1 the
-    scalars, 2 the states, 4 the outputs)."""
+    and output of an earlier call, a mask of the passes to run (1 the
+    scalars, 2 the states, 4 the outputs) and another build's C entry of
+    the same signature."""
     B, H, S, dh = q.shape
     p = plan(S, dh, chunk)
     ws = ws or workspace(B, H, S, dh, chunk, q.device)
@@ -160,7 +166,7 @@ def _run_sm90(q, k, v, lf, li, chunk, *, ws=None, out=None, passes=7):
         out = torch.empty((B, H, S, dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 15)(
         *(s for t in (q, k, v, lf, li) for s in t.stride()[:3]))
-    err = _launcher()(
+    err = (launcher or _launcher())(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
         li.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
         *(None if t is None else t.data_ptr() for t in ws), B, H, S, dh,

@@ -23,20 +23,24 @@ import torch
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SPLIT_BLOCKS_PER_SM = 4         # blocks _pages_per_split aims to give an SM
 MAX_TILE_ROWS = 8               # query rows of a group tile
 MAX_LANE_FLOATS = 64            # a lane's floats of a tile's q rows
 KERNEL_MAX_HEAD_DIM = 2048      # a row in registers: 16 vectors a lane (f32)
 
 
+# the C entry's arguments (csrc/paged_attention_sm90.cu)
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+
+
 @functools.cache
 def _launcher_sm90():
     from repro_torch.kernels import _build
     fn = _build.load("paged_attention_sm90").paged_attention_sm90_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+    fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -117,7 +121,7 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                              f"q on {dev}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention: dtype {q.dtype} not supported "
-                        f"(float32, bfloat16)")
+                        f"(float32, bfloat16, float16)")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError("paged_attention: q, k_pages, v_pages must share "
                         "one dtype")
@@ -156,8 +160,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Hq, d); pages: (P, Hkv, page, d) of q's dtype (float32 or
-    bfloat16); page_table: (B, n_slots) int32; lengths: (B,) int32.
+    """q: (B, Hq, d); pages: (P, Hkv, page, d) of q's dtype (float32,
+    bfloat16 or float16); page_table: (B, n_slots) int32; lengths: (B,)
+    int32.
 
     Returns (B, Hq, d). See ``ref.py`` for the semantics. Raises where a
     gradient is needed (``refuse_grad``).
@@ -178,10 +183,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
-         pages_per_split=None):
+         pages_per_split=None, launcher=None):
     """Launches ``csrc/paged_attention_sm90.cu`` on checked CUDA inputs
     (B >= 1) and returns the output; ``pages_per_split`` (None:
-    ``_pages_per_split``'s choice) lets a measurement pick the split."""
+    ``_pages_per_split``'s choice) lets a measurement pick the split, and
+    ``launcher`` another build's C entry of the same signature."""
     B, Hq, d = q.shape
     P, Hkv, page, _ = k_pages.shape
     n_slots = page_table.shape[1]
@@ -193,7 +199,7 @@ def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
     n_split = -(-n_slots // pps)
     ws = (torch.empty((B, Hq, n_split, d + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)
-    err = _launcher_sm90()(
+    err = (launcher or _launcher_sm90())(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), B, Hq, Hkv, d, page, n_slots,

@@ -1,12 +1,17 @@
 """Port's flash attention (plain version on the CPU) vs the JAX Pallas kernel
 in interpret mode and its oracle, the port's plain attention functions vs
-the JAX package's, and the wrapper's CPU routing and refusals. Emulations of
-the two tensor-core kernels' arithmetic (bfloat16: csrc/flash_attention_sm90.cu;
-float32, 3xTF32: csrc/flash_attention_f32_sm90.cu) are held against the
-Pallas kernel too, and single-pass TF32 is shown to miss the float32 bar.
-The CUDA kernels themselves are held against the plain version on the card
-by chip_smoke.py."""
+the JAX package's, and the wrapper's CPU routing, refusals and launch
+arguments. Emulations of the two tensor-core kernels' arithmetic (bfloat16
+and float16: csrc/flash_attention_sm90.cu; float32, 3xTF32:
+csrc/flash_attention_f32_sm90.cu), their d > 256 tiling and the 2-byte
+kernel's own loads are held against the Pallas kernel too; single-pass TF32
+is shown to miss the float32 bar, and one float16 rounding of P to meet the
+float16 bar. The CUDA kernels themselves are held against the plain version
+on the card by chip_smoke.py."""
+import ctypes
 import math
+import re
+from pathlib import Path
 
 import pytest
 
@@ -27,8 +32,10 @@ from tf32_split import mm3, tf32
 # tests/test_kernels.py tolerances
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)
+F16_TOL = dict(atol=1e-3, rtol=2e-3)    # float16: 11 significant bits
 DTYPES = {"float32": (jnp.float32, torch.float32, F32_TOL),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL),
+          "float16": (jnp.float16, torch.float16, F16_TOL)}
 SWEEP = [  # tests/test_kernels.py::test_flash_attention_sweep
     (2, 4, 2, 128, 128, 64, True, 0, 0.0),
     (1, 8, 4, 256, 256, 32, True, 64, 0.0),     # sliding window
@@ -107,17 +114,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 4, 2, 64, 64, 32))
     kw = {}
     if bad == "head_dim":
-        # only the card's kernels refuse it, before any launch; the CPU
-        # path computes it (test_head_dim_320_matches_pallas_kernel)
-        q, k = (torch.zeros(1, 2, 8, 320) for _ in range(2))
-        with pytest.raises(ValueError, match="d <= 256"):
-            ops._check_kernel(q, k)
-        ops._check_kernel(q[..., :256], k[..., :256])
+        # every head dim is taken; the one limit left is the grid's, more
+        # than MAX_Q_TILES q tiles, checked before any launch (the CPU path
+        # computes it); meta tensors: only the shape is read
+        for dtype, d, rows in ((torch.bfloat16, 1024, 128),
+                               (torch.float16, 37, 128),
+                               (torch.float32, 128, 128),
+                               (torch.float32, 320, 64)):
+            assert ops.q_rows_per_block(dtype, d) == rows
+            fits = torch.empty(1, 1, ops.MAX_Q_TILES * rows, d,
+                               dtype=dtype, device="meta")
+            ops._check_kernel(fits)
+            with pytest.raises(ValueError, match="q tiles"):
+                ops._check_kernel(torch.empty(
+                    1, 1, ops.MAX_Q_TILES * rows + 1, d, dtype=dtype,
+                    device="meta"))
         return
     if bad == "mixed_device":
         k = k.to("meta")
-    elif bad == "dtype":
-        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "dtype":      # float64 (float16 is taken, as the TPU's is)
+        q, k, v = q.double(), k.double(), v.double()
     elif bad == "mixed_dtype":
         v = v.to(torch.bfloat16)
     elif bad == "group":
@@ -141,15 +157,32 @@ def test_head_dim_320_matches_pallas_kernel(dtype):
     np.testing.assert_allclose(_port(x, tdt, causal=True), want, **tol)
 
 
-# --- the bfloat16 tensor-core kernel: its arithmetic, route and layout rule --
+# --- the 2-byte tensor-core kernel: its arithmetic, tiling, loads, route ----
 
-def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """csrc/flash_attention_sm90.cu's arithmetic in plain PyTorch: bf16 q.k^T
-    summed in f32, then scaled; key tiles of 128 (64 at d > 128); a float32
-    online softmax from -1e30; P.V as two bf16 products, P_hi = bf16(p) and
-    P_lo = bf16(p - P_hi); l summed from the f32 p; bf16 out."""
+def _chunked_qk(q, kt, mm, chunked):
+    """S = Q.K^T; past d = 256 (``chunked``) summed over 64-column chunks of
+    d, in order, as the kernels' wide tiling streams them."""
+    if not chunked:
+        return mm(q, kt.transpose(-1, -2))
+    d = q.shape[-1]
+    s = mm(q[..., :64], kt[..., :64].transpose(-1, -2))
+    for c in range(64, d, 64):
+        s = s + mm(q[..., c:c + 64], kt[..., c:c + 64].transpose(-1, -2))
+    return s
+
+
+def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  parts=None):
+    """csrc/flash_attention_sm90.cu's arithmetic in plain PyTorch: 2-byte
+    q.k^T summed in f32 (past d = 256 over 64-column chunks: the output's
+    256-column slices change no other arithmetic), then scaled; key tiles
+    of 128 (64 at d > 128); a float32 online softmax from -1e30; P.V as
+    two bf16 products for bfloat16, P_hi = bf16(p) and P_lo = bf16(p -
+    P_hi), and one product of P = f16(p) for float16 (``parts`` overrides
+    the number); l summed from the f32 p; out in q's type."""
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    parts = parts or (2 if q.dtype == torch.bfloat16 else 1)
     kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
     vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
     block_k = 128 if d <= 128 else 64
@@ -159,7 +192,7 @@ def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0):
     acc = torch.zeros((B, Hq, Sq, d))
     for k0 in range(0, Sk, block_k):
         kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        s = (q.float() @ kt.transpose(-1, -2)) / math.sqrt(d)
+        s = _chunked_qk(q.float(), kt, torch.matmul, d > 256) / math.sqrt(d)
         if softcap:
             s = softcap * torch.tanh(s / softcap)
         k_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
@@ -173,11 +206,13 @@ def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0):
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        p_hi = p.bfloat16().float()
-        p_lo = (p - p_hi).bfloat16().float()
-        acc = acc * corr + p_hi @ vt + p_lo @ vt
+        p_hi = p.to(q.dtype).float()
+        pv = p_hi @ vt
+        if parts == 2:
+            pv = pv + (p - p_hi).to(q.dtype).float() @ vt
+        acc = acc * corr + pv
         m = m_new
-    return (acc / l.clamp_min(1e-30)).bfloat16()
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 SM90_CASES = SWEEP + [
@@ -201,6 +236,189 @@ def test_sm90_arithmetic_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d, causal,
     np.testing.assert_allclose(got, want, **BF16_TOL)
 
 
+def _pallas(x, dtype, **kw):
+    """The Pallas kernel in interpret mode at blocks that divide Sq and Sk."""
+    Sq = x[0].shape[2]
+    block = 64 if Sq <= 256 and Sq % 64 == 0 else 128 if Sq % 128 == 0 \
+        else Sq
+    return _jax(x, DTYPES[dtype][0], jax_kernel, block_q=block,
+                block_k=block, interpret=True, **kw)
+
+
+SM90_F16_CASES = SM90_CASES + [
+    (1, 4, 2, 130, 70, 37, True, 0, 0.0),       # own loads, ragged d
+    (1, 4, 2, 200, 200, 40, True, 70, 0.0),
+    (1, 4, 2, 256, 256, 72, True, 0, 30.0),     # SigLIP-so400m's head dim
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap",
+                         SM90_F16_CASES)
+def test_sm90_f16_arithmetic_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
+                                                   causal, window, softcap):
+    """float16: one product of P = f16(p) stays within the float16 bar of
+    the Pallas kernel at float16, elementwise."""
+    x = _qkv(0, B, Hq, Hkv, Sq, Sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _port(x, torch.float16, fn=_sm90_emulate, **kw)
+    np.testing.assert_allclose(got, _pallas(x, "float16", **kw), **F16_TOL)
+
+
+def test_sm90_f16_takes_p_in_one_product():
+    """Why float16 skips bfloat16's P_hi/P_lo split: on the sweep, gemma2's
+    widths and S = 1024, one rounding of P stays within 0.4 of the float16
+    bar of the Pallas kernel, about where the split stays."""
+    worst = {1: 0.0, 2: 0.0}
+    for B, Hq, Hkv, Sq, Sk, d, causal, window, softcap in SM90_CASES:
+        x = _qkv(0, B, Hq, Hkv, Sq, Sk, d)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        want = _pallas(x, "float16", **kw)
+        bar = F16_TOL["atol"] + F16_TOL["rtol"] * np.abs(want)
+        for parts in worst:
+            got = _port(x, torch.float16, fn=_sm90_emulate, parts=parts, **kw)
+            worst[parts] = max(worst[parts], float((np.abs(got - want)
+                                                    / bar).max()))
+    assert worst[1] < 0.4 and worst[2] < 0.4
+
+
+WIDE_CASES = [  # d > 256: 64-column chunks of S, 256-column slices of O
+    (1, 4, 2, 128, 128, 288, True, 0, 0.0),
+    (1, 2, 2, 128, 192, 320, False, 0, 50.0),
+    (1, 2, 1, 192, 192, 512, True, 64, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap",
+                         WIDE_CASES)
+def test_sm90_wide_tiling_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
+                                                causal, window, softcap,
+                                                dtype):
+    x = _qkv(1, B, Hq, Hkv, Sq, Sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _port(x, DTYPES[dtype][1], fn=_sm90_emulate, **kw)
+    np.testing.assert_allclose(got, _pallas(x, dtype, **kw),
+                               **DTYPES[dtype][2])
+
+
+def _own_box(slab, r0, rows, c0, d, unit):
+    """csrc/flash_attention_sm90.cu's own_box in numpy: rows [r0, r0 +
+    rows) and columns [c0, c0 + 64) of a (n, stride) 2-byte slab (its
+    first d columns live) into a box laid out as TMA's 128-byte swizzle
+    lays it out, ``unit`` bytes at a time, zeros past d and past row n."""
+    raw = slab.view(np.uint8)
+    n, lim, per = slab.shape[0] - r0, 2 * (d - c0), 128 // unit
+    box = np.full(rows * 128, 0xAB, np.uint8)   # no byte may stay unwritten
+    for i in range(rows * per):
+        r, cb = i // per, (i % per) * unit
+        w = (raw[r0 + r, 2 * c0 + cb:2 * c0 + cb + unit]
+             if r < n and cb < lim else np.zeros(unit, np.uint8))
+        off = r * 128 + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15))
+        box[off:off + unit] = w
+    return box
+
+
+def _unswizzle(box, rows):
+    """The (rows, 64) 2-byte tile a 128-byte-swizzled box holds."""
+    out = np.empty((rows, 128), np.uint8)
+    for r in range(rows):
+        for u in range(8):
+            src = r * 128 + ((u ^ (r & 7)) << 4)
+            out[r, 16 * u:16 * u + 16] = box[src:src + 16]
+    return out.view(np.uint16)
+
+
+@pytest.mark.parametrize("d,unit", [(37, 2), (40, 2), (40, 4), (40, 8),
+                                    (72, 8), (100, 8)])
+def test_own_loads_fill_the_box_tma_would_fill(d, unit):
+    """The producer warpgroup's own loads give what TMA gives: the tile's
+    elements before d, zeros past d (the padding to 64 columns) and past
+    the last row, each 16-byte unit where the swizzle puts it; the kernel
+    source holds the same swizzle."""
+    stride = d + 3                              # a row TMA cannot step
+    slab = np.random.RandomState(d).randint(1, 2 ** 16, (70, stride)) \
+        .astype(np.uint16)
+    for r0, c0 in ((0, 0), (64, 0), (0, 64)):
+        box = _unswizzle(_own_box(slab, r0, 64, c0, d, unit), 64)
+        want = np.zeros((64, 64), np.uint16)
+        live = slab[r0:r0 + 64, c0:min(d, c0 + 64)]
+        want[:live.shape[0], :live.shape[1]] = live
+        np.testing.assert_array_equal(box, want)
+    src = (Path(ops.__file__).parents[2] / "csrc"
+           / "flash_attention_sm90.cu").read_text()
+    assert "((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15))" in src
+
+
+def _strided(d, pad, off=0, dtype=torch.float16):
+    """q, k, v as (B, S, H, d) -> (B, H, S, d) views of rows of d + pad
+    elements, ``off`` elements past an aligned base."""
+    flat = torch.zeros(off + 3 * 2 * 64 * 2 * (d + pad), dtype=dtype)[off:]
+    return [t.view(2, 64, 2, d + pad)[..., :d].transpose(1, 2)
+            for t in flat.chunk(3)]
+
+
+@pytest.mark.parametrize("case,unit", [
+    ("d37", 2), ("d40", 16), ("d72", 16), ("d100", 8), ("d24", 16),
+    ("d64_2_bytes_off", 2), ("d64_4_bytes_off", 4), ("d64_8_bytes_off", 8),
+    ("d64_rows_of_66", 4), ("float32_4_bytes_off", 4), ("float32", 16)])
+def test_sm90_unit_is_tma_or_the_widest_own_load(case, unit):
+    """How the kernels read q, k and v (``ops._sm90_unit``): TMA (16)
+    where its rule holds for all three, else the widest own-load unit
+    every base, stride and row allows; the float32 route copies k and v
+    16 bytes at a time where they allow it."""
+    if case.startswith("float32"):
+        qkv = _strided(64, 0, 1 if "off" in case else 0, torch.float32)
+    elif case.startswith("d64_") and "off" in case:
+        qkv = _strided(64, 0, int(case.split("_")[1]) // 2)
+    elif case == "d64_rows_of_66":
+        qkv = _strided(64, 2)
+    else:
+        qkv = [torch.zeros(1, 2, 64, int(case[1:]), dtype=torch.float16)
+               for _ in range(3)]
+    assert ops._sm90_unit(*qkv) == unit
+    if not case.startswith("float32"):
+        assert ops._sm90_layout_ok(qkv[0]) == (unit == 16)
+
+
+def test_launch_arguments_follow_the_c_entries(monkeypatch):
+    """Both C entries take (q, k, v, out, strides, B, Hq, Hkv, Sq, Sk, d,
+    causal, window, scale, softcap, dtype, unit, device, stream); the
+    wrapper's arguments fill them in that order (dtype 0 float32, 1
+    bfloat16, 2 float16; unit from ``_sm90_unit``)."""
+    class Lib:
+        pass
+    lib = Lib()
+    for name in set(ops.SOURCES.values()):
+        setattr(lib, f"{name}_launch", Lib())
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    ops._launcher.cache_clear()
+    try:
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1),
+                            (torch.float16, 2)):
+            fn = ops._launcher(dtype)
+            assert len(fn.argtypes) == 19 and fn.restype is ctypes.c_int
+            assert fn.argtypes[:5] == [ctypes.c_void_p] * 5
+            assert fn.argtypes[13:15] == [ctypes.c_float] * 2
+            assert fn.argtypes[15:18] == [ctypes.c_int] * 3
+            q, k, v = _strided(37, 1, 1, dtype)
+            out = torch.empty_like(q)
+            strides, args = ops._launch_args(q, k, v, out, causal=False,
+                                             window=5, softcap=30.0)
+            assert len(args) + 2 == len(fn.argtypes)
+            assert list(strides) == [s for t in (q, k, v, out)
+                                     for s in t.stride()[:3]]
+            assert args[5:13] == (2, 2, 2, 64, 64, 37, 0, 5)
+            assert args[13] == pytest.approx(37 ** -0.5)
+            assert args[14:] == (30.0, code, ops._sm90_unit(q, k, v))
+    finally:
+        ops._launcher.cache_clear()
+    for name in set(ops.SOURCES.values()):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert re.search(r"float softcap,\s+int dtype,\s+int unit,\s+"
+                         r"int device,\s+void\* stream\)", src)
+
+
 # the float32 kernel's tiles (q rows, keys) by head_dim: its Cfg<D>
 F32_TILES = {True: (128, 32), False: (64, 16)}      # d <= 128, d > 128
 
@@ -210,7 +428,8 @@ def _f32_sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
     """csrc/flash_attention_f32_sm90.cu's arithmetic in plain PyTorch: q
     tiles of 128 rows (64 at d > 128), each visiting the key tiles of 32
     (16) its band reaches; S = Q.K^T and O += P.V as 3xTF32 products of
-    operands split once; scores in log2 units (masked -1e30, keys past Sk
+    operands split once (past d = 256 S summed over 64-column chunks, the
+    wide kernel's; its 256-column slices of O change no other arithmetic); scores in log2 units (masked -1e30, keys past Sk
     -inf); a float32 online softmax from -1e30 with exp2; out = acc /
     max(l, 1e-30)."""
     B, Hq, Sq, d = q.shape
@@ -236,7 +455,7 @@ def _f32_sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
         for k0 in range(k_first, k_end, block_k):
             kt = kf[:, :, k0:k0 + block_k]
             vt = vf[:, :, k0:k0 + block_k]
-            s = mm(qt, kt.transpose(-1, -2))
+            s = _chunked_qk(qt, kt, mm, d > 256)
             if softcap:
                 s = (softcap * log2e) * torch.tanh(s * (scale / softcap))
             else:
@@ -281,6 +500,16 @@ def test_f32_sm90_arithmetic_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap",
+                         WIDE_CASES)
+def test_f32_sm90_wide_tiling_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
+                                                    causal, window, softcap):
+    x = _qkv(1, B, Hq, Hkv, Sq, Sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _port(x, torch.float32, fn=_f32_sm90_emulate, **kw)
+    np.testing.assert_allclose(got, _pallas(x, "float32", **kw), **F32_TOL)
+
+
 def test_single_pass_tf32_misses_the_float32_bar():
     """Why every product is split: hi.hi alone (single-pass TF32) misses
     the float32 tolerance of the Pallas kernel at S=1024, d=128, where the
@@ -317,7 +546,8 @@ def test_f32_sm90_rows_that_see_no_key():
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(dtype,
                                                                monkeypatch):
     """Only a CUDA tensor reaches a kernel: on the CPU neither route's
@@ -326,20 +556,21 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(dtype,
         raise AssertionError("a CPU tensor reached a kernel launcher")
     monkeypatch.setattr(ops, "_launcher", refuse)
     x = [torch.from_numpy(a).to(dtype) for a in _qkv(0, 1, 2, 1, 64, 64, 32)]
-    counts = (ops.flash_attention.launches, ops.flash_attention.launches_bf16)
+    fn = ops.flash_attention
+    counts = (fn.launches, fn.launches_bf16, fn.launches_f16)
     got = ops.flash_attention(*x)
-    assert counts == (ops.flash_attention.launches,
-                      ops.flash_attention.launches_bf16)
+    assert counts == (fn.launches, fn.launches_bf16, fn.launches_f16)
     torch.testing.assert_close(got, attention_ref(*x), atol=0, rtol=0)
 
 
 def test_each_dtype_has_its_own_hopper_kernel():
-    """float32 and bfloat16 each go to an sm_90a source of their own, whose
-    C entries the wrapper derives from the source's name; the CUDA-core
-    kernel of the float32 route is gone."""
+    """float32 goes to an sm_90a source of its own, bfloat16 and float16 to
+    the 2-byte one; the wrapper derives the C entries from the source's
+    name; the CUDA-core kernel of the float32 route is gone."""
     from repro_torch.kernels import _build
     assert ops.SOURCES == {torch.float32: "flash_attention_f32_sm90",
-                           torch.bfloat16: "flash_attention_sm90"}
+                           torch.bfloat16: "flash_attention_sm90",
+                           torch.float16: "flash_attention_sm90"}
     names = set(_build.sources())
     assert set(ops.SOURCES.values()) <= names
     assert "flash_attention" not in names
@@ -356,26 +587,31 @@ def test_sm90_layout_rule_takes_the_models_views():
     # a dimension of extent 1 is never stepped, whatever its stride
     one = torch.zeros(64 * 32, dtype=torch.bfloat16)
     assert ops._sm90_layout_ok(one.as_strided((1, 1, 64, 32), (7, 3, 32, 1)))
-    ops._check_sm90(*(x.transpose(1, 2),) * 3)
+    assert ops._sm90_unit(*(x.transpose(1, 2),) * 3) == 16
 
 
 @pytest.mark.parametrize("bad", ["odd_stride", "misaligned"])
 def test_sm90_layout_rule_refuses_what_tma_cannot_read(bad):
+    """TMA cannot read these; the producers' own loads take them, 2 bytes
+    at a time."""
     if bad == "odd_stride":     # seq stride 33 elements = 66 bytes
         t = torch.zeros(1, 2, 64, 33, dtype=torch.bfloat16)[..., :32]
     else:                       # base 2 bytes past an aligned address
         t = torch.zeros(2 * 64 * 32 + 1, dtype=torch.bfloat16)[1:] \
             .view(1, 2, 64, 32)
     assert not ops._sm90_layout_ok(t)
-    with pytest.raises(ValueError, match="TMA"):
-        ops._check_sm90(t, t, t)
+    assert ops._sm90_unit(t, t, t) == 2
 
 
 def test_sm90_refuses_a_head_dim_off_the_wgmma_step():
+    """A head dim off the wgmma step of 16 is taken: its columns to the
+    next 64 are zeros (TMA's fill, or the own loads'), which add nothing
+    to q.k and leave the output's padding unwritten."""
     t = torch.zeros(1, 2, 64, 24, dtype=torch.bfloat16)
-    assert ops._sm90_layout_ok(t)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ops._check_sm90(t, t, t)
+    assert ops._sm90_layout_ok(t) and ops._sm90_unit(t, t, t) == 16
+    x = _qkv(9, 1, 2, 2, 64, 64, 24)
+    np.testing.assert_allclose(_port(x, torch.bfloat16, fn=_sm90_emulate),
+                               _pallas(x, "bfloat16"), **BF16_TOL)
 
 
 def test_kernel_bench_3xtf32_bound_at_the_forward_shape():

@@ -82,6 +82,35 @@ def test_forward_and_loss_match_jax_with_use_pallas(arch):
     assert spy.calls == (0 if arch == "gemma2-2b" else cfg.n_layers)
 
 
+def test_float16_forward_and_loss_match_jax_with_use_pallas():
+    """float16, which the TPU kernel takes (it computes in float32 and casts
+    back): reduced Qwen through K2 in every layer, against the reference's
+    forward through its Pallas kernel. The loss is held at TOL; the logits
+    at TOL with the rtol taken of the largest |logit|, as chip_smoke.py
+    holds its full-width forwards: float16 keeps 11 significant bits, the
+    two frameworks round at other places, and even the plain attention
+    (use_pallas=False on both sides) puts small logits 19x the elementwise
+    bar apart while staying under half of this one."""
+    jcfg, cfg, jparams, params = _setup("qwen1.5-4b")
+    jb, tb = _batch(cfg, 2, 128)
+    jrun = JRunConfig(compute_dtype="float16", remat="none", use_pallas=True)
+    run = RunConfig(compute_dtype="float16", use_pallas=True)
+    jlogits, _ = jlm.forward_train(jparams, jcfg, jrun, jb)
+    spy = _Counting(ops.flash_attention)
+    with torch.no_grad():
+        logits, _ = lm.forward_train(params, cfg, run, tb, flash=spy)
+        loss = get_model(cfg).train_loss(params, run, tb)
+    assert logits.dtype == torch.float16
+    want = np.asarray(jlogits, np.float32)
+    np.testing.assert_allclose(logits.float().numpy(), want, rtol=0,
+                               atol=TOL["atol"]
+                               + TOL["rtol"] * np.abs(want).max())
+    np.testing.assert_allclose(float(loss),
+                               float(jlm.train_loss(jparams, jcfg, jrun, jb)),
+                               **TOL)
+    assert spy.calls == cfg.n_layers
+
+
 def test_loss_mask_matches_jax():
     jcfg, cfg, jparams, params = _setup("qwen1.5-4b", n_layers=1)
     jb, tb = _batch(cfg, 2, 64)

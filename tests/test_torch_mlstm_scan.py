@@ -23,6 +23,9 @@ from tf32_split import mm3, tf32, tf32_read
 
 F32_TOL = dict(atol=2e-5, rtol=2e-4)     # tests/test_kernels.py:115
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)    # tests/test_kernels.py:17
+F16_TOL = dict(atol=1e-3, rtol=2e-3)     # float16: 11 significant bits
+LOW = {"bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL),
+       "float16": (jnp.float16, torch.float16, F16_TOL)}
 MMIN, NEG = -40.0, -1e30
 
 
@@ -88,13 +91,31 @@ def test_bfloat16_inputs_give_bfloat16_and_chunk_clamps_to_s():
     assert torch.equal(out, want)
 
 
+@pytest.mark.parametrize("B,H,S,dh,chunk", [(2, 2, 64, 16, 16),
+                                             (1, 4, 128, 32, 32),
+                                             (2, 1, 64, 16, 8)])
+def test_float16_matches_the_pallas_kernel(B, H, S, dh, chunk):
+    """float16 q, k, v (the TPU kernel takes them: float32 math, q's type
+    out) through the wrapper's CPU branch, against the Pallas kernel."""
+    x = _inputs(np.random.RandomState(B * 10 + S), B, H, S, dh)
+    jx, tx = _jax(x), _torch(x)
+    jx[:3] = [a.astype(jnp.float16) for a in jx[:3]]
+    tx[:3] = [t.half() for t in tx[:3]]
+    kernel = np.asarray(jmlstm_scan(*jx, chunk=chunk, interpret=True)
+                        .astype(jnp.float32))
+    got = ops.mlstm_scan(*tx, chunk=chunk)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), kernel, **F16_TOL)
+
+
 def test_wrapper_refusals():
     q, k, v, lf, li = _torch(_inputs(np.random.RandomState(6), 1, 2, 48, 8))
     scan = ops.mlstm_scan
     with pytest.raises(ValueError, match="multiple of chunk"):
         scan(q, k, v, lf, li, chunk=32)                  # 48 % 32
+    # float64 (float16 is taken, as the TPU kernel takes it)
     with pytest.raises(TypeError, match="not supported"):
-        scan(q.half(), k.half(), v.half(), lf, li, chunk=16)
+        scan(q.double(), k.double(), v.double(), lf, li, chunk=16)
     with pytest.raises(TypeError, match="one dtype"):
         scan(q, k.bfloat16(), v, lf, li, chunk=16)
     with pytest.raises(TypeError, match="float32"):
@@ -237,6 +258,8 @@ def _sm90_emulate(q, k, v, lf, li, chunk):
     (2, 2, 2, 64, 16, "bfloat16"),
     (1, 2, 3, 96, 64, "bfloat16"),
     (1, 1, 1, 16, 128, "bfloat16"),
+    (2, 2, 2, 64, 16, "float16"),
+    (1, 2, 3, 96, 64, "float16"),
 ])
 def test_sm90_emulation_matches_the_pallas_kernel(B, H, nc, dh, chunk,
                                                   dtype):
@@ -244,10 +267,10 @@ def test_sm90_emulation_matches_the_pallas_kernel(B, H, nc, dh, chunk,
     x = _inputs(np.random.RandomState(dh * 7 + S), B, H, S, dh)
     jx, tx = _jax(x), _torch(x)
     tol = F32_TOL
-    if dtype == "bfloat16":
-        jx[:3] = [a.astype(jnp.bfloat16) for a in jx[:3]]
-        tx[:3] = [t.bfloat16() for t in tx[:3]]
-        tol = BF16_TOL
+    if dtype in LOW:
+        jdt, tdt, tol = LOW[dtype]
+        jx[:3] = [a.astype(jdt) for a in jx[:3]]
+        tx[:3] = [t.to(tdt) for t in tx[:3]]
     kernel = np.asarray(jmlstm_scan(*jx, chunk=chunk, interpret=True)
                         .astype(jnp.float32))
     oracle = np.asarray(jmlstm_scan_ref(*jx, chunk=chunk)

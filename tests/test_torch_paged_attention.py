@@ -27,8 +27,10 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 # tests/test_kernels.py tolerances
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_TOL = dict(atol=2e-3, rtol=2e-2)
+F16_TOL = dict(atol=1e-3, rtol=2e-3)    # float16: 11 significant bits
 DTYPES = {"float32": (jnp.float32, torch.float32, F32_TOL),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL),
+          "float16": (jnp.float16, torch.float16, F16_TOL)}
 
 
 def _inputs(seed, B, Hq, Hkv, d, page, n_slots, P, lengths=None):
@@ -128,8 +130,8 @@ def test_ops_rejects_what_the_kernel_does_not_take(bad):
     x = _inputs(5, 2, 4, 2, 32, 8, 3, 16)
     q, k, v = (torch.from_numpy(x[n]) for n in ("q", "k", "v"))
     pt, ln = torch.from_numpy(x["pt"]), torch.from_numpy(x["lengths"])
-    if bad == "dtype":
-        q, k, v = q.half(), k.half(), v.half()
+    if bad == "dtype":      # float64 (float16 is taken, as the TPU's is)
+        q, k, v = q.double(), k.double(), v.double()
     elif bad == "mixed":
         k = k.to(torch.bfloat16)
     elif bad == "table":
@@ -304,6 +306,7 @@ SPLIT_CASES = {
     "empty_trailing_splits": (3, 4, 2, 32, 8, 8, 32, [5, 9, 17], 2,
                               "float32", 0.0),
     "gqa4_bf16_softcap": (2, 8, 2, 64, 16, 5, 24, None, 2, "bfloat16", 30.0),
+    "gqa4_f16_softcap": (2, 8, 2, 64, 16, 5, 24, None, 2, "float16", 30.0),
     # group tiles: 8 + 1 rows (a partial last tile); MQA g=71, nine tiles,
     # the last of 7; g=12 at d=320, three tiles of 4
     "tiles_g9_partial_last": (3, 18, 2, 32, 8, 6, 32, None, 2, "float32",
@@ -318,6 +321,8 @@ SPLIT_CASES = {
                         0.0),
     "stages_d2048_bf16": (1, 4, 1, 2048, 16, 3, 8, [37], 2, "bfloat16",
                           0.0),
+    "tiles_g16_f16_length_0": (2, 32, 2, 128, 16, 4, 16, [0, 50], 2,
+                               "float16", 0.0),
 }
 
 
@@ -467,6 +472,7 @@ def _pool(P, Hkv, page, d, dtype=torch.float32):
     ((32, 2, 16, 80), torch.float32),
     ((16, 2, 8, 16), torch.float32),
     ((16, 2, 8, 32), torch.bfloat16),
+    ((2048, 20, 16, 128), torch.float16),     # the serving shape in f16
 ])
 def test_sm90_route_takes_the_main_path_and_test_shapes(shape, dtype):
     """The main path's and the tests' pools are staged by bulk copies."""
@@ -477,8 +483,8 @@ def test_sm90_route_takes_the_main_path_and_test_shapes(shape, dtype):
 @pytest.mark.parametrize("case,bulk", [
     ("misaligned", False), ("row_off_16_bytes", False),
     ("bf16_row_off_16_bytes", False), ("bf16_base_2_bytes_off", False),
-    ("bf16_rows_of_14_bytes", False), ("page_keys", True),
-    ("page_bytes", True)])
+    ("bf16_rows_of_14_bytes", False), ("f16_base_2_bytes_off", False),
+    ("page_keys", True), ("page_bytes", True)])
 def test_other_pools_take_the_producer_warp_s_loads(case, bulk):
     """Pools a bulk copy cannot read are staged by the producer warp's
     2-byte loads; pages over 256 keys or 32 KiB are still bulk copies, a
@@ -493,6 +499,8 @@ def test_other_pools_take_the_producer_warp_s_loads(case, bulk):
         k = _off(_pool(8, 2, 16, 32, torch.bfloat16), 1)
     elif case == "bf16_rows_of_14_bytes":
         k = _pool(8, 2, 16, 7, torch.bfloat16)
+    elif case == "f16_base_2_bytes_off":
+        k = _off(_pool(8, 2, 16, 32, torch.float16), 1)
     elif case == "page_keys":
         k = _pool(2, 1, 512, 4)
     else:
