@@ -12,11 +12,12 @@ Three CUDA-core kernels the port has replaced are no longer in this tree:
   attention on the CUDA cores, one block per (kv head, sequence), g <= 8
   and d <= 256; replaced for every shape by ``csrc/paged_attention_sm90.cu``.
 
-The four sm90 sources of commit 3933d41 (``flash_attention_sm90.cu``,
-bfloat16 only and TMA layouts only; ``flash_attention_f32_sm90.cu``, d <=
-256; ``paged_attention_sm90.cu``; ``mlstm_scan_sm90.cu``) are the
-yardsticks of the routes that took float16, d > 256 and the own loads
-after it: those routes' earlier shapes must keep their times.
+The four sm90 sources of commit ff92dab (``flash_attention_sm90.cu``,
+``flash_attention_f32_sm90.cu``, ``paged_attention_sm90.cu``,
+``mlstm_scan_sm90.cu``, before the grid folds, K1's wide route and K3's
+sliced routes) are the yardsticks of the shapes that ran before them:
+those shapes must keep their times. Their C entries take the arguments
+the current wrappers pass.
 
 To time them beside the current kernels on one card, unpack commits that
 have them with ``git archive`` into one git-ignored directory and pass it,
@@ -26,7 +27,7 @@ e.g.
   git archive df97d3b^ src/repro_torch/csrc/mlstm_scan.cu | tar -x -C build/base
   git archive 2142486 src/repro_torch/csrc/flash_attention.cu | tar -x -C build/base
   git archive 8d1f884 src/repro_torch/csrc/paged_attention.cu | tar -x -C build/base
-  git archive 3933d41 src/repro_torch/csrc | tar -x -C build/base
+  git archive ff92dab src/repro_torch/csrc | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
 
 ``load(dir)`` builds every one of those sources it finds under
@@ -35,7 +36,7 @@ e.g.
 once) and returns, by source name, a function with the public wrapper's
 signature that launches the earlier kernel on CUDA tensors it takes (K1's
 CUDA-core kernel: g <= 8 and d <= 256; the sm90 sources: what they took at
-3933d41).
+ff92dab).
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 
@@ -161,26 +163,21 @@ def _paged_attention(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
 
 
 def _flash_attention_sm90(name: str):
-    """Commit 3933d41's two K2 sources (``name``), whose C entries took no
-    dtype and no unit: bfloat16 by TMA, or float32 at d <= 256."""
+    """Commit ff92dab's two K2 sources (``name``), whose C entries take the
+    arguments the current wrapper passes (``fa_ops._launch_args``)."""
     def wrap(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_int]
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
         def run(q, k, v, *, causal: bool = True, window: int = 0,
                 softcap: float = 0.0) -> torch.Tensor:
-            B, Hq, Sq, d = q.shape
-            Hkv, Sk = k.shape[1], k.shape[2]
             out = torch.empty_like(q)
-            strides = (ctypes.c_longlong * 12)(
-                *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-            _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), ctypes.addressof(strides), B, Hq, Hkv,
-                      Sq, Sk, d, int(causal), window, 1.0 / math.sqrt(d),
-                      float(softcap), q.device.index,
+            strides, args = fa_ops._launch_args(
+                q, k, v, out, causal=causal, window=window, softcap=softcap)
+            _check(fn(*args, q.device.index,
                       torch.cuda.current_stream(q.device).cuda_stream), name)
             return out
 
@@ -189,7 +186,8 @@ def _flash_attention_sm90(name: str):
 
 
 def _paged_attention_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
-    """Commit 3933d41's K1, whose C entry the wrapper's call still fits."""
+    """Commit ff92dab's K1, whose C entry the wrapper's call still fits at
+    the shapes it took (d <= 2048, B and Hkv <= 65,535)."""
     fn = lib.paged_attention_sm90_launch
     fn.argtypes, fn.restype = pa_ops.LAUNCH_ARGTYPES, ctypes.c_int
 
@@ -202,7 +200,8 @@ def _paged_attention_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
 
 
 def _mlstm_scan_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
-    """Commit 3933d41's K3, whose C entry the wrapper's call still fits."""
+    """Commit ff92dab's K3, whose C entry the wrapper's call still fits at
+    the shapes it took (chunk <= 256, dh <= 512)."""
     fn = lib.mlstm_scan_sm90_launch
     fn.argtypes, fn.restype = ml_ops.LAUNCH_ARGTYPES, ctypes.c_int
 

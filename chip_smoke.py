@@ -55,13 +55,18 @@ Phases (any failure exits non-zero):
              --baseline-src), its bound at the 3xTF32 rate (the record's
              bound_ms) and at the f32 rate, with the f32 kernel's
              registers and spills. With --baseline-src holding commit
-             3933d41's sources, the bf16 and f32 routes, K1 at the serving
+             ff92dab's sources, the bf16 and f32 routes, K1 at the serving
              shape and K3 at the layer shape are timed in turns beside them
              (device ms). FLASH_SHAPES times d=512 and SigLIP-so400m's
              d=72 (by TMA and by the own loads) on every route. K1 and K3
              are also held in f16 (K1 at the serving shape and Qwen3-235B-
              A22B's group, K3 on the sweep and at the layer shape) and
-             timed there.
+             timed there. The shapes past the card's old limits are
+             held against the plain versions and timed beside their
+             bounds and SDPA: K1 at d = 2056-16,384 (the wide
+             route), 65,543 sequences and 65,539 kv heads; K2 at 65,537 q
+             tiles in bf16 (q past 2^31 elements), f16 and f32; K3 at chunk
+             512 and 1024 and dh 520-1024 (the sliced routes).
 3. small   — the reduced models, kernel path on the card against the plain
              path on the CPU from the same weights: the serving example
              (same generated tokens) and a 2-layer Qwen forward with
@@ -388,21 +393,25 @@ def _zero_counts():
 
 
 def _against_previous(name, fn, previous, tol, **kw):
-    """A kernel beside an earlier build's (``previous``, commit 3933d41's
+    """A kernel beside an earlier build's (``previous``, commit ff92dab's
     source: benchmarks_torch/baselines.py) on the same inputs: the two
-    outputs at ``tol``, then device ms per call in turns, previous, this,
-    this, previous (CUDA-graph replays). None without a baseline."""
+    outputs at ``tol``, then device ms per call in two rounds of turns,
+    previous, this, this, previous (CUDA-graph replays). None without a
+    baseline."""
     if previous is None:
         return None
-    err = _assert_close(f"{name}: this build vs commit 3933d41's", fn(),
+    err = _assert_close(f"{name}: this build vs commit ff92dab's", fn(),
                         previous(), tol, **kw)
-    t = [_device_ms(f, 10, 5) for f in (previous, fn, fn, previous)]
-    rec = {"source_commit": "3933d41", "max_abs_err_vs_previous": err,
-           "device_ms": t[1:3], "previous_device_ms": [t[0], t[3]],
-           "ratio": (t[1] + t[2]) / (t[0] + t[3])}
-    print(f"[kernels] {name}: device ms this build {t[1]:.4f} / {t[2]:.4f}, "
-          f"commit 3933d41's {t[0]:.4f} / {t[3]:.4f} (ratio "
-          f"{rec['ratio']:.4f})")
+    t = [_device_ms(f, 10, 5) for _ in range(2)
+         for f in (previous, fn, fn, previous)]
+    mine, prev = t[1::4] + t[2::4], t[0::4] + t[3::4]
+    rec = {"source_commit": "ff92dab", "max_abs_err_vs_previous": err,
+           "device_ms": mine, "previous_device_ms": prev,
+           "ratio": sum(mine) / sum(prev)}
+    print(f"[kernels] {name}: device ms this build "
+          f"{' / '.join(f'{x:.4f}' for x in mine)}, commit ff92dab's "
+          f"{' / '.join(f'{x:.4f}' for x in prev)} (two rounds of previous, "
+          f"this, this, previous; ratio {rec['ratio']:.4f})")
     return rec
 
 
@@ -607,7 +616,7 @@ def _paged_group_shapes(errs, gen):
 def phase_kernels(baseline):
     """K1 against its plain version, timed; returns the serving-shape
     record. ``baseline`` (benchmarks_torch/baselines.py, maybe empty): the
-    earlier CUDA-core kernel and commit 3933d41's K1, timed beside K1 at
+    earlier CUDA-core kernel and commit ff92dab's K1, timed beside K1 at
     the serving shape."""
     previous = baseline.get("paged_attention")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -681,10 +690,11 @@ def phase_kernels(baseline):
                        {(1, 2): 32 + 7, (2, 4): -3}, splits=(None, 1, 2, 6))
     _paged_formerly_refused(errs, gen)
     groups = _paged_group_shapes(errs, gen)
+    past = _paged_past_limits(errs, gen)
     print("[kernels] paged_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
-    # timing at the serving shape, in f32 (beside commit 3933d41's K1)
+    # timing at the serving shape, in f32 (beside commit ff92dab's K1)
     # and in f16
     t = _paged_times(x, enable_gqa=False, previous=previous)
     old = baseline.get("paged_attention_sm90")
@@ -725,7 +735,7 @@ def phase_kernels(baseline):
            "pages_per_split": t["pages_per_split"],
            "stages": t["stages"], "smem_bytes": t["smem_bytes"],
            "kernel_bench_shapes": bench, "group_shapes": groups,
-           "previous_sm90": prev_sm90, "f16": rec16}
+           "previous_sm90": prev_sm90, "f16": rec16, "past_limit_shapes": past}
     prev_s = ""
     if previous is not None:
         rec["previous"] = {"source": "src/repro_torch/csrc/"
@@ -770,6 +780,234 @@ def phase_kernels(baseline):
     return rec
 
 
+# ---- shapes past the card's old limits --------------------------------------
+
+def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None):
+    """One past-limit shape's times: one eager call between two CUDA events
+    (``ms``), device ms per call (CUDA-graph replays), the plain version's
+    ms (None where ``plain`` is None), the bound and, where SDPA computes
+    the same function (``lib``), its device ms; else ``library`` says
+    why not (``why``, or SDPA's own refusal)."""
+    t = {"max_abs_err": err, "ms": _time_ms(fn, 5),
+         "device_ms": _device_ms(fn, 3, 3),
+         "plain_ms": None if plain is None else _time_ms(plain, 2)}
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, rate)
+    t["library_ms"] = t["library_device_ms"] = None
+    t["library"] = why
+    if lib is not None:
+        try:
+            lib()
+            torch.cuda.synchronize()
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            t["library"] = f"sdpa refused: {str(e).splitlines()[0][:160]}"
+            torch.cuda.empty_cache()
+        else:
+            t["library"] = "sdpa"
+            t["library_ms"] = _time_ms(lib, 3)
+            t["library_device_ms"] = _device_ms(lib, 3, 3)
+    lib_s = (f"sdpa {t['library_ms']:.4f} ms eager, "
+             f"{t['library_device_ms']:.4f} ms device"
+             if t["library_ms"] is not None else f"no sdpa ({t['library']})")
+    plain_s = ("not measured" if t["plain_ms"] is None
+               else f"{t['plain_ms']:.4f} ms")
+    print(f"[kernels] past the old limits: {name}: {t['ms']:.4f} ms eager, "
+          f"{t['device_ms']:.4f} ms device, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}; {t['bound_ms'] / t['device_ms']:.3f} of it); "
+          f"{lib_s}; plain {plain_s}; max|err| {err:.3e}")
+    return t
+
+
+def _paged_past_limits(errs, gen):
+    """K1 past its old limits, through the public wrapper (each call must
+    move ``launches`` by one) and at set splits, against the plain version:
+    the wide route (d = 2056, 4096 and 16,384; g = 1 and 8; softcap on in
+    one case, the split route taken in one; pools 2 bytes off alignment for
+    the 2-byte loads), 65,543 sequences and 65,539 kv heads; each timed
+    beside its bound and SDPA over pre-gathered pages (where no softcap)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+
+    def off(x):                        # both pools 2 bytes off alignment
+        x = list(x)
+        for i in (1, 2):
+            flat = torch.empty(x[i].numel() + 1, dtype=x[i].dtype,
+                               device="cuda")
+            x[i] = flat[1:].view(x[i].shape).copy_(x[i])
+        return x
+
+    def lens(B, n):
+        return torch.randint(1, n + 1, (B,), generator=gen, device="cuda")
+    cases = [  # name, inputs, tol, softcap, splits
+        ("d=2056 g=1 f32", _paged_inputs(
+            gen, 4, 4, 4, 2056, 16, 8, 64, lens(4, 128), f32), F32_TOL, 0.0,
+         (None, 1, 2)),
+        ("d=2056 g=8 bf16, pools 2 bytes off (2-byte loads)", off(
+            _paged_inputs(gen, 2, 8, 1, 2056, 16, 4, 16, lens(2, 64), bf16)),
+         BF16_TOL, 0.0, (None, 1)),
+        ("d=4096 g=8 bf16 softcap 30", _paged_inputs(
+            gen, 3, 16, 2, 4096, 16, 6, 32, lens(3, 96), bf16), BF16_TOL,
+         30.0, (None, 1, 3)),
+        ("d=4096 g=1 f32", _paged_inputs(
+            gen, 2, 2, 2, 4096, 16, 6, 16, lens(2, 96), f32), F32_TOL, 0.0,
+         (None, 1)),
+        ("d=16384 g=8 f32 (split route)", _paged_inputs(
+            gen, 2, 8, 1, 16384, 16, 8, 32, lens(2, 128), f32), F32_TOL, 0.0,
+         (None, 1, 2)),
+        ("d=16384 g=1 f16", _paged_inputs(
+            gen, 2, 2, 2, 16384, 16, 4, 16, lens(2, 64), f16), F16_TOL, 0.0,
+         (None, 1)),
+        ("B=65543 Hq=8 Hkv=1 d=64 page 16 f32", _paged_inputs(
+            gen, 65543, 8, 1, 64, 16, 2, 2 * 65543, lens(65543, 32), f32),
+         F32_TOL, 0.0, (None, 1)),
+        ("Hkv=65539 B=1 d=16 f32", _paged_inputs(
+            gen, 1, 65539, 65539, 16, 16, 2, 4, lens(1, 32), f32), F32_TOL,
+         0.0, (None, 1)),
+    ]
+    rows = {}
+    for name, x, tol, cap, splits in cases:
+        _paged_case(errs, f"(p) {name}", x, tol, softcap=cap, splits=splits)
+        B, Hq, d = x[0].shape
+        Hkv = x[1].shape[1]
+        n_bytes, n_flops, _ = _paged_work(x)
+        rate = F32_FLOPS_PER_S if x[0].dtype == f32 else BF16_FLOPS_PER_S
+        plan = ops.sm90_plan(Hq // Hkv, d, x[1].shape[2], x[0].dtype)
+        pps = ops._pages_per_split(B, Hkv * plan["tiles"] * plan["slices"],
+                                   x[3].shape[1], ops._sm_count(0))
+        n_split = -(-x[3].shape[1] // pps)
+        t = _past_limit_time(
+            f"paged_attention {name}", lambda: ops.paged_attention(
+                *x, softcap=cap), lambda: paged_attention_ref(
+                *x, softcap=cap),
+            None if cap else kernel_bench.paged_sdpa(x),
+            n_bytes, n_flops, rate, errs[f"(p) {name} pps=auto"],
+            why="sdpa has no softcap" if cap else None)
+        t.update(route=plan["route"], tile_rows=plan["tile_rows"],
+                 slices=plan["slices"], pages_per_split=pps,
+                 workspace_bytes=(4 * B * Hq * n_split * (d + 2)
+                                  if n_split > 1 else 0))
+        rows[name] = t
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _flash_past_limits(gen):
+    """K2 at 65,537 q tiles (past the grid's old 65,535): bf16 at d = 256
+    (q past 2^31 elements, 4.3 GB), f16 at d = 64 and f32 at d = 256 (64-row
+    tiles, 4,194,368 rows), Sk = 256, causal and not. Rows do not depend on
+    each other, so the plain version runs on slices: the first q tile, the
+    last three and one in the middle; under top-left causal alignment a row
+    at index >= Sk - 1 sees every key, and there the plain version takes
+    causal=False. Timed beside the bound and, where SDPA computes the same
+    function (no causal mask: SDPA's is_causal is a yardstick only at Sq ==
+    Sk), SDPA's times. The plain version is not timed at these shapes: its
+    float32 scores alone would take 8.6 GB."""
+    rows = {}
+    for dtype, d, causal in ((torch.bfloat16, 256, True),
+                             (torch.bfloat16, 256, False),
+                             (torch.float16, 64, True),
+                             (torch.float32, 256, False),
+                             (torch.float32, 256, True)):
+        tq = fa_ops.q_rows_per_block(dtype, d)
+        Sq, Sk = 65537 * tq, 256
+        tname = str(dtype)[6:]
+        name = (f"{tname} d={d} Sq={Sq} (65,537 tiles of {tq}) Sk={Sk} "
+                f"{'causal' if causal else 'non-causal'}")
+        x = _flash_inputs(gen, 1, 1, 1, Sq, Sk, d, dtype)
+        fn = lambda: fa_ops.flash_attention(*x, causal=causal)  # noqa: E731
+        before = fa_ops.flash_attention.launches
+        got = fn()
+        if fa_ops.flash_attention.launches != before + 1:
+            raise AssertionError(f"flash_attention past-limit {name}: the wrapper "
+                                 f"did not launch the kernel once")
+        err = 0.0
+        for r0, r1 in ((0, tq), (32768 * tq, 32769 * tq),
+                       (65534 * tq, Sq)):
+            qs = x[0][:, :, r0:r1]
+            c = causal and r0 < Sk - 1
+            want = attention_ref(qs, x[1], x[2], causal=c)
+            err = max(err, _assert_close(
+                f"flash_attention past-limit {name} rows {r0}-{r1}",
+                got[:, :, r0:r1], want, TOLS[dtype]))
+        del got, want
+        elt = x[0].element_size()
+        n_bytes = 2 * Sq * d * elt + 2 * Sk * d * elt
+        visible = (Sq * Sk - Sk * (Sk - 1) // 2) if causal else Sq * Sk
+        n_flops = 4 * visible * d
+        rate = TF32_FLOPS_PER_S if dtype == torch.float32 else \
+            BF16_FLOPS_PER_S
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        t = _past_limit_time(f"flash_attention {name}", fn, None,
+                     None if causal else (lambda: sdpa(*x)), n_bytes,
+                     3 * n_flops if dtype == torch.float32 else n_flops,
+                     rate, err,
+                     why="sdpa's is_causal is a yardstick only at Sq == Sk"
+                     if causal else None)
+        t["bound_note"] = ("3xTF32 products at the TF32 rate"
+                           if dtype == torch.float32 else
+                           "the 2-byte tensor-core rate")
+        t["q_elements"] = x[0].numel()
+        rows[name] = t
+        del x, fn
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mlstm_past_limits(rng):
+    """K3 past its old limits (chunk 256, dh 512): chunk 512 and 1024 at dh
+    64 and 384, dh 520, 768 and 1024 at chunk 64 and 256, and one past both,
+    two chunks each (so the states pass runs), f32 (``_scan_close``: the
+    rtol of max |h| only where the float64 scan shows the f32 bar below
+    float32's own rounding) and a 2-byte type, against the plain version at
+    the same chunk; timed beside the bound (f32 CUDA-core rate; the 3xTF32
+    bound beside it). K3 has no library counterpart."""
+    rows = {}
+    cases = [  # B, H, dh, chunk, 2-byte types
+        (1, 2, 64, 512, (torch.bfloat16,)), (1, 2, 64, 1024, ()),
+        (1, 2, 384, 512, ()), (1, 2, 384, 1024, (torch.float16,)),
+        (1, 2, 520, 64, ()), (1, 2, 520, 256, (torch.bfloat16,)),
+        (1, 2, 768, 64, ()), (1, 2, 768, 256, ()),
+        (1, 2, 1024, 64, ()), (1, 2, 1024, 256, (torch.float16,)),
+        (1, 2, 768, 512, ()),
+    ]
+    for B, H, dh, chunk, low in cases:
+        S = 2 * chunk
+        x = kernel_bench.mlstm_inputs(rng, B, H, S, dh, "cuda")
+        p = ml_ops.plan(S, dh, chunk)
+        for dtype in (torch.float32, *low):
+            xi = x if dtype == torch.float32 else \
+                [t.to(dtype) for t in x[:3]] + list(x[3:])
+            name = (f"B={B} H={H} S={S} dh={dh} chunk={chunk} "
+                    f"{str(dtype)[6:]}")
+            fn = lambda: ml_ops.mlstm_scan(*xi, chunk=chunk)  # noqa: E731
+            before = ml_ops.mlstm_scan.launches
+            got = fn()
+            if ml_ops.mlstm_scan.launches != before + 1:
+                raise AssertionError(f"mlstm_scan past-limit {name}: the wrapper "
+                                     f"did not launch the kernel once")
+            want = mlstm_scan_ref(*xi, chunk=chunk)
+            if dtype == torch.float32:
+                err, form = _scan_close(f"mlstm_scan past-limit {name}", xi, chunk,
+                                        got, want)
+            else:
+                err, form = _assert_close(f"mlstm_scan past-limit {name}", got, want,
+                                          TOLS[dtype]), "elementwise"
+            del got, want
+            _, needed = kernel_bench.mlstm_flops(B, H, S, dh, chunk)
+            t = _past_limit_time(f"mlstm_scan {name}", fn,
+                         lambda: mlstm_scan_ref(*xi, chunk=chunk), None,
+                         kernel_bench.mlstm_bytes(B, H, S, dh,
+                                                  xi[0].element_size()),
+                         needed, F32_FLOPS_PER_S, err,
+                         why="no library call computes the mLSTM scan")
+            t.update(check=form, bound_ms_3xtf32=kernel_bench
+                     .mlstm_bound_3xtf32(B, H, S, dh, chunk),
+                     col_slices=p["col_slices"], key_slices=p["key_slices"],
+                     nt=p["nt"], states_bytes=4 * B * H * (S // chunk - 1)
+                     * dh * p["dhp"])
+            rows[name] = t
+    return rows
+
+
 def _flash_inputs(gen, B, Hq, Hkv, Sq, Sk, d, dtype):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -810,7 +1048,7 @@ def _build_regs(name):
 def phase_flash_kernels(baseline):
     """K2 against its plain version, both routes and both 2-byte types;
     returns the record. ``baseline`` (``benchmarks_torch/baselines.load``,
-    maybe empty): the earlier CUDA-core f32 kernel and commit 3933d41's two
+    maybe empty): the earlier CUDA-core f32 kernel and commit ff92dab's two
     sm90 sources, timed beside the routes at the forward shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
@@ -1022,7 +1260,7 @@ def phase_flash_kernels(baseline):
            "launches": None, "max_abs_err": err_a, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": library_ms, "routes": routes,
-           "shapes": _flash_other_shapes(gen)}
+           "shapes": _flash_other_shapes(gen), "past_limit_shapes": _flash_past_limits(gen)}
     prev_s = ("not measured (no --baseline-src)" if prev is None else
               f"{prev['ms']:.4f} ms eager, {prev['device_ms']:.4f} ms device")
     print(f"[kernels] flash_attention forward shape f32 (3xTF32 route): "
@@ -1042,7 +1280,7 @@ def phase_flash_kernels(baseline):
 
 
 def _previous(baseline, name, x):
-    """commit 3933d41's K2 source ``name`` on x, or None."""
+    """commit ff92dab's K2 source ``name`` on x, or None."""
     old = baseline.get(name)
     return None if old is None else (lambda: old(*x))
 
@@ -1215,7 +1453,7 @@ def _k3_edge_cases(rng):
 def phase_mlstm_kernels(baselines):
     """K3 against its plain version; the xLSTM-125m layer shape and the
     kernel bench's shapes timed, beside the earlier CUDA-core kernel and
-    commit 3933d41's K3 where ``baselines`` (``baselines.load``) gives
+    commit ff92dab's K3 where ``baselines`` (``baselines.load``) gives
     them. Returns the layer-shape record."""
     baseline = baselines.get("mlstm_scan")
     rng = np.random.RandomState(3)
@@ -1350,6 +1588,7 @@ def phase_mlstm_kernels(baselines):
             print(f"[kernels] note: at {name} the sm90 kernel is slower in "
                   f"device ms than the earlier kernel")
     rec["kernel_bench_shapes"] = bench
+    rec["past_limit_shapes"] = _mlstm_past_limits(rng)
     return rec
 
 
@@ -3793,6 +4032,14 @@ def _smi():
     return smi.stdout.strip().splitlines()[0]
 
 
+def _timed(spent, name, fn, *args):
+    """fn(*args), its seconds added to ``spent[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    spent[name] = round(spent.get(name, 0.0) + time.perf_counter() - t0, 1)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sim-cpu-worker", default=None, metavar="NPZ",
@@ -3803,7 +4050,7 @@ def main(argv=None):
                     help="a directory holding earlier kernels under "
                          "src/repro_torch/csrc: the CUDA-core mlstm_scan.cu "
                          "(K3), flash_attention.cu (K2's f32 route) and "
-                         "paged_attention.cu (K1), and commit 3933d41's four "
+                         "paged_attention.cu (K1), and commit ff92dab's four "
                          "*_sm90.cu sources, each timed beside the kernel "
                          "that took its place "
                          "(benchmarks_torch/baselines.py)")
@@ -3818,43 +4065,46 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
+    spent = {}
+    _timed(spent, "build", phase_build)
     baseline = {}
     if args.baseline_src:
         from benchmarks_torch import baselines
-        baseline = baselines.load(args.baseline_src)
+        baseline = _timed(spent, "baselines", baselines.load,
+                          args.baseline_src)
         print(f"[build] baselines from {args.baseline_src}: "
               f"{sorted(baseline)}")
-    rec_pa = phase_kernels(baseline)
-    rec_fa = phase_flash_kernels(baseline)
-    rec_ml = phase_mlstm_kernels(baseline)
-    phase_small_input()
-    phase_small_forward()
-    phase_small_xlstm()
-    rec_pa["launches"], params = phase_serve()
+    rec_pa = _timed(spent, "K1", phase_kernels, baseline)
+    rec_fa = _timed(spent, "K2", phase_flash_kernels, baseline)
+    rec_ml = _timed(spent, "K3", phase_mlstm_kernels, baseline)
+    _timed(spent, "small", phase_small_input)
+    _timed(spent, "small", phase_small_forward)
+    _timed(spent, "small", phase_small_xlstm)
+    rec_pa["launches"], params = _timed(spent, "serve", phase_serve)
     rec_fa["launches"] = rec_fa["routes"]["bf16"]["launches"] = \
-        phase_forward(params, rec_fa["ms"], torch.bfloat16)
+        _timed(spent, "forward", phase_forward, params, rec_fa["ms"],
+               torch.bfloat16)
     # the f16 and f32 routes' main paths: the same model's float16 and
     # float32 forwards
     f16 = rec_fa["routes"]["f16"]
-    f16["launches"] = f16["forward_launches"] = phase_forward(
-        params, f16["ms"], torch.float16)
+    f16["launches"] = f16["forward_launches"] = _timed(
+        spent, "forward", phase_forward, params, f16["ms"], torch.float16)
     f32 = rec_fa["routes"]["f32"]
-    f32["launches"] = f32["forward_launches"] = phase_forward(
-        params, f32["ms"], torch.float32)
+    f32["launches"] = f32["forward_launches"] = _timed(
+        spent, "forward", phase_forward, params, f32["ms"], torch.float32)
     rec_fa["launches"] += f16["launches"] + f32["launches"]
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    bench = phase_kernel_bench()
+    bench = _timed(spent, "kernel_bench", phase_kernel_bench)
     # K3's main path is the kernel bench; the model path runs it 0 times
     rec_ml["launches"] = bench["mlstm_scan"]
     # K2's f32 route runs on the kernel bench too (all its flash calls)
     rec_fa["launches"] += bench["flash_attention"]
     f32["launches"] += bench["flash_attention"]
-    rec_ml["model_path_launches"] = phase_xlstm()
-    phase_train()
-    fam_launches, fam = phase_families()
+    rec_ml["model_path_launches"] = _timed(spent, "xlstm", phase_xlstm)
+    _timed(spent, "train", phase_train)
+    fam_launches, fam = _timed(spent, "families", phase_families)
     # K2's main paths: the Qwen forward and the families (moonshot's bf16
     # forwards, whisper's launch before its refusal; the reduced configs on
     # the f32 route)
@@ -3869,11 +4119,12 @@ def main(argv=None):
         rec["kernel_bench_launches"] = bench[rec["name"]]
     smi_line = _smi()
     # K2's main path in the distribution phase: the sharded prefill
-    dist_launches = phase_dist(smi_line)
+    dist_launches = _timed(spent, "dist", phase_dist, smi_line)
     rec_fa["launches"] += dist_launches
     rec_fa["routes"]["bf16"]["launches"] += dist_launches
     rec_fa["dist_launches"] = dist_launches
-    phase_sim(smi_line)
+    _timed(spent, "sim", phase_sim, smi_line)
+    print(f"[chip_smoke] seconds by phase {json.dumps(spent)}")
     print(f"[chip_smoke] wall {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [rec_pa, rec_fa, rec_ml]}))
     print(smi_line)

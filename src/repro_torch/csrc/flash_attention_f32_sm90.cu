@@ -37,8 +37,10 @@
 // 495 TFLOP/s = 1.041 ms.
 //
 // Design. One block per (b*Hq + h, q tile), heaviest causal tiles first, the
-// key tiles in order inside it; one warpgroup per 64 q rows (two at d <=
-// 128, one at d = 256).
+// key tiles in order inside it (x = b*Hq + h; the grid's y and z hold t +
+// n_qt * slice as in flash_attention_sm90.cu, so any Sq: grid_of,
+// ops.flash_block); one warpgroup per 64 q rows (two at d <= 128, one at d
+// = 256).
 //
 // * Split once. Every operand is split when it is staged, never per
 //   product: q once per block, each K and V tile once per block, each into
@@ -64,8 +66,8 @@
 //   O is rescaled only when a row's max moved.
 //
 // Tiles (q rows x keys): 128 x 32 at d <= 128, 64 x 16 above; d is padded
-// with zeros to 32, 64, 128 or 256. Past d = 256 a third grid axis cuts the
-// output into slices of 256 columns (flash_attention_f32_wide_kernel): O
+// with zeros to 32, 64, 128 or 256. Past d = 256 the grid's slice index cuts
+// the output into slices of 256 columns (flash_attention_f32_wide_kernel): O
 // holds 128 registers a thread at 256 columns, and q in hi and lo fills
 // half the shared memory there already. Shared memory at d = 128: q's lo
 // 64 KiB, K and V^T hi/lo 64 KiB, raw K and V 32 KiB; at d = 256 q's hi and
@@ -102,6 +104,19 @@ struct Args {
   int vec;          // k and v rows may be copied 16 bytes at a time
   float scale, softcap;
 };
+
+// The grid for n_bh = B*Hq blocks in x and n_lin = n_qt * slices (q tile
+// counted from the last, slice) indices over y and z: y + ny * z, ny =
+// min(n_lin, 65535); blocks past n_lin exit at once.
+dim3 grid_of(long long n_bh, long long n_lin) {
+  const long long ny = n_lin < 65535 ? n_lin : 65535;
+  return dim3((unsigned)n_bh, (unsigned)ny, (unsigned)((n_lin + ny - 1) / ny));
+}
+
+// This block's index t + n_qt * slice over the grid's y and z.
+__device__ __forceinline__ unsigned block_lin() {
+  return blockIdx.y + gridDim.y * blockIdx.z;
+}
 
 // D: d rounded up (32, 64, 128 or 256). Byte offsets into shared memory.
 template <int D>
@@ -531,9 +546,12 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   const float* vr = reinterpret_cast<const float*>(sm + (v_raw - base));
 
   const int tid = threadIdx.x;
+  const int n_qt = (int)(((long long)a.Sq + BQ - 1) / BQ);
+  const unsigned lin = block_lin();
+  if (lin >= (unsigned)n_qt) return;  // past the last tile: the rounding
   const int bh = blockIdx.x;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.g;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int q0 = (n_qt - 1 - (int)lin) * BQ;  // heaviest tiles first
   const float* qg = a.q + b * a.sq[0] + h * a.sq[1];
   const float* kg = a.k + b * a.sk[0] + hk * a.sk[1];
   const float* vg = a.v + b * a.sv[0] + hk * a.sv[1];
@@ -677,7 +695,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   store_out<D>(a, b, h, sp, 0, o, l);
 }
 
-// d > 256: the output in slices of kSlice columns (the grid's third axis),
+// d > 256: the output in slices of kSlice columns (a slice index of the grid),
 // 64 q rows and 16 keys per tile as at d = 256, one warpgroup. q and K at
 // full d have no room in shared memory, so for every key tile a block stages
 // them in 64-column chunks, split into hi and lo as they are read (plain
@@ -706,10 +724,13 @@ __global__ void __launch_bounds__(Wide::NT, 1)
   uint8_t* sm = smem_raw + (base - smem_u32(smem_raw));
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned n_qt = (unsigned)(((long long)a.Sq + BQ - 1) / BQ);
+  const unsigned lin = block_lin();
+  if (lin >= n_qt * (unsigned)((a.d + kSlice - 1) / kSlice)) return;
   const int bh = blockIdx.x;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.g;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  const int col0 = blockIdx.z * kSlice;
+  const int q0 = (int)(n_qt - 1 - lin % n_qt) * BQ;  // heaviest tiles first
+  const int col0 = (int)(lin / n_qt) * kSlice;
   const float* qg = a.q + b * a.sq[0] + h * a.sq[1];
   const float* kg = a.k + b * a.sk[0] + hk * a.sk[1];
   const float* vg = a.v + b * a.sv[0] + hk * a.sv[1];
@@ -823,8 +844,9 @@ void config(int* block_q, int* block_k, int* smem_bytes) {
 // order (the last dimension of each is contiguous). unit (ops._sm90_unit):
 // 16 copies k and v rows 16 bytes at a time, which needs their bases and
 // every stride of a dimension longer than 1 to be multiples of 16 bytes; 4
-// takes any. Any d >= 1; Sq up to 65,535 q tiles (128 rows at d <= 128, 64
-// above: the grid's second dimension). Launches on `stream` of `device` and
+// takes any. Any d >= 1 and Sq >= 1: B Hq up to 2^31 - 1 (the grid's x)
+// and q tiles (128 rows at d <= 128, 64 above) times slices of 256 columns
+// past d = 256 up to 65,535^2 (its y and z). Launches on `stream` of `device` and
 // returns the CUDA error (0 when the launch was accepted); arguments it does
 // not take return cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
@@ -837,10 +859,11 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
                                                int unit, int device,
                                                void* stream) {
   const int bq = d <= 128 ? Cfg<128>::BQ : Cfg<256>::BQ;
-  const long long n_qt = (Sq + bq - 1) / bq;
+  const long long n_qt = ((long long)Sq + bq - 1) / bq;
+  const long long n_sl = d > kSlice ? ((long long)d + kSlice - 1) / kSlice : 1;
   bool ok = B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk >= 0 &&
-            d > 0 && window >= 0 && n_qt <= 65535 &&
-            (long long)B * Hq <= 0x7fffffffLL && dtype == 0 &&
+            d > 0 && window >= 0 && (long long)B * Hq <= 0x7fffffffLL &&
+            n_qt * n_sl <= 65535LL * 65535 && dtype == 0 &&
             (unit == 16 || unit == 4);
   const int extent[3] = {B, Hkv, Sk};
   if (unit == 16) {
@@ -874,6 +897,7 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
   a.window = window;
   a.scale = scale;
   a.softcap = softcap;
+  const dim3 grid = grid_of(B * Hq, n_qt * n_sl);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > kSlice) {
     constexpr int bytes = Wide::kSmem;
@@ -881,12 +905,9 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)(B * Hq), (unsigned)n_qt,
-                    (unsigned)((d + kSlice - 1) / kSlice));
     flash_attention_f32_wide_kernel<<<grid, Wide::NT, bytes, s>>>(a);
     return (int)cudaGetLastError();
   }
-  const dim3 grid((unsigned)(B * Hq), (unsigned)n_qt);
   if (d <= 32) return (int)launch<32>(a, grid, s);
   if (d <= 64) return (int)launch<64>(a, grid, s);
   if (d <= 128) return (int)launch<128>(a, grid, s);

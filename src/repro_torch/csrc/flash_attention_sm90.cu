@@ -23,7 +23,12 @@
 // operations per visible (q, k) pair, far above the bytes of q, k, v and out,
 // so the 2-byte tensor-core rate bounds it. The design feeds the tensor cores:
 //
-// * One block per (b*Hq + h, 128-row q tile), heaviest causal tiles first.
+// * One block per (b*Hq + h, 128-row q tile), heaviest causal tiles first:
+//   x = b*Hq + h, and the grid's y and z (65,535 each) hold one index, t +
+//   n_qt * slice = y + ny * z, ny = min(n_qt * slices, 65535) (t counts q
+//   tiles from the last); blocks past the end exit at once. The blocks run
+//   in a (B*Hq, n_qt, slices) grid's order, at any Sq (grid_of,
+//   ops.flash_grid, ops.flash_block).
 //   384 threads: a producer warpgroup (its registers cut to 24 by setmaxnreg;
 //   40 where it loads on its own) and two consumer warpgroups (240
 //   registers; 232), each owning 64 q rows.
@@ -67,8 +72,8 @@
 //   layout (pairs where out's base, strides and d allow 4-byte stores); rows
 //   past Sq and columns past d are not written.
 // * d > 256 (`kWide`). The O accumulator takes D/2 f32 registers a thread,
-//   and q with its K/V ring fills shared memory already at d = 256, so a
-//   third grid axis cuts the output into slices of 256 columns. A block
+//   and q with its K/V ring fills shared memory already at d = 256, so the
+//   grid's slice index cuts the output into slices of 256 columns. A block
 //   streams q and K in 64-column chunks through a 4-stage ring (a 128 x 64 q
 //   chunk beside a 64 x 64 K chunk per stage) and sums S over the chunks,
 //   then applies P to its own 256 columns of V (a 2-stage ring of 64 x 256
@@ -611,10 +616,16 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const uint32_t k_empty = v_full + 8 * C::kVStages;   // + 8 s
   const uint32_t v_empty = k_empty + 8 * C::kKStages;  // + 8 s
 
+  // the block's q tile and output slice from (y, z): t + n_qt * slice
+  const unsigned lin = blockIdx.y + gridDim.y * blockIdx.z;
+  const unsigned n_qt = (unsigned)a.n_qt;
+  if (lin >= n_qt * (kWide ? (unsigned)((a.d + kSlice - 1) / kSlice) : 1u))
+    return;  // past the last tile: the grid's rounding
   const int bh = blockIdx.x;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.g;
-  const int q0 = (a.n_qt - 1 - (int)blockIdx.y) * kBQ;  // heaviest tiles first
-  const int col0 = kWide ? (int)blockIdx.z * kSlice : 0;
+  const int qt = kWide ? (int)(lin % n_qt) : (int)lin;
+  const int q0 = (a.n_qt - 1 - qt) * kBQ;  // heaviest tiles first
+  const int col0 = kWide ? (int)(lin / n_qt) * kSlice : 0;
   // the key tiles any row of this q tile can see
   const int q_last = min(q0 + kBQ, a.Sq) - 1;
   const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
@@ -835,6 +846,13 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
+// The grid for n_bh = B*Hq blocks in x and n_lin = n_qt * slices (q tile,
+// slice) indices over y and z (see the kernel's head comment).
+dim3 grid_of(long long n_bh, long long n_lin) {
+  const long long ny = n_lin < 65535 ? n_lin : 65535;
+  return dim3((unsigned)n_bh, (unsigned)ny, (unsigned)((n_lin + ny - 1) / ny));
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -890,8 +908,9 @@ int launch_k(const CUtensorMap& tq, const CUtensorMap& tk,
       flash_attention_sm90_kernel<T, D, kWide, kTma>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * a.Hq), (unsigned)a.n_qt,
-                  kWide ? (unsigned)((a.d + kSlice - 1) / kSlice) : 1u);
+  const dim3 grid = grid_of(
+      B * a.Hq, (long long)a.n_qt *
+                    (kWide ? (a.d + kSlice - 1) / kSlice : 1));
   flash_attention_sm90_kernel<T, D, kWide, kTma>
       <<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
@@ -940,8 +959,10 @@ int launch_t(const long long* st, int B, int Hkv, const Args& a,
 // needs each base 16-byte aligned and every stride of a dimension longer
 // than 1 a multiple of 8 elements; 8, 4 or 2 by the producers' own loads of
 // that many bytes, which needs the bases, those strides and d * 2 bytes to
-// be multiples of it. Any d >= 1; Sq up to 65,535 q tiles of 128 rows (the
-// grid's second dimension). Launches on `stream` of `device` and returns 0
+// be multiples of it. Any d >= 1 and Sq >= 1: B Hq up to 2^31 - 1 (the
+// grid's x) and q tiles of 128 rows times slices of 256 columns past d =
+// 256 up to 65,535^2 (its y and z). Launches on `stream` of `device` and
+// returns 0
 // when the launch was accepted, a CUDA error, or -CUresult when a tensor
 // map could not be encoded; arguments it does not take return
 // cudaErrorInvalidValue without launching.
@@ -953,10 +974,12 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            float scale, float softcap,
                                            int dtype, int unit, int device,
                                            void* stream) {
-  const long long n_qt = (Sq + kBQ - 1) / kBQ;
+  const long long n_qt = ((long long)Sq + kBQ - 1) / kBQ;
+  const long long n_sl = d > kSlice ? ((long long)d + kSlice - 1) / kSlice : 1;
   bool ok = B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk >= 0 &&
-            d > 0 && window >= 0 && n_qt <= 65535 &&
-            (long long)B * Hq <= 0x7fffffffLL && (dtype == 1 || dtype == 2) &&
+            d > 0 && window >= 0 && (long long)B * Hq <= 0x7fffffffLL &&
+            n_qt * n_sl <= 65535LL * 65535 &&
+            (dtype == 1 || dtype == 2) &&
             (unit == 16 || unit == 8 || unit == 4 || unit == 2) &&
             (unit == 16 || (2 * d) % unit == 0);
   const void* ptrs[3] = {q, k, v};

@@ -55,6 +55,17 @@
 //    its first read of a state, so chunk 0 and every block's q.k^T overlap
 //    the states pass's last wave.
 //
+// Past chunk 256 or dh 512 nothing is refused; the work is cut further.
+// The scalar pass walks a long chunk in segments of 256 rows
+// (chunk_long_kernel). The states pass needs nothing new: it streams any
+// chunk in slices of 32 keys and tiles any dh, its C workspace B H (S/L -
+// 1) dh dhp floats with dhp = dh rounded up to 128 past 512 (at dh = 1024,
+// S/L = 4, B H = 2: 25 MB). The outputs pass becomes outputs_sliced_kernel:
+// a grid axis of output-column slices (64 nt columns each), and inside a
+// block the chunk's keys in slices of 256 through the same P tile; m_i is
+// known from the scalar pass, so the slices' sums add without a rescale.
+// Shapes inside both limits keep the kernels above as they were.
+//
 // Passes 2 and 3 stream their operands through shared memory in slices of
 // 32 along the contraction with cp.async (3 and 2 stages); 2-byte inputs
 // are widened to float32 on the way in, so the tiles are float32 throughout.
@@ -80,8 +91,8 @@
 
 namespace {
 
-constexpr int kMaxChunk = 256;
-constexpr int kMaxDh = 512;
+constexpr int kMaxChunk = 256;      // one block's rows and keys (scalars, P)
+constexpr int kMaxDh = 512;         // one outputs block's columns
 constexpr int kKs = 32;             // states: contraction slice per stage
 constexpr int kKs3 = 32;            // outputs: contraction slice per stage
 constexpr int kSl3 = kKs3 + 4;      // row stride of [row][slice] tiles
@@ -106,6 +117,8 @@ struct Args {
   void* o;
   long long sq[3], sk[3], sv[3], sf[3], si[3];  // (batch, head, seq) strides
   int BH, H, S, dh, L, NC;
+  int dhp;          // the states' row stride: dh rounded up
+  int n_cs;         // the sliced outputs pass's column slices
   int vec;          // rows of q, k, v may be read 4 elements at a time
   float scale;
   float* F;         // (BH, S) cumsum of lf within each chunk
@@ -313,6 +326,67 @@ __global__ void __launch_bounds__(kThreads1) chunk_kernel(const Args a) {
     a.F[p] = Ft;
     a.Mi[p] = lm;                      // the row maximum until the carry pass
   }
+  if (t == 0) {
+    float gmax = wmax[0];
+    for (int i = 1; i < kThreads1 / 32; ++i) gmax = fmaxf(gmax, wmax[i]);
+    const long long q = (long long)bh * (a.NC + 1) + c;
+    a.FL[q] = FL;
+    a.G[q] = gmax;
+  }
+}
+
+// The same scalars where a chunk has more rows than the block has threads
+// (L > kMaxChunk): the prefix sum runs over segments of 256 rows with the
+// running total carried in double, F goes straight to the workspace (the
+// block reads it back after a barrier), and each thread takes rows t, t +
+// 256, ... of the row maxima, O(L^2 / 2) work a chunk as before. No
+// shared array depends on L.
+__global__ void __launch_bounds__(kThreads1) chunk_long_kernel(const Args a) {
+  __shared__ double wsum[kThreads1 / 32];
+  __shared__ float wmax[kThreads1 / 32];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, L = a.L;
+  const int c = blockIdx.x % a.NC, bh = blockIdx.x / a.NC;
+  const int b = bh / a.H, h = bh % a.H;
+  const float* lfg = a.lf + b * a.sf[0] + h * a.sf[1];
+  const float* lig = a.li + b * a.si[0] + h * a.si[1];
+  const long long s0 = (long long)c * L;
+  float* Fg = a.F + (long long)bh * a.S + s0;
+  double run = 0.0;                    // the earlier segments' sum
+  for (int t0 = 0; t0 < L; t0 += kThreads1) {
+    const int r = t0 + t;
+    const bool on = r < L;
+    double cs = on ? lfg[(s0 + r) * a.sf[2]] : 0.0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double y = __shfl_up_sync(kFull, cs, off);
+      if (lane >= off) cs += y;
+    }
+    if (lane == 31) wsum[w] = cs;
+    __syncthreads();
+    double seg = 0.0;
+    for (int i = 0; i < kThreads1 / 32; ++i) {
+      if (i < w) cs += wsum[i];
+      seg += wsum[i];
+    }
+    if (on) Fg[r] = static_cast<float>(run + cs);  // rounded once
+    run += seg;
+    __syncthreads();                   // wsum is rewritten next segment
+  }
+  const float FL = Fg[L - 1];
+  float gv = -INFINITY;
+  for (int r = t; r < L; r += kThreads1) {
+    const float Ft = Fg[r], lv = lig[(s0 + r) * a.si[2]];
+    gv = fmaxf(gv, (FL - Ft) + lv);
+    float lm = kNeg;                   // max over j <= r of D_rj
+    for (int j = 0; j <= r; ++j)
+      lm = fmaxf(lm, (Ft - Fg[j]) + lig[(s0 + j) * a.si[2]]);
+    a.Mi[(long long)bh * a.S + s0 + r] = lm;
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    gv = fmaxf(gv, __shfl_xor_sync(kFull, gv, off));
+  if (lane == 0) wmax[w] = gv;
+  __syncthreads();
   if (t == 0) {
     float gmax = wmax[0];
     for (int i = 1; i < kThreads1 / 32; ++i) gmax = fmaxf(gmax, wmax[i]);
@@ -754,6 +828,317 @@ __global__ void __launch_bounds__(kThreads3, 1) outputs_kernel(const Args a,
     }
 }
 
+// Pass 3 past one block's reach (chunk > kMaxChunk or dh > kMaxDh): the same
+// arithmetic, in slices. A block owns 64 query rows of one (b, h, chunk)
+// and one slice of DHP = 64 NT output columns (the grid's column slices,
+// n_cs = dh / DHP rounded up); its keys go by in slices of kMaxChunk.
+// Per block: O = q.C_prev over the slice's columns and q.n, both over the
+// full dh in slices of 32 along d (q.n and the row sums are recomputed by
+// every column slice, the same bits in each); then per key slice S = q.k^T
+// over the full dh, P = e^(D - m_i) S into the same P tile as the
+// single-block pass (64 x 256 at most), its row sums added to a running
+// sum, and O += P.V over the slice's columns. m_i comes from the scalar
+// pass, so a key slice needs no running maximum or rescale: the sums add
+// as they are. Shared memory is the single-block pass's at dh = DHP and
+// chunk 256 or less, whatever the chunk and dh. Blocks: x = column slice +
+// n_cs x (the single-block pass's order).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads3, 1)
+    outputs_sliced_kernel(const Args a, int lp) {
+  constexpr int DHP = 64 * NT;        // this block's output columns
+  constexpr int NTW = DHP / (8 * kWarpsN3);      // output n tiles per warp
+  constexpr int KNT = kMaxChunk / (8 * kWarpsN3);  // key n tiles per warp
+  constexpr int TPR = kThreads3 / kRows;          // q.n: threads per row
+  constexpr int CS = DHP + 8;         // row stride of C and V slices [row][e]
+  extern __shared__ __align__(16) float sm[];
+  const int PS = lp + 4;              // row stride of P [row][key]
+  const int stage =
+      max(kRows * kSl3 + lp * kSl3, kRows * kSl3 + kKs3 * CS + kKs3);
+  float* Ps = sm + kStages3 * stage;
+  float* Frow = Ps + kRows * PS;      // F_i, m_i, e^(F_i + m - m_i) of the rows
+  float* Mrow = Frow + kRows;
+  float* Sfrow = Mrow + kRows;
+  float* Fk = Sfrow + kRows;          // F_j, li_j of the key slice
+  float* lik = Fk + lp;
+  float* denp = lik + lp;             // row sums of P per column warp
+  float* qn_s = denp + kWarpsN3 * kRows;          // q_i.n
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, wm = w & 1, wn = w >> 1;
+  const int L = a.L, NC = a.NC, dh = a.dh, dhp = a.dhp;
+  const unsigned xb = blockIdx.x / (unsigned)a.n_cs;
+  const int e0 = (int)(blockIdx.x - xb * (unsigned)a.n_cs) * DHP;
+  // as outputs_kernel: chunk 0 first, then the heaviest row tiles
+  const int n_rt = (L + kRows - 1) / kRows, n0 = n_rt * a.BH;
+  int it, c, bh;
+  if ((int)xb < n0) {
+    c = 0;
+    it = n_rt - 1 - (int)xb / a.BH;
+    bh = (int)xb % a.BH;
+  } else {
+    const int x = (int)xb - n0, per = (NC - 1) * a.BH;
+    it = n_rt - 1 - x / per;
+    c = 1 + (x % per) % (NC - 1);
+    bh = (x % per) / (NC - 1);
+  }
+  const int b = bh / a.H, h = bh % a.H;
+  const int i0 = it * kRows, Nv = min(i0 + kRows, L);
+  const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const T* kg = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];
+  const T* vg = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[1];
+  const float* lig = a.li + b * a.si[0] + h * a.si[1];
+  const long long s0 = (long long)c * L;               // the chunk's first row
+  const long long w0 = (long long)bh * a.S + s0;       // ... in the workspace
+  const float scale = a.scale;
+  const bool vec = a.vec;
+
+  if (tid < kRows) {
+    const int i = i0 + tid;
+    const bool ok = i < L;
+    Frow[tid] = ok ? a.F[w0 + i] : 0.f;
+    Mrow[tid] = ok ? a.Mi[w0 + i] : 0.f;
+    Sfrow[tid] = ok ? a.Sf[w0 + i] : 0.f;
+  }
+
+  // jobs: nC1 slices of q and C (and n) over d; then per key slice nd
+  // slices of q and k over d and its V rows, 32 at a time (kMaxChunk / 32
+  // in every key slice but the last)
+  const int nd = (dh + kKs3 - 1) / kKs3;
+  const int nC1 = c > 0 ? nd : 0;
+  const int n_ks = (Nv + kMaxChunk - 1) / kMaxChunk;
+  const int per_ks = nd + kMaxChunk / kKs3;
+  const int last = Nv - (n_ks - 1) * kMaxChunk;        // keys of the last
+  const int n_jobs = nC1 + (n_ks - 1) * per_ks + nd + (last + kKs3 - 1) / kKs3;
+  const long long st = (long long)bh * (NC - 1) + c - 1;  // state (c > 0)
+
+  auto load_q = [&](float* Qs, int d0) {
+    for (int e = tid; e < kRows * (kKs3 / 4); e += kThreads3) {
+      const int r = e / (kKs3 / 4), ch = e % (kKs3 / 4), i = i0 + r;
+      const bool ok = i < L;
+      load4(Qs + r * kSl3 + 4 * ch, ok ? qg + (s0 + i) * a.sq[2] : qg,
+            d0 + 4 * ch, ok ? dh : 0, vec);
+    }
+  };
+  auto issue = [&](int job) {
+    if (job < n_jobs) {
+      float* Qs = sm + (job % kStages3) * stage;
+      float* Xs = Qs + kRows * kSl3;
+      if (job == 0 && nC1) grid_wait();  // the states pass is done
+      if (job < nC1) {
+        const int d0 = kKs3 * job;
+        load_q(Qs, d0);
+        const float* Cg = a.Cst + st * dh * dhp;
+        for (int e = tid; e < kKs3 * (DHP / 4); e += kThreads3) {
+          const int r = e / (DHP / 4), ch = e % (DHP / 4), d = d0 + r;
+          const int col = e0 + 4 * ch;
+          const bool ok = d < dh && col < dhp;
+          cp16(Xs + r * CS + 4 * ch, ok ? Cg + (long long)d * dhp + col : Cg,
+               ok);
+        }
+        if (tid < kKs3)
+          cp4(Xs + kKs3 * CS + tid, a.nst + st * dhp + d0 + tid, true);
+      } else {
+        const int ks = (job - nC1) / per_ks, jr = (job - nC1) % per_ks;
+        const int j0s = ks * kMaxChunk;
+        const int nks = min(kMaxChunk, Nv - j0s);
+        if (jr < nd) {
+          load_q(Qs, kKs3 * jr);
+          const int nvp = (nks + 63) / 64 * 64;
+          for (int e = tid; e < nvp * (kKs3 / 4); e += kThreads3) {
+            const int r = e / (kKs3 / 4), ch = e % (kKs3 / 4);
+            const bool ok = r < nks;
+            load4(Xs + r * kSl3 + 4 * ch,
+                  ok ? kg + (s0 + j0s + r) * a.sk[2] : kg,
+                  kKs3 * jr + 4 * ch, ok ? dh : 0, vec);
+          }
+        } else {
+          const int j0 = j0s + kKs3 * (jr - nd);
+          for (int e = tid; e < kKs3 * (DHP / 4); e += kThreads3) {
+            const int r = e / (DHP / 4), ch = e % (DHP / 4), j = j0 + r;
+            const bool ok = j < Nv;
+            load4(Xs + r * CS + 4 * ch, ok ? vg + (s0 + j) * a.sv[2] : vg,
+                  e0 + 4 * ch, ok ? dh : 0, vec);
+          }
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  for (int job = 0; job < kStages3 - 1; ++job) issue(job);
+  const int r0 = 32 * wm + g;          // this thread's first fragment row
+  int job = 0;
+
+  // ---- O = q.C_prev over the slice, scaled by e^(F_i + m - m_i); q.n ----
+  float o[2][NTW][4] = {};
+  const int cb = wn * 8 * NTW;         // this warp's first output column
+  float qn = 0.f;
+  for (; job < nC1; ++job) {
+    cp_wait<kStages3 - 2>();
+    __syncthreads();
+    issue(job + kStages3 - 1);
+    const float* Qs = sm + (job % kStages3) * stage;
+    const float* Cs = Qs + kRows * kSl3;
+#pragma unroll
+    for (int kk = 0; kk < kKs3; kk += 8) {
+      uint32_t ah[2][4], al[2][4];
+      a_frags(Qs, kSl3, r0, kk, t4, scale, ah, al);
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const float* p = Cs + (kk + t4) * CS + cb + 8 * n + g;
+        uint32_t bh_[2], bl[2];
+        split(p[0], bh_[0], bl[0]);
+        split(p[4 * CS], bh_[1], bl[1]);
+        mma3(o[0][n], o[1][n], ah, al, bh_, bl);
+      }
+    }
+    constexpr int QN = kKs3 / TPR;     // columns of the slice per thread
+    const float* ns = Cs + kKs3 * CS + QN * (tid % TPR);
+    const float* qr = Qs + (tid / TPR) * kSl3 + QN * (tid % TPR);
+#pragma unroll
+    for (int e = 0; e < QN; ++e) qn = fmaf(qr[e] * scale, ns[e], qn);
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1)
+    qn += __shfl_xor_sync(kFull, qn, off);
+  if (tid % TPR == 0) qn_s[tid / TPR] = qn;
+  if (nC1) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float sf = Sfrow[r0 + 16 * m + 8 * hh];
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          o[m][n][2 * hh] *= sf;
+          o[m][n][2 * hh + 1] *= sf;
+        }
+      }
+  }
+
+  float rs[2][2] = {};                 // the rows' sums of P, all slices
+  for (int ks = 0; ks < n_ks; ++ks) {
+    const int j0s = ks * kMaxChunk, nks = min(kMaxChunk, Nv - j0s);
+    const int nvp = (nks + 63) / 64 * 64;
+    const int nkt = nvp / (8 * kWarpsN3);          // key n tiles per warp
+    const int kb = wn * 8 * nkt;                   // this warp's first key
+    // the key slice's F_j and li_j (their last readers, the previous
+    // slice's P, are behind the barriers of its P.V jobs)
+    for (int j = tid; j < nvp; j += kThreads3) {
+      const bool ok = j < nks;
+      Fk[j] = ok ? a.F[w0 + j0s + j] : 0.f;
+      lik[j] = ok ? lig[(s0 + j0s + j) * a.si[2]] : 0.f;
+    }
+    // ---- S = q.k^T over the slice's keys, then P and its row sums -------
+    float sacc[2][KNT][4] = {};
+    for (int q = 0; q < nd; ++q, ++job) {
+      cp_wait<kStages3 - 2>();
+      __syncthreads();
+      issue(job + kStages3 - 1);
+      const float* Qs = sm + (job % kStages3) * stage;
+      const float* Ks = Qs + kRows * kSl3;
+      float ps[2][KNT][4] = {};        // this slice's sums, added rounded
+#pragma unroll
+      for (int kk = 0; kk < kKs3; kk += 8) {
+        uint32_t ah[2][4], al[2][4];
+        a_frags(Qs, kSl3, r0, kk, t4, scale, ah, al);
+#pragma unroll
+        for (int n = 0; n < KNT; ++n) {
+          if (n < nkt) {
+            const float* p = Ks + (kb + 8 * n + g) * kSl3 + kk + t4;
+            uint32_t bh_[2], bl[2];
+            split(p[0], bh_[0], bl[0]);
+            split(p[4], bh_[1], bl[1]);
+            mma3(ps[0][n], ps[1][n], ah, al, bh_, bl);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < KNT; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sacc[m][n][r] += ps[m][n][r];
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < KNT; ++n) {
+        if (n >= nkt) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int il = r0 + 16 * m + 8 * hh, i = i0 + il;
+          const int jl = kb + 8 * n + 2 * t4;
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = jl + e;
+            p[e] = (j0s + j <= i && i < L)
+                       ? expf(((Frow[il] - Fk[j]) + lik[j]) - Mrow[il]) *
+                             sacc[m][n][2 * hh + e]
+                       : 0.f;
+            rs[m][hh] += p[e];
+          }
+          *reinterpret_cast<float2*>(Ps + il * PS + jl) =
+              make_float2(p[0], p[1]);
+        }
+      }
+    // ---- O += P.V over the slice's columns ------------------------------
+    const int nV = (nks + kKs3 - 1) / kKs3;
+    for (int v = 0; v < nV; ++v, ++job) {
+      cp_wait<kStages3 - 2>();
+      __syncthreads();
+      issue(job + kStages3 - 1);
+      const float* Vs = sm + (job % kStages3) * stage + kRows * kSl3;
+#pragma unroll
+      for (int kk = 0; kk < kKs3; kk += 8) {
+        uint32_t ah[2][4], al[2][4];
+        a_frags(Ps, PS, r0, kKs3 * v + kk, t4, 1.f, ah, al);
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const float* p = Vs + (kk + t4) * CS + cb + 8 * n + g;
+          uint32_t bh_[2], bl[2];
+          split(p[0], bh_[0], bl[0]);
+          split(p[4 * CS], bh_[1], bl[1]);
+          mma3(o[0][n], o[1][n], ah, al, bh_, bl);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x = rs[m][hh];
+      x += __shfl_xor_sync(kFull, x, 1);
+      x += __shfl_xor_sync(kFull, x, 2);
+      if (t4 == 0) denp[wn * kRows + r0 + 16 * m + 8 * hh] = x;
+    }
+  __syncthreads();                     // denp and qn_s from every warp
+
+  // ---- h = O / max(|den|, e^-m_i) -----------------------------------------
+  T* og = static_cast<T*>(a.o) + ((long long)bh * a.S + s0) * dh + e0;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int il = r0 + 16 * m + 8 * hh, i = i0 + il;
+      if (i >= L) continue;
+      float den = 0.f;
+#pragma unroll
+      for (int x = 0; x < kWarpsN3; ++x) den += denp[x * kRows + il];
+      den += qn_s[il] * Sfrow[il];
+      const float lim = fmaxf(fabsf(den), expf(-Mrow[il]));
+      T* orow = og + (long long)i * dh;
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int e = cb + 8 * n + 2 * t4;
+        if (e0 + e < dh) store(orow + e, o[m][n][2 * hh] / lim);
+        if (e0 + e + 1 < dh) store(orow + e + 1, o[m][n][2 * hh + 1] / lim);
+      }
+    }
+}
+
 // ---- host side --------------------------------------------------------------
 
 int outputs_smem_bytes(int dhp, int lp) {
@@ -792,13 +1177,42 @@ cudaError_t launch(K kernel, unsigned blocks, int threads, int smem,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The tiling of a shape (ops.plan): `nt` the outputs pass's n tiles per
+// warp (its block holds 64 nt columns), `dhp` the states' row stride, `bn`
+// the states block's columns, `lp` the keys of a P tile, `n_cs` the outputs
+// pass's column slices, `sliced` whether the outputs pass is the sliced one
+// (chunk > kMaxChunk or dh > kMaxDh).
+struct Plan {
+  int nt, dhp, bn, lp, n_cs;
+  bool sliced;
+};
+
+Plan make_plan(int dh, int chunk) {
+  Plan p;
+  p.sliced = dh > kMaxDh || chunk > kMaxChunk;
+  const int tiles[] = {8, 6, 4, 2, 1};
+  int least = 8;                       // the least n tiles with 64 nt >= dh
+  for (int n : tiles)
+    if (64 * n >= dh) least = n;
+  p.dhp = dh > kMaxDh ? (dh + 127) / 128 * 128 : 64 * least;
+  p.bn = p.dhp == 384 ? 96 : p.dhp >= 256 ? 128 : 64;
+  p.nt = !p.sliced ? least : dh <= 64 ? 1 : dh <= 256 ? 4 : 8;
+  p.n_cs = (dh + 64 * p.nt - 1) / (64 * p.nt);
+  const int keys = (chunk + 63) / 64 * 64;
+  p.lp = keys < kMaxChunk ? keys : kMaxChunk;
+  return p;
+}
+
 template <typename T>
-cudaError_t run(const Args& a, int nt, int bn, int smem2, int smem3,
+cudaError_t run(const Args& a, const Plan& pl, int smem2, int smem3,
                 int passes, cudaStream_t s) {
-  const int dhp = 64 * nt, lp = (a.L + 63) / 64 * 64;
+  const int dhp = pl.dhp, bn = pl.bn, nt = pl.nt, lp = pl.lp;
   cudaError_t err = cudaSuccess;
   if (passes & 1) {
-    chunk_kernel<<<(unsigned)a.NC * a.BH, kThreads1, 0, s>>>(a);
+    if (a.L > kMaxChunk)
+      chunk_long_kernel<<<(unsigned)a.NC * a.BH, kThreads1, 0, s>>>(a);
+    else
+      chunk_kernel<<<(unsigned)a.NC * a.BH, kThreads1, 0, s>>>(a);
     carry_kernel<<<a.BH, kThreads1, 0, s>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -811,7 +1225,14 @@ cudaError_t run(const Args& a, int nt, int bn, int smem2, int smem3,
     err = launch(k, blocks, kThreads2, smem2, s, a, dhp, false);
     if (err != cudaSuccess) return err;
   }
-  if (passes & 4) {
+  if ((passes & 4) && pl.sliced) {
+    const unsigned blocks =
+        (unsigned)((a.L + kRows - 1) / kRows) * a.NC * a.BH * pl.n_cs;
+    auto k = nt == 1 ? outputs_sliced_kernel<T, 1>
+             : nt == 4 ? outputs_sliced_kernel<T, 4>
+                       : outputs_sliced_kernel<T, 8>;
+    err = launch(k, blocks, kThreads3, smem3, s, a, lp, states);
+  } else if (passes & 4) {
     const unsigned blocks =
         (unsigned)((a.L + kRows - 1) / kRows) * a.NC * a.BH;
     auto k = nt == 1 ? outputs_kernel<T, 1>
@@ -842,26 +1263,29 @@ bool aligned(const void* p, long long n) {
 // a mask of the passes to run (1 scalars, 2 states, 4 outputs; 7 for the
 // function). scale is dh^-1/2. Launches on `stream` of `device` and returns
 // the CUDA error (0 when every launch was accepted); shapes and plans it
-// does not take return cudaErrorInvalidValue without launching.
+// does not take return cudaErrorInvalidValue without launching. Past chunk
+// 256 or dh 512 (make_plan's `sliced`) the plan's nt is 1, 4 or 8 (dh <=
+// 64, <= 256, above), the states' stride dh rounded up to 128 past dh 512,
+// and the outputs pass runs in dh / (64 nt) column slices; any chunk that
+// divides S and any dh, up to 2^31 - 1 blocks a pass.
 extern "C" int mlstm_scan_sm90_launch(
     const void* q, const void* k, const void* v, const void* lf,
     const void* li, void* out, const long long* strides, float* scal,
     float* chunks, float* nst, float* cst, int B, int H, int S, int dh,
     int chunk, int nt, int bn, int smem2, int smem3, float scale, int dtype,
     int passes, int device, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || dh <= 0 || dh > kMaxDh || chunk <= 0 ||
-      chunk > kMaxChunk || S % chunk != 0 || dtype < 0 || dtype > 2 ||
-      (long long)B * H > 0x7fffffffLL ||
-      (long long)((chunk + 63) / 64) * (S / chunk) * B * H > 0x7fffffffLL)
+  if (B <= 0 || H <= 0 || S <= 0 || dh <= 0 || chunk <= 0 ||
+      S % chunk != 0 || dtype < 0 || dtype > 2 ||
+      (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int tiles[] = {8, 6, 4, 2, 1};
-  int want_nt = 8;
-  for (int n : tiles)
-    if (64 * n >= dh) want_nt = n;
-  const int dhp = 64 * want_nt, lp = (chunk + 63) / 64 * 64;
-  const int want_bn = dhp == 384 ? 96 : dhp >= 256 ? 128 : 64;
-  if (nt != want_nt || bn != want_bn || smem2 != states_smem_bytes(bn) ||
-      smem3 != outputs_smem_bytes(dhp, lp) || smem3 > 232448 ||
+  const Plan pl = make_plan(dh, chunk);
+  const long long dt = pl.dhp / kDT, bh = (long long)B * H;
+  if (nt != pl.nt || bn != pl.bn || smem2 != states_smem_bytes(bn) ||
+      smem3 != outputs_smem_bytes(64 * pl.nt, pl.lp) || smem3 > 232448 ||
+      (long long)((chunk + 63) / 64) * (S / chunk) * bh * pl.n_cs >
+          0x7fffffffLL ||
+      dt * (pl.dhp / pl.bn) * bh > 0x7fffffffLL ||
+      (long long)(S / chunk) * bh > 0x7fffffffLL ||
       (S / chunk > 1 && (nst == nullptr || cst == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -891,6 +1315,8 @@ extern "C" int mlstm_scan_sm90_launch(
   a.dh = dh;
   a.L = chunk;
   a.NC = S / chunk;
+  a.dhp = pl.dhp;
+  a.n_cs = pl.n_cs;
   a.vec = vec;
   a.scale = scale;
   const long long n = (long long)B * H * S;
@@ -906,10 +1332,10 @@ extern "C" int mlstm_scan_sm90_launch(
   a.Cst = cst;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    err = run<float>(a, nt, bn, smem2, smem3, passes, s);
+    err = run<float>(a, pl, smem2, smem3, passes, s);
   else if (dtype == 1)
-    err = run<__nv_bfloat16>(a, nt, bn, smem2, smem3, passes, s);
+    err = run<__nv_bfloat16>(a, pl, smem2, smem3, passes, s);
   else
-    err = run<__half>(a, nt, bn, smem2, smem3, passes, s);
+    err = run<__half>(a, pl, smem2, smem3, passes, s);
   return (int)err;
 }

@@ -7,9 +7,12 @@
 //
 // Replaces src/repro/kernels/paged_attention/kernel.py::paged_attention (the
 // Pallas TPU kernel, body `_kernel`) for every shape the wrapper accepts:
-// any g = Hq / Hkv, any head dim d up to 2048, any page size, any row width
-// in bytes and any pool base address. Same function and conventions as that
-// kernel and as ref.py:
+// any batch, any g = Hq / Hkv, any number of kv heads, any head dim d, any
+// page size, any row width in bytes and any pool base address. Two kernels:
+// the register route below for d <= 2048 (a row of q in a lane group's
+// registers), and the wide route (paged_attention_sm90_wide_kernel, further
+// down) past it. Same function and conventions as that kernel and as
+// ref.py:
 //
 //   q          (B, Hq, d)            out (B, Hq, d), same dtype as q
 //   k/v pages  (P, Hkv, page, d)     page_table (B, n_slots) int32
@@ -37,8 +40,11 @@
 //   block index, so the tiles of one (b, kv head, split) are resident
 //   together and read the same pages, the first from device memory and the
 //   others from L2.
-// * Split (flash-decoding). Grid (tile + n_tiles * split, kv head, b); a
-//   block walks the run of `pps` slots [split * pps, (split + 1) * pps) up
+// * Grid. Every block index lies in the grid's x dimension (2^31 - 1
+//   blocks; y and z hold 65,535, fewer than the sequences or kv heads a
+//   call may have): x = tile + n_tiles * (split + n_split * (kv head + Hkv *
+//   b)), ops.paged_block.
+// * Split (flash-decoding). A block walks the run of `pps` slots [split * pps, (split + 1) * pps) up
 //   to the length. ops._pages_per_split picks pps on the host from B, the
 //   kv heads times the tiles, n_slots and the SM count, never from
 //   lengths. A block whose run starts at or past the length exits at once
@@ -101,6 +107,10 @@ constexpr int kMaxRows = 8;                // query rows of a group tile
 constexpr int kMaxLaneFloats = 64;         // G * NVL * VEC: q's registers
 constexpr int kSmemBudget = 232448;        // a block's shared memory on H100
 constexpr int kRingOff = 384;              // barriers, flags, warps' m and l
+constexpr int kWideThreads = 256;          // the wide route's block: 8 warps
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideCols = 2048;            // its output columns per block
+constexpr int kWideKeys = 32;              // its keys per chunk, one a lane
 
 // At most 128 bytes: on the H100 a larger struct (the same fields and five
 // more ints) gave other register allocations and ran the serving and bench
@@ -141,6 +151,14 @@ int pick_nvl(int G, int vec, int nv) {
   while (nvl > 1 && G * nvl * vec > 32) nvl /= 2;
   while (nvl * 32 < nv) nvl *= 2;
   return nvl;
+}
+
+// Whether head dim d at elt bytes per element takes the wide route: one
+// query row's 16-byte vectors, spread over 32 lanes, pass a lane's 64 floats
+// (d > 2048 in every type). make_plan refuses exactly these at G = 1.
+bool wide_route(int d, int elt) {
+  const int nv = (d * elt + 15) / 16;
+  return pow2_at_least((nv + 31) / 32) * (16 / elt) > kMaxLaneFloats;
 }
 
 // G query rows per tile (a power of two up to 8 whose q fits a lane's 64
@@ -318,10 +336,18 @@ paged_attention_sm90_kernel(const Params p) {
   // steps per max and rescale: 4 (a warp's whole share of a serving page),
   // fewer where G query rows of scores would crowd the registers
   constexpr int kChunk = G <= 4 ? 4 : 2;
-  // (no division on the block's first loads where the group is one tile)
-  const int tile = p.n_tiles == 1 ? 0 : blockIdx.x % p.n_tiles;
-  const int split = p.n_tiles == 1 ? blockIdx.x : blockIdx.x / p.n_tiles;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // x = tile + n_tiles * (split + n_split * (h + Hkv * b)); no division
+  // by the tiles where the group is one tile
+  unsigned x = blockIdx.x;
+  int tile = 0;
+  if (p.n_tiles > 1) {
+    const unsigned xt = x / (unsigned)p.n_tiles;
+    tile = (int)(x - xt * (unsigned)p.n_tiles);
+    x = xt;
+  }
+  const unsigned xs = x / (unsigned)p.n_split;
+  const int split = (int)(x - xs * (unsigned)p.n_split);
+  const int h = (int)(xs % (unsigned)p.Hkv), b = (int)(xs / (unsigned)p.Hkv);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int d = p.d, page = p.page, R = p.rows_per_stage;
   const int rows = min(G, p.g - tile * G);  // query rows of this tile
@@ -634,7 +660,8 @@ paged_attention_sm90_combine(const float* __restrict__ ws,
                              const int* __restrict__ lengths,
                              T* __restrict__ out, int Hq, int d, int page,
                              int n_slots, int pps, int n_split) {
-  const int hq = blockIdx.x, b = blockIdx.y;
+  const int hq = (int)(blockIdx.x % (unsigned)Hq);
+  const int b = (int)(blockIdx.x / (unsigned)Hq);
   const int n_keys = min(max(lengths[b], 0), n_slots * page);
   const int n_live = ((n_keys + page - 1) / page + pps - 1) / pps;
   const size_t row = (size_t)b * Hq + hq;
@@ -664,6 +691,268 @@ paged_attention_sm90_combine(const float* __restrict__ ws,
   }
 }
 
+
+// ---- the wide route: d > 2048 --------------------------------------------
+//
+// A row of q no longer fits a lane group's registers, so nothing of a row is
+// held whole. The output columns are cut into slices of kWideCols (2048,
+// the register route's widest row): a block owns G query rows of one kv
+// head, one split and one slice, and its 256 threads hold the slice's
+// accumulator, 8 floats a row each, in registers. The keys of its run go
+// by in chunks of 32:
+//
+// 1. Scores over the full d. Warp w takes keys w, w + 8, w + 16 and w + 24
+//    of the chunk; its lanes stream the four K rows and the G q rows from
+//    device memory (L1 and L2 serve q, which every chunk reads again) in
+//    16-byte vectors where the pools, q and the row width allow it, else
+//    2 bytes at a time, and reduce by shuffles. Nothing bounds d: no buffer
+//    holds a row.
+// 2. Softmax. Warp gi takes query row gi, one key a lane: the chunk's max,
+//    the running max and sum in log2 units, p into shared memory and the
+//    accumulator's correction.
+// 3. p.V. Each thread reads its slice columns of the chunk's live V rows
+//    and adds p-weighted sums to its accumulator.
+//
+// Every slice computes the same scores (the same operations in the same
+// order, so the same bits), so K is read once per slice: n_slices = d /
+// 2048 rounded up times K's bytes, through L2 where the slices of a (kv
+// head, split) run together (the slice is the second-fastest block index:
+// x = tile + n_tiles * (slice + n_slices * (split + n_split * (kv head +
+// Hkv * b)))). V is read once. m and l of a split go to the workspace from
+// slice 0; the combine kernel is the register route's.
+
+// One element of T at a 2-byte aligned address, as a float.
+template <typename T>
+__device__ __forceinline__ float ld2(const unsigned char* p) {
+  const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float((uint32_t)u[0] | ((uint32_t)u[1] << 16));
+  } else {
+    T x;
+    *reinterpret_cast<uint16_t*>(&x) = u[0];
+    return to_f32(x);
+  }
+}
+
+// G: query rows of a tile; vecm: 16-byte loads of q, K and V (pools, q and
+// the row width 16-byte aligned), else 2-byte loads (the same for every
+// thread: one instance serves both).
+template <typename T, int G>
+__global__ void __launch_bounds__(kWideThreads, 1)
+paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int ACC = 8;                    // a row's slice floats a thread
+  constexpr int KPW = kWideKeys / kWideWarps;  // keys per warp per chunk
+  __shared__ float sc[G][kWideKeys];        // scores, then p
+  __shared__ float corr_s[G], m_s[G], l_s[G];
+  __shared__ long long key_row[kWideKeys];  // each key's row in the pools
+  __shared__ int bad_s;
+  unsigned x = blockIdx.x;
+  const unsigned x1 = x / (unsigned)p.n_tiles;
+  const int tile = (int)(x - x1 * (unsigned)p.n_tiles);
+  const unsigned x2 = x1 / (unsigned)n_slices;
+  const int slice = (int)(x1 - x2 * (unsigned)n_slices);
+  const unsigned xs = x2 / (unsigned)p.n_split;
+  const int split = (int)(x2 - xs * (unsigned)p.n_split);
+  const int h = (int)(xs % (unsigned)p.Hkv), b = (int)(xs / (unsigned)p.Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int d = p.d, page = p.page;
+  const int rows = min(G, p.g - tile * G);
+  const int n_keys = min(max(p.lengths[b], 0), p.n_slots * page);
+  const long long k_begin = (long long)split * p.pps * page;
+  const long long k_end = min((long long)n_keys, k_begin +
+                                                     (long long)p.pps * page);
+  const size_t row0 = ((size_t)b * p.Hkv + h) * p.g + (size_t)tile * G;
+  const int c0 = slice * kWideCols;
+  // this thread's columns of the slice: 16-byte vectors tid and tid + 256
+  // (float32) or tid (2-byte types), or 2-byte loads of columns tid + 256 i
+  auto col = [&](int i) {
+    return vecm ? c0 + (tid + kWideThreads * (i / VEC)) * VEC + i % VEC
+                : c0 + tid + kWideThreads * i;
+  };
+  T* out = static_cast<T*>(p.out);
+  if (k_end <= k_begin) {  // the run starts at or past the length
+    if (p.n_split == 1)
+      for (int gi = 0; gi < rows; ++gi)
+#pragma unroll
+        for (int i = 0; i < ACC; ++i)
+          if (col(i) < d) out[(row0 + gi) * d + col(i)] = from_f32<T>(0.f);
+    return;
+  }
+  const int elt = (int)sizeof(T), row_bytes = d * elt;
+  const unsigned char* qb = static_cast<const unsigned char*>(p.q) +
+                            row0 * row_bytes;
+  float acc[G][ACC];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[gi][i] = 0.f;
+  if (tid < G) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  if (tid == 0) bad_s = 0;
+  bool bad = false;
+  for (long long k0 = k_begin; k0 < k_end && !bad; k0 += kWideKeys) {
+    const int nk = (int)min((long long)kWideKeys, k_end - k0);
+    __syncthreads();  // the last chunk's p and rows are read
+    if (tid < kWideKeys) {
+      long long r = -1;
+      if (tid < nk) {
+        const long long pos = k0 + tid;
+        const int slot = (int)(pos / page);
+        const int pid = p.page_table[(size_t)b * p.n_slots + slot];
+        if (pid < 0 || pid >= p.P)
+          bad_s = 1;
+        else
+          r = ((long long)pid * p.Hkv + h) * page + (pos - (long long)slot *
+                                                                page);
+      }
+      key_row[tid] = r;
+    }
+    __syncthreads();
+    if (bad_s) {  // the same for every thread; nothing follows
+      bad = true;
+      break;
+    }
+    // 1. scores: warp w's keys w + 8 j
+    float part[G][KPW];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) part[gi][j] = 0.f;
+    const unsigned char* kr[KPW];
+#pragma unroll
+    for (int j = 0; j < KPW; ++j) {
+      const long long r = key_row[warp + kWideWarps * j];
+      kr[j] = p.k + (r < 0 ? 0 : r) * row_bytes;
+    }
+    if (vecm) {
+      const int nv = row_bytes / 16;
+      for (int u = lane; u < nv; u += 32) {
+        float kv[KPW][VEC];
+#pragma unroll
+        for (int j = 0; j < KPW; ++j) Vec<T>::load(kr[j] + u * 16, kv[j]);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          if (gi < rows) {
+            float qv[VEC];
+            Vec<T>::load(qb + (size_t)gi * row_bytes + u * 16, qv);
+#pragma unroll
+            for (int j = 0; j < KPW; ++j)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) part[gi][j] += qv[e] * kv[j][e];
+          }
+        }
+      }
+    } else {
+      for (int e = lane; e < d; e += 32) {
+        float kv[KPW];
+#pragma unroll
+        for (int j = 0; j < KPW; ++j) kv[j] = ld2<T>(kr[j] + e * elt);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          if (gi < rows) {
+            const float qv = ld2<T>(qb + (size_t)gi * row_bytes + e * elt);
+#pragma unroll
+            for (int j = 0; j < KPW; ++j) part[gi][j] += qv * kv[j];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) {
+        float v = part[gi][j];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) {
+          const int t = warp + kWideWarps * j;
+          float xs2 = v * p.scale;
+          if (p.cap_in != 0.f) xs2 = tanhf(xs2 * p.cap_in) / p.cap_in;
+          sc[gi][t] = t < nk ? xs2 : -INFINITY;
+        }
+      }
+    __syncthreads();
+    // 2. softmax: warp gi, one key a lane
+    if (warp < G) {
+      const float xv = sc[warp][lane];
+      float mx = xv;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = m_s[warp], m_new = fmaxf(m_old, mx);
+      const float pr = exp2f(xv - m_new);  // 0 past the live keys
+      float sum = pr;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      sc[warp][lane] = pr;
+      __syncwarp();
+      if (lane == 0) {
+        const float c = exp2f(m_old - m_new);  // 0 at the first chunk
+        corr_s[warp] = c;
+        m_s[warp] = m_new;
+        l_s[warp] = l_s[warp] * c + sum;
+      }
+    }
+    __syncthreads();
+    // 3. p.V over this thread's slice columns
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const float c = corr_s[gi];
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc[gi][i] *= c;
+    }
+    for (int t = 0; t < nk; ++t) {
+      const unsigned char* vr = p.v + key_row[t] * row_bytes;
+      float vv[ACC];
+      if (vecm) {
+#pragma unroll
+        for (int i = 0; i < ACC; i += VEC) {
+          if (col(i) < d)
+            Vec<T>::load(vr + col(i) * elt, vv + i);
+          else
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) vv[i + e] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < ACC; ++i)
+          vv[i] = col(i) < d ? ld2<T>(vr + col(i) * elt) : 0.f;
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float pr = sc[gi][t];
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) acc[gi][i] += pr * vv[i];
+      }
+    }
+  }
+  __syncthreads();
+  for (int gi = 0; gi < rows; ++gi) {
+    const float L = l_s[gi], M = m_s[gi];
+    if (p.n_split == 1) {
+#pragma unroll
+      for (int i = 0; i < ACC; ++i)
+        if (col(i) < d)
+          out[(row0 + gi) * d + col(i)] =
+              from_f32<T>(bad ? NAN : acc[gi][i] / fmaxf(L, 1e-30f));
+    } else {
+      float* w = p.ws + ((row0 + gi) * p.n_split + split) * (size_t)(d + 2);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i)
+        if (col(i) < d) w[col(i)] = acc[gi][i];
+      if (slice == 0 && tid == 0) {
+        w[d] = bad ? NAN : M;
+        w[d + 1] = bad ? NAN : L;
+      }
+    }
+  }
+}
+
 template <typename T, int G, int NVL>
 int launch_main(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
@@ -681,12 +970,35 @@ int launch_main(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
     err = launch_main<T, G, NVL>(p, grid, pl.smem, stream);     \
     break;
 
+template <typename T, int G>
+int launch_wide(const Params& p, unsigned grid, int n_slices, bool vec,
+                cudaStream_t stream) {
+  paged_attention_sm90_wide_kernel<T, G>
+      <<<grid, kWideThreads, 0, stream>>>(p, n_slices, vec ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// The block count of a launch: tiles x slices x splits x kv heads x
+// sequences, or 0 where it passes the x dimension's 2^31 - 1.
+unsigned grid_blocks(const Params& p, int n_slices, int B) {
+  const long long n =
+      (long long)p.n_tiles * n_slices * p.n_split * p.Hkv * B;
+  return n > 0x7fffffffLL ? 0u : (unsigned)n;
+}
+
 template <typename T>
 int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
-             const Plan& pl) {
-  const dim3 grid(p.n_tiles * p.n_split, p.Hkv, B);
+             const Plan& pl, int n_slices, bool vec) {
+  const unsigned grid = grid_blocks(p, n_slices > 0 ? n_slices : 1, B);
   int err = (int)cudaErrorInvalidValue;
-  if constexpr (sizeof(T) == 4) {
+  if (n_slices > 0) {  // the wide route
+    switch (G) {
+      case 1: err = launch_wide<T, 1>(p, grid, n_slices, vec, stream); break;
+      case 2: err = launch_wide<T, 2>(p, grid, n_slices, vec, stream); break;
+      case 4: err = launch_wide<T, 4>(p, grid, n_slices, vec, stream); break;
+      case 8: err = launch_wide<T, 8>(p, grid, n_slices, vec, stream); break;
+    }
+  } else if constexpr (sizeof(T) == 4) {
     switch (G * 100 + pl.nvl) {  // the (G, NVL) pairs make_plan gives, f32
       PA_CASE(1, 4) PA_CASE(1, 8) PA_CASE(1, 16)
       PA_CASE(2, 4) PA_CASE(2, 8)
@@ -702,7 +1014,7 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
     }
   }
   if (err || p.n_split == 1) return err;
-  paged_attention_sm90_combine<T><<<dim3(Hq, B), 128, 0, stream>>>(
+  paged_attention_sm90_combine<T><<<(unsigned)(B * Hq), 128, 0, stream>>>(
       p.ws, p.lengths, static_cast<T*>(p.out), Hq, p.d, p.page, p.n_slots,
       p.pps, p.n_split);
   return (int)cudaGetLastError();
@@ -719,26 +1031,34 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
 // scratch of B * Hq * n_split * (d + 2). bulk (ops._bulk_copies): 1 fills
 // the stages by bulk copies, which needs both pools' bases and d * elt to
 // be multiples of 16 bytes; 0 by the producer warp's 2-byte loads, which
-// needs the bases 2-byte aligned. Launches on `stream`
-// of `device` and returns cudaGetLastError() (0 when the launches were
-// accepted); shapes it does not take (paged_attention_sm90_plan) return
-// cudaErrorInvalidValue without launching.
+// needs the bases 2-byte aligned (on the wide route, d > 2048: 16-byte
+// loads where bulk is 1 and q's base is 16-byte aligned too, else 2-byte
+// loads). Any B, Hkv, d and page up to 2^31 - 1 blocks (B Hkv x group
+// tiles x splits, x slices of 2048 columns on the wide route) and B Hq
+// combine blocks. Launches on `stream` of `device` and returns
+// cudaGetLastError() (0 when the launches were accepted); shapes it does
+// not take (paged_attention_sm90_plan) return cudaErrorInvalidValue
+// without launching.
 extern "C" int paged_attention_sm90_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const int* page_table, const int* lengths, void* out, float* ws, int B,
     int Hq, int Hkv, int d, int page, int n_slots, int P, int pages_per_split,
     int tile_rows, int bulk, float scale, float softcap, int dtype,
     int device, void* stream) {
-  Plan pl;
+  Plan pl = {};
   const int elt = dtype == 0 ? 4 : 2;
   const uintptr_t kb = reinterpret_cast<uintptr_t>(k_pages);
   const uintptr_t vb = reinterpret_cast<uintptr_t>(v_pages);
-  const int row = d * elt;
-  if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
-      n_slots <= 0 || P <= 0 || pages_per_split <= 0 ||
+  const long long row = (long long)d * elt;
+  const bool wide = d > 0 && wide_route(d, elt);
+  if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || d <= 0 ||
+      page <= 0 || n_slots <= 0 || P <= 0 || pages_per_split <= 0 ||
       dtype < 0 || dtype > 2 || kb % 2 || vb % 2 ||
+      (long long)B * Hq > 0x7fffffffLL ||
       (bulk && (kb % 16 || vb % 16 || row % 16)) ||
-      !make_plan(tile_rows, d, page, elt, &pl))
+      (wide ? tile_rows < 1 || tile_rows > kMaxRows ||
+                  (tile_rows & (tile_rows - 1))
+            : !make_plan(tile_rows, d, page, elt, &pl)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -757,36 +1077,51 @@ extern "C" int paged_attention_sm90_launch(
   p.pps = pages_per_split;
   p.n_split = (n_slots + pages_per_split - 1) / pages_per_split;
   p.n_tiles = (p.g + tile_rows - 1) / tile_rows;
-  p.rows_per_stage = pl.rows_per_stage;
+  p.rows_per_stage = wide ? 0 : pl.rows_per_stage;
   p.bulk = bulk != 0;
-  p.stages = pl.stages;
-  p.tile_stride = pl.tile_stride;
-  p.stage_bytes = pl.stage_bytes;
+  p.stages = wide ? 0 : pl.stages;
+  p.tile_stride = wide ? 0 : pl.tile_stride;
+  p.stage_bytes = wide ? 0 : pl.stage_bytes;
   p.scale = scale * 1.4426950408889634f;  // log2(e)
   p.cap_in = softcap != 0.f ? 0.6931471805599453f / softcap : 0.f;
+  const int n_slices = wide ? (d + kWideCols - 1) / kWideCols : 0;
+  const bool vec = bulk && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   if (p.n_split > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  if ((long long)p.n_tiles * p.n_split > 0x7fffffffLL)
+  if (grid_blocks(p, wide ? n_slices : 1, B) == 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_t<float>(p, tile_rows, B, Hq, s, pl);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(p, tile_rows, B, Hq, s, pl);
-  return launch_t<__half>(p, tile_rows, B, Hq, s, pl);
+  if (dtype == 0)
+    return launch_t<float>(p, tile_rows, B, Hq, s, pl, n_slices, vec);
+  if (dtype == 1)
+    return launch_t<__nv_bfloat16>(p, tile_rows, B, Hq, s, pl, n_slices,
+                                   vec);
+  return launch_t<__half>(p, tile_rows, B, Hq, s, pl, n_slices, vec);
 }
 
 // The launch plan for tile_rows query rows per group tile, head_dim d,
 // `page` keys per page and dtype (0 float32, 1 bfloat16, 2 float16): 16-byte
 // vectors of a row per lane, keys per ring stage, ring stages and dynamic
-// shared memory bytes. Returns 0 where the kernel does not take the shape.
+// shared memory bytes; on the wide route (returns 2) 0 vectors a lane,
+// kWideKeys keys per chunk, no stages and no dynamic shared memory. Returns
+// 0 where the kernel does not take the shape.
 extern "C" int paged_attention_sm90_plan(int tile_rows, int d, int page,
                                          int dtype, int* vectors_per_lane,
                                          int* keys_per_stage, int* stages,
                                          int* smem_bytes) {
   Plan pl;
-  if (dtype < 0 || dtype > 2 ||
-      !make_plan(tile_rows, d, page, dtype == 0 ? 4 : 2, &pl))
-    return 0;
+  if (dtype < 0 || dtype > 2 || d < 1 || page < 1) return 0;
+  if (wide_route(d, dtype == 0 ? 4 : 2)) {
+    if (tile_rows < 1 || tile_rows > kMaxRows || (tile_rows & (tile_rows - 1)))
+      return 0;
+    *vectors_per_lane = 0;
+    *keys_per_stage = kWideKeys;
+    *stages = 0;
+    *smem_bytes = 0;
+    return 2;
+  }
+  if (!make_plan(tile_rows, d, page, dtype == 0 ? 4 : 2, &pl)) return 0;
   *vectors_per_lane = pl.nvl;
   *keys_per_stage = pl.rows_per_stage;
   *stages = pl.stages;

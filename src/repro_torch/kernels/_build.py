@@ -68,11 +68,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                     log, tmp, lib, time.perf_counter())
-    failed = []
+    failed, left = [], dict(procs)
+    while left:                 # each source's own time, as it finishes
+        for n in [n for n, p in left.items() if p[0].poll() is not None]:
+            took[n] = time.perf_counter() - left.pop(n)[4]
+        if left:
+            time.sleep(0.05)
     for n, (proc, log, tmp, lib, t0) in procs.items():
         rc = proc.wait()
         log.close()
-        took[n] = time.perf_counter() - t0
         if rc == 0:
             os.replace(tmp, lib)
         else:

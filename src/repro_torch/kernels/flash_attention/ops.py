@@ -10,10 +10,11 @@ one of two hand-written kernels, chosen by dtype, or the call raises:
   TF32 tensor-core products (3xTF32: the float32 tolerance rules out a
   single TF32 product, not the split one).
 
-Both take any head_dim (past 256 in slices of 256 output columns, a grid
-axis of their own) and any layout whose last dimension is contiguous. The
-one limit left is the grid's: at most ``MAX_Q_TILES`` q tiles of
-``q_rows_per_block`` rows (``_check_kernel``).
+Both take any head_dim (past 256 in slices of 256 output columns), any
+sequence length and any layout whose last dimension is contiguous: a
+block's batch x head is the grid's x, and its (q tile, slice) one index
+spread over the grid's y and z (``flash_grid``, ``flash_block``), so the
+grid's 65,535 blocks a dimension bound no q length.
 
 ``flash_attention.launches`` counts the launches of both kernels,
 ``flash_attention.launches_bf16`` and ``flash_attention.launches_f16`` those
@@ -28,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -39,7 +41,8 @@ SOURCES = {torch.float32: "flash_attention_f32_sm90",
            torch.bfloat16: "flash_attention_sm90",
            torch.float16: "flash_attention_sm90"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_Q_TILES = 65535     # the grid's second dimension
+SLICE_COLS = 256        # output columns per block past d = 256
+GRID_YZ = 65535         # blocks the grid's y (and z) dimension holds
 
 
 @functools.cache
@@ -72,6 +75,33 @@ def q_rows_per_block(dtype: torch.dtype, d: int) -> int:
     """A block's q rows, as ``kernel_config`` gives them: 128, or 64 on the
     float32 route past d = 128."""
     return 64 if dtype == torch.float32 and d > 128 else 128
+
+
+def flash_grid(dtype: torch.dtype, B: int, Hq: int, Sq: int,
+               d: int) -> tuple:
+    """Both kernels' grid (x, y, z) for these shapes, and its q tiles (of
+    ``q_rows_per_block`` rows) and output slices (of ``SLICE_COLS``
+    columns past d = 256): x = B * Hq; y and z hold the n_qt * slices
+    (tile, slice) indices, y = min(that, ``GRID_YZ``) (the sources'
+    ``grid_of``)."""
+    n_qt = -(-Sq // q_rows_per_block(dtype, d))
+    n_sl = -(-d // SLICE_COLS) if d > SLICE_COLS else 1
+    ny = min(n_qt * n_sl, GRID_YZ)
+    return (B * Hq, ny, -(-(n_qt * n_sl) // ny)), n_qt, n_sl
+
+
+def flash_block(x: int, y: int, z: int, ny: int, n_qt: int,
+                n_sl: int) -> Optional[tuple]:
+    """The (b * Hq + h, q tile, slice) of block (x, y, z), as both kernels
+    decode it, or None for a block past the last index (the grid's
+    rounding; it exits at once): t + n_qt * slice = y + ny * z, and index t
+    holds q tile n_qt - 1 - t. A (x, y, z) grid runs x fastest, then y and
+    z, so the blocks run in a (B*Hq, n_qt, slices) grid's order: the
+    heaviest causal tiles first."""
+    lin = y + ny * z
+    if lin >= n_qt * n_sl:
+        return None
+    return x, n_qt - 1 - lin % n_qt, lin // n_qt
 
 
 def _aligned(t: torch.Tensor, unit: int) -> bool:
@@ -134,16 +164,6 @@ def _check(q, k, v, window) -> None:
                              f"in its last dimension")
 
 
-def _check_kernel(q) -> None:
-    """The one thing the card's kernels cannot take (the plain version
-    computes it): more q tiles than the grid's second dimension holds."""
-    rows = q_rows_per_block(q.dtype, q.shape[-1])
-    if -(-q.shape[2] // rows) > MAX_Q_TILES:
-        raise ValueError(f"flash_attention: Sq={q.shape[2]} is more than "
-                         f"{MAX_Q_TILES} q tiles of {rows} rows (the "
-                         f"kernel's grid)")
-
-
 def _launch_args(q, k, v, out, *, causal, window, softcap) -> tuple:
     """The C entry's arguments up to the device and stream, and the strides
     array they point to (the caller keeps it alive through the call)."""
@@ -171,7 +191,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    _check_kernel(q)
     out = torch.empty_like(q)       # q's strides where q is dense
     if out.numel() == 0:
         return out

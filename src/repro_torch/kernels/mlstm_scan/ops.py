@@ -4,9 +4,10 @@ A CUDA tensor goes to the hand-written kernel ``csrc/mlstm_scan_sm90.cu``
 (three passes: the gate scalars, the state entering each chunk, the outputs;
 3xTF32 tensor-core products), or the call raises; a CPU tensor goes to the
 plain version (``ref.py``). The kernel takes every shape the wrapper
-accepts up to chunk ``MAX_CHUNK`` and dh ``MAX_HEAD_DIM`` (``_check_kernel``,
-on the CUDA branch only). ``mlstm_scan.launches`` counts the calls that
-launched it.
+accepts: past chunk ``BLOCK_CHUNK`` or dh ``BLOCK_DH`` (what one block of
+its scalar and outputs passes covers) the outputs pass runs in column
+slices with the chunk's keys in slices of ``BLOCK_CHUNK`` (``plan``'s
+``sliced``). ``mlstm_scan.launches`` counts the calls that launched it.
 
 The kernel takes (batch, head, seq) strides, so q, k, v, lf and li may be
 views as long as the last dimension of q, k and v is contiguous. The output
@@ -25,9 +26,10 @@ from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_HEAD_DIM = 512      # 8 warps x 8 n tiles of output columns
-MAX_CHUNK = 256         # one scalar-pass thread per chunk row
+BLOCK_DH = 512          # one outputs block's columns: 8 warps x 8 n tiles
+BLOCK_CHUNK = 256       # one scalar block's rows, one P tile's keys
 OUTPUT_TILES = (1, 2, 4, 6, 8)  # output n tiles per warp: 64 x this >= dh
+SLICED_TILES = (1, 4, 8)        # the sliced outputs pass's n tiles per warp
 MAX_SMEM = 232448       # dynamic shared memory one block may have on sm_90
 # as in the source: the states pass's slice, rows and stages; the output
 # block's rows, slice and stages
@@ -37,19 +39,29 @@ ROWS, OUT_KS, OUT_STAGES, OUT_THREADS = 64, 32, 2, 512
 
 def plan(S: int, dh: int, chunk: int) -> dict:
     """The kernel's tiling for an accepted shape: ``nt`` output n tiles per
-    warp (the output block holds 64 x ``dhp`` = 64 nt columns), ``bn`` the
+    warp (an outputs block holds 64 nt columns), ``dhp`` the states' row
+    stride (64 nt, or dh rounded up to 128 past ``BLOCK_DH``), ``bn`` the
     state block's columns (96 at dhp = 384: 768 blocks at xLSTM-125m's
-    layer shape, three resident on each SM, fill two whole waves), the
-    dynamic shared memory of the state and output passes, and the number
-    of chunks. The source checks it."""
-    nt = next(n for n in OUTPUT_TILES if 64 * n >= dh)
-    dhp = 64 * nt
+    layer shape, three resident on each SM, fill two whole waves), ``lp``
+    the keys of a P tile, the dynamic shared memory of the state and
+    output passes, and the number of chunks. Past chunk ``BLOCK_CHUNK`` or
+    dh ``BLOCK_DH`` (``sliced``) the outputs pass takes nt from
+    ``SLICED_TILES`` and ``col_slices`` slices of 64 nt columns, and
+    ``key_slices`` slices of ``BLOCK_CHUNK`` keys at most. The source's
+    ``make_plan`` is the same rule and checks it."""
+    sliced = dh > BLOCK_DH or chunk > BLOCK_CHUNK
+    least = next((n for n in OUTPUT_TILES if 64 * n >= dh), OUTPUT_TILES[-1])
+    dhp = -(-dh // 128) * 128 if dh > BLOCK_DH else 64 * least
+    nt = (least if not sliced else 1 if dh <= 64 else 4 if dh <= 256
+          else 8)
     bn = 96 if dhp == 384 else 128 if dhp >= 256 else 64
-    lp = -(-chunk // 64) * 64           # keys a row tile can see, rounded up
+    lp = min(-(-chunk // 64) * 64, BLOCK_CHUNK)   # keys of a P tile
     stage = max(ROWS * (OUT_KS + 4) + lp * (OUT_KS + 4),
-                ROWS * (OUT_KS + 4) + OUT_KS * (dhp + 8) + OUT_KS)
+                ROWS * (OUT_KS + 4) + OUT_KS * (64 * nt + 8) + OUT_KS)
     return {"nt": nt, "dhp": dhp, "bn": bn, "n_chunks": S // chunk,
-            "row_tiles": -(-chunk // ROWS),
+            "row_tiles": -(-chunk // ROWS), "lp": lp, "sliced": sliced,
+            "col_slices": -(-dh // (64 * nt)),
+            "key_slices": -(-chunk // BLOCK_CHUNK),
             "smem_states": 4 * STATE_STAGES * (KS * (STATE_ROWS + 8)
                                                + KS * (bn + 8) + KS),
             "smem_outputs": 4 * (OUT_STAGES * stage + ROWS * (lp + 4)
@@ -105,16 +117,6 @@ def _check(q, k, v, lf, li, chunk) -> int:
     return chunk
 
 
-def _check_kernel(chunk: int, dh: int) -> None:
-    """What only the card's kernel cannot take, checked before a launch
-    (the plain version computes it): chunk past ``MAX_CHUNK`` or dh past
-    ``MAX_HEAD_DIM``."""
-    if chunk > MAX_CHUNK or dh > MAX_HEAD_DIM:
-        raise ValueError(f"mlstm_scan: chunk={chunk}, dh={dh}; the kernel "
-                         f"takes chunk <= {MAX_CHUNK} and dh <= "
-                         f"{MAX_HEAD_DIM}")
-
-
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lf: torch.Tensor, li: torch.Tensor, *,
                chunk: int = 128) -> torch.Tensor:
@@ -128,7 +130,6 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_scan_ref(q, k, v, lf, li, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan: no kernel for {q.device}")
-    _check_kernel(chunk, q.shape[3])
     if q.numel() == 0:
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     out = _run_sm90(q, k, v, lf, li, chunk)

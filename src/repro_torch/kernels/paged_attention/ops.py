@@ -2,12 +2,14 @@
 
 A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor goes to
 the hand-written kernel ``csrc/paged_attention_sm90.cu``, or the call
-raises. The kernel takes every shape the wrapper accepts up to a head dim of
-``KERNEL_MAX_HEAD_DIM``: any g = Hq / Hkv (the query rows of a kv head in
-group tiles of ``tile_rows``), any page size, any row width in bytes, any
-pool base address. Each sequence's pages are split across blocks; the run of
-pages per block comes from ``_pages_per_split``, which never reads
-``lengths``.
+raises. The kernel takes every shape the wrapper accepts: any batch and
+number of kv heads (every block index in the grid's x dimension,
+``paged_block``), any g = Hq / Hkv (the query rows of a kv head in group
+tiles of ``tile_rows``), any head dim (past 2048 the wide route,
+``wide_route``, in slices of ``WIDE_COLS`` output columns), any page size,
+any row width in bytes, any pool base address. Each sequence's pages are
+split across blocks; the run of pages per block comes from
+``_pages_per_split``, which never reads ``lengths``.
 
 ``paged_attention.launches`` counts the calls that launched the kernel.
 """
@@ -27,7 +29,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SPLIT_BLOCKS_PER_SM = 4         # blocks _pages_per_split aims to give an SM
 MAX_TILE_ROWS = 8               # query rows of a group tile
 MAX_LANE_FLOATS = 64            # a lane's floats of a tile's q rows
-KERNEL_MAX_HEAD_DIM = 2048      # a row in registers: 16 vectors a lane (f32)
+WIDE_COLS = 2048                # the wide route's output columns per block
 
 
 # the C entry's arguments (csrc/paged_attention_sm90.cu)
@@ -49,20 +51,56 @@ def _pow2_at_least(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
+def _lane_vectors(d: int, elt: int) -> int:
+    """16-byte vectors of a row a lane holds where 32 lanes cover it: the
+    power of two >= ceil(vectors / 32)."""
+    nv = -(-d * elt // 16)
+    return _pow2_at_least(-(-nv // 32))
+
+
+def wide_route(d: int, elt: int) -> bool:
+    """Whether head dim d at elt bytes per element takes the kernel's wide
+    route: one query row would pass a lane's ``MAX_LANE_FLOATS`` floats (d
+    > 2048 in every type). The kernel source's ``wide_route`` is the same
+    rule."""
+    return _lane_vectors(d, elt) * (16 // elt) > MAX_LANE_FLOATS
+
+
+def n_slices(d: int, elt: int) -> int:
+    """Output column slices per (group tile, split): ``WIDE_COLS`` each on
+    the wide route, one on the register route."""
+    return -(-d // WIDE_COLS) if wide_route(d, elt) else 1
+
+
+def paged_block(x: int, n_tiles: int, n_sl: int, n_split: int,
+                Hkv: int) -> tuple:
+    """The (b, kv head, group tile, slice, split) of the block at index
+    ``x`` of the grid's x dimension, as the kernel decodes it: x = tile +
+    n_tiles * (slice + n_sl * (split + n_split * (h + Hkv * b))), the
+    tiles (and slices) of one (b, kv head, split) next to each other."""
+    x, tile = divmod(x, n_tiles)
+    x, sl = divmod(x, n_sl)
+    x, split = divmod(x, n_split)
+    b, h = divmod(x, Hkv)
+    return b, h, tile, sl, split
+
+
 def tile_rows(g: int, d: int, elt: int) -> int:
     """Query rows per group tile for g rows per kv head, head dim d and elt
     bytes per element: the power of two >= g up to ``MAX_TILE_ROWS``,
     halved while the tile's q would pass ``MAX_LANE_FLOATS`` floats in a
     lane that holds the fewest 16-byte vectors of a row that let 32 lanes
-    cover it. The g rows run as ``ceil(g / tile_rows)`` tiles.
+    cover it; on the wide route (no row in registers) not halved. The g
+    rows run as ``ceil(g / tile_rows)`` tiles.
 
     The kernel's ``make_plan`` refuses a tile that breaks the same rule
     (its ``kMaxRows``, ``kMaxLaneFloats``), and its launch switch holds
     one instance per (rows, vectors per lane) pair that this choice gives;
     tests/test_torch_paged_attention.py holds the three together."""
-    vec, nv = 16 // elt, -(-d * elt // 16)
-    nvl = _pow2_at_least(-(-nv // 32))
+    vec, nvl = 16 // elt, _lane_vectors(d, elt)
     rows = min(MAX_TILE_ROWS, _pow2_at_least(g))
+    if wide_route(d, elt):
+        return rows
     while rows > 1 and rows * nvl * vec > MAX_LANE_FLOATS:
         rows //= 2
     return rows
@@ -79,19 +117,24 @@ def _bulk_copies(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
 
 def sm90_plan(g: int, d: int, page: int,
               dtype: torch.dtype) -> Optional[dict]:
-    """The kernel's plan for a shape: query rows per group tile and tiles,
-    16-byte vectors of a row per lane, keys per ring stage, ring stages and
-    dynamic shared memory bytes. None where the kernel does not take the
-    shape (builds the kernel; needs the CUDA toolkit)."""
+    """The kernel's plan for a shape: its route ("registers", or "wide"
+    past d = 2048), query rows per group tile and tiles, output slices,
+    16-byte vectors of a row per lane, keys per ring stage (the wide
+    route: per chunk), ring stages and dynamic shared memory bytes. None
+    where the kernel does not take the shape (builds the kernel; needs the
+    CUDA toolkit)."""
     from repro_torch.kernels import _build
-    rows = tile_rows(g, d, torch.empty((), dtype=dtype).element_size())
+    elt = torch.empty((), dtype=dtype).element_size()
+    rows = tile_rows(g, d, elt)
     vals = [ctypes.c_int() for _ in range(4)]
     ok = _build.load("paged_attention_sm90").paged_attention_sm90_plan(
         ctypes.c_int(rows), ctypes.c_int(d), ctypes.c_int(page),
         ctypes.c_int(_DTYPE_CODE[dtype]), *(ctypes.byref(x) for x in vals))
     if not ok:
         return None
-    return {"tile_rows": rows, "tiles": -(-g // rows),
+    return {"route": "wide" if ok == 2 else "registers",
+            "tile_rows": rows, "tiles": -(-g // rows),
+            "slices": n_slices(d, elt),
             **dict(zip(("vectors_per_lane", "keys_per_stage", "stages",
                         "smem_bytes"), (x.value for x in vals)))}
 
@@ -148,14 +191,6 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
             raise ValueError(f"paged_attention: {name} must be contiguous")
 
 
-def _check_kernel(d: int) -> None:
-    """What only the card's kernel cannot take: a head dim whose row one
-    lane group cannot hold in registers."""
-    if d > KERNEL_MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention: the kernel takes head_dim <= "
-                         f"{KERNEL_MAX_HEAD_DIM}, got {d}")
-
-
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, *,
@@ -174,7 +209,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
-    _check_kernel(q.shape[2])
     if q.shape[0] == 0:
         return torch.empty_like(q)
     out = _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap)
@@ -195,7 +229,8 @@ def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
     out = torch.empty_like(q)
     dev = q.device.index
     pps = pages_per_split or _pages_per_split(
-        B, Hkv * -(-(Hq // Hkv) // rows), n_slots, _sm_count(dev))
+        B, Hkv * -(-(Hq // Hkv) // rows) * n_slices(d, q.element_size()),
+        n_slots, _sm_count(dev))
     n_split = -(-n_slots // pps)
     ws = (torch.empty((B, Hq, n_split, d + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)

@@ -114,21 +114,24 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 4, 2, 64, 64, 32))
     kw = {}
     if bad == "head_dim":
-        # every head dim is taken; the one limit left is the grid's, more
-        # than MAX_Q_TILES q tiles, checked before any launch (the CPU path
-        # computes it); meta tensors: only the shape is read
+        # every head dim and every q length is taken: past 65,535 q tiles
+        # (the grid's old y limit) the wrapper's checks pass and the
+        # kernels' grid has more tiles; what is still refused is a device
+        # with no kernel. Meta tensors: only the shape is read.
         for dtype, d, rows in ((torch.bfloat16, 1024, 128),
                                (torch.float16, 37, 128),
                                (torch.float32, 128, 128),
                                (torch.float32, 320, 64)):
             assert ops.q_rows_per_block(dtype, d) == rows
-            fits = torch.empty(1, 1, ops.MAX_Q_TILES * rows, d,
-                               dtype=dtype, device="meta")
-            ops._check_kernel(fits)
-            with pytest.raises(ValueError, match="q tiles"):
-                ops._check_kernel(torch.empty(
-                    1, 1, ops.MAX_Q_TILES * rows + 1, d, dtype=dtype,
-                    device="meta"))
+            Sq = 65535 * rows + 1
+            mq = torch.empty(1, 1, Sq, d, dtype=dtype, device="meta")
+            mk = torch.empty(1, 1, 256, d, dtype=dtype, device="meta")
+            ops._check(mq, mk, mk, 0)
+            (gx, gy, gz), n_qt, n_sl = ops.flash_grid(dtype, 1, 1, Sq, d)
+            assert n_qt == 65536 and gy <= ops.GRID_YZ and gz <= ops.GRID_YZ
+            assert gy * gz >= n_qt * n_sl
+            with pytest.raises(ValueError, match="no kernel for meta"):
+                ops.flash_attention(mq, mk, mk)
         return
     if bad == "mixed_device":
         k = k.to("meta")
@@ -378,6 +381,63 @@ def test_sm90_unit_is_tma_or_the_widest_own_load(case, unit):
     assert ops._sm90_unit(*qkv) == unit
     if not case.startswith("float32"):
         assert ops._sm90_layout_ok(qkv[0]) == (unit == 16)
+
+
+@pytest.mark.parametrize("n_qt,n_sl", [(1, 1), (5, 1), (4, 2), (7, 3),
+                                       (65535, 1), (65537, 1), (3, 65536),
+                                       (65537, 3), (200000, 2)])
+def test_flash_block_is_a_bijection_onto_tiles_and_slices(n_qt, n_sl):
+    """``flash_block`` (both kernels' decode of the grid) maps the blocks of
+    ``flash_grid``'s y and z one to one onto (q tile, slice), the blocks
+    past the end (the grid's rounding) to None, in a (n_qt, n_sl) grid's
+    order with the heaviest (last) q tile first; x is the batch x head.
+    Past 65,535 tiles (the old limit) the blocks at both ends and a sample
+    between are checked, without computing any attention."""
+    n = n_qt * n_sl
+    ny = min(n, ops.GRID_YZ)
+    nz = -(-n // ny)
+    assert ny <= ops.GRID_YZ and nz <= ops.GRID_YZ and ny * nz >= n
+    idx = (range(ny * nz) if ny * nz <= 4096 else
+           [*range(2048), *range(ny * nz - 2048, ny * nz),
+            *np.random.RandomState(n % 97).randint(0, ny * nz, 2048)
+            .tolist()])
+    seen = set()
+    for i in idx:
+        got = ops.flash_block(3, i % ny, i // ny, ny, n_qt, n_sl)
+        if i >= n:
+            assert got is None
+            continue
+        assert got == (3, n_qt - 1 - i % n_qt, i // n_qt)
+        seen.add(got)
+    assert len(seen) == len({i for i in idx if i < n})
+    if ny * nz <= 4096:
+        assert len(seen) == n
+    assert ops.flash_block(0, 0, 0, ny, n_qt, n_sl) == (0, n_qt - 1, 0)
+    last = n - 1
+    assert ops.flash_block(0, last % ny, last // ny, ny, n_qt, n_sl) == (
+        0, 0, n_sl - 1)
+
+
+def test_grid_and_slices_follow_the_kernel_sources():
+    """The wrapper's grid (``flash_grid``, ``SLICE_COLS``, ``GRID_YZ``) is
+    what both sources launch (their ``grid_of``): x = B Hq, the (q tile,
+    slice) indices over y and z, q tiles of 128 rows (64 on the float32
+    route past d = 128), slices of 256 output columns past d = 256."""
+    from repro_torch.kernels import _build
+    for name in set(ops.SOURCES.values()):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"constexpr int kSlice = {ops.SLICE_COLS};" in src
+        assert f"n_lin < {ops.GRID_YZ} ? n_lin : {ops.GRID_YZ}" in src
+        assert "blockIdx.y + gridDim.y * blockIdx.z" in src
+        assert "n_qt <= 65535 &&" not in src         # the old refusal
+    assert ops.flash_grid(torch.bfloat16, 2, 20, 4096, 128) == (
+        (40, 32, 1), 32, 1)
+    assert ops.flash_grid(torch.float32, 1, 8, 2048, 512) == (
+        (8, 64, 1), 32, 2)
+    assert ops.flash_grid(torch.float16, 1, 1, 8388736, 64) == (
+        (1, 65535, 2), 65537, 1)
+    assert ops.flash_grid(torch.float32, 1, 1, 4194368, 256) == (
+        (1, 65535, 2), 65537, 1)
 
 
 def test_launch_arguments_follow_the_c_entries(monkeypatch):

@@ -5,6 +5,8 @@ wrapper's refusals; a plain emulation of the sm90 kernel's arithmetic
 combine, the output pass, 3xTF32 products) against both, and the kernel's
 tiling (``ops.plan``). The CUDA kernel is held against the plain version on
 the card by chip_smoke.py."""
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -129,20 +131,26 @@ def test_wrapper_refusals():
         scan(q, k, v, lf[:, :1], li, chunk=16)
     with pytest.raises(ValueError, match="one \\(B, H, S, dh\\)"):
         scan(q, k[:, :1], v, lf, li, chunk=16)
-    # the kernel's own limits: checked on the CUDA branch only
-    with pytest.raises(ValueError, match=f"chunk <= {ops.MAX_CHUNK}"):
-        ops._check_kernel(512, 8)
-    with pytest.raises(ValueError, match=f"dh <= {ops.MAX_HEAD_DIM}"):
-        ops._check_kernel(8, ops.MAX_HEAD_DIM + 8)
-    ops._check_kernel(ops.MAX_CHUNK, ops.MAX_HEAD_DIM)
+    # the kernel's old limits (chunk 256, dh 512) are gone: past them the
+    # plan slices the outputs pass, and what is still refused is a device
+    # with no kernel (meta tensors: only the shapes are read)
+    for S, dh, chunk in ((512, 8, 512), (16, 520, 8), (2048, 1024, 1024)):
+        p = ops.plan(S, dh, chunk)
+        assert p["sliced"] and p["smem_outputs"] <= ops.MAX_SMEM
+        m = [torch.empty(1, 1, S, dh, device="meta")] * 3 + \
+            [torch.empty(1, 1, S, device="meta")] * 2
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            scan(*m, chunk=chunk)
+    assert not ops.plan(256, ops.BLOCK_DH, ops.BLOCK_CHUNK)["sliced"]
 
 
 @pytest.mark.parametrize("S,dh,chunk", [(512, 8, 512), (16, 520, 8)])
 def test_wrapper_matches_the_pallas_kernel_past_the_kernel_s_limits(S, dh,
                                                                     chunk):
-    """Chunk 512 and dh 520, which the Pallas kernel computes and only the
-    card's kernel refuses (``_check_kernel``): the CPU wrapper's plain
-    version against the Pallas kernel and the oracle."""
+    """Chunk 512 and dh 520, which the Pallas kernel computes and the
+    card's kernel takes by its sliced routes (``plan``'s ``sliced``): the
+    CPU wrapper's plain version against the Pallas kernel and the
+    oracle."""
     x = _inputs(np.random.RandomState(S + dh), 1, 2, S, dh)
     kernel = np.asarray(jmlstm_scan(*_jax(x), chunk=chunk, interpret=True))
     got = ops.mlstm_scan(*_torch(x), chunk=chunk).numpy()
@@ -194,10 +202,15 @@ def test_kernel_bench_3xtf32_bound_at_the_layer_shape():
 
 # ---- the sm90 kernel's arithmetic, in plain PyTorch -------------------------
 
-def _sm90_emulate(q, k, v, lf, li, chunk):
+def _sm90_emulate(q, k, v, lf, li, chunk, keys=None, cols=None):
     """What csrc/mlstm_scan_sm90.cu computes, pass by pass. Returns h in q's
     dtype and the scalars (m entering each chunk, the row stabilizers m_i
-    and the rows' intra-chunk maxima)."""
+    and the rows' intra-chunk maxima). With ``keys`` and ``cols`` the
+    outputs pass is the sliced one (outputs_sliced_kernel): per slice of
+    ``cols`` output columns, q.C_prev over those columns, then the chunk's
+    keys in slices of ``keys``, each S = q.k^T over the full dh, P with the
+    scalar pass's m_i (no rescale), its row sums added to a running sum and
+    P.V over the columns."""
     B, H, S, dh = q.shape
     L, nc = chunk, S // chunk
     qs = (q.float() * dh ** -0.5).reshape(B, H, nc, L, dh)
@@ -233,15 +246,31 @@ def _sm90_emulate(q, k, v, lf, li, chunk):
     # pass 3: P = e^(D - m_i) (q.k^T), its row sums, q.C_prev and P.V
     hs = []
     for c in range(nc):
-        s = mm3(qs[:, :, c], kc[:, :, c].transpose(-1, -2))
         w = torch.where(causal, torch.exp(dlog[:, :, c]
                                           - Mi[:, :, c, :, None]),
                         torch.tensor(0.0))
-        P = w * s
-        den = P.sum(-1) + (qs[:, :, c] * ns[c][:, :, None, :]).sum(-1) \
-            * Sf[:, :, c]
-        O = mm3(qs[:, :, c], Cs[c]) * Sf[:, :, c, :, None] \
-            + mm3(P, vc[:, :, c])
+        qn = (qs[:, :, c] * ns[c][:, :, None, :]).sum(-1) * Sf[:, :, c]
+        if keys is None:
+            s = mm3(qs[:, :, c], kc[:, :, c].transpose(-1, -2))
+            P = w * s
+            den = P.sum(-1) + qn
+            O = mm3(qs[:, :, c], Cs[c]) * Sf[:, :, c, :, None] \
+                + mm3(P, vc[:, :, c])
+        else:
+            den = torch.zeros(B, H, L)
+            O = torch.zeros(B, H, L, dh)
+            for e0 in range(0, dh, cols):
+                ce = slice(e0, min(dh, e0 + cols))
+                Oc = mm3(qs[:, :, c], Cs[c][..., ce]) * Sf[:, :, c, :, None]
+                dc = torch.zeros(B, H, L)
+                for j0 in range(0, L, keys):
+                    kj = slice(j0, min(L, j0 + keys))
+                    P = w[..., kj] * mm3(qs[:, :, c],
+                                         kc[:, :, c, kj].transpose(-1, -2))
+                    dc = dc + P.sum(-1)
+                    Oc = Oc + mm3(P, vc[:, :, c, kj, ce])
+                O[..., ce] = Oc
+                den = dc + qn          # the same in every column slice
         hs.append(O / torch.maximum(den.abs(), torch.exp(-Mi[:, :, c]))
                   [..., None])
     h = torch.stack(hs, 2).reshape(B, H, S, dh).to(q.dtype)
@@ -378,14 +407,106 @@ def test_workspace_shapes_and_the_cpu_route():
 
 
 def test_wrapper_refuses_past_the_kernels_limits():
-    """The limits of the card's kernel, through the helper the CUDA branch
-    calls before any launch; a device with no kernel raises."""
-    with pytest.raises(ValueError, match="dh <= 512"):
-        ops._check_kernel(257, ops.MAX_HEAD_DIM + 1)
-    with pytest.raises(ValueError, match="chunk <= 256"):
-        ops._check_kernel(257, 8)
+    """Past the old limits (chunk 257, dh 513) the wrapper's checks pass and
+    the plan takes the sliced routes, the states' stride rounded up to 128
+    and one column slice per 512 columns; the CPU path computes the shape;
+    a device with no kernel still raises."""
+    p = ops.plan(514, ops.BLOCK_DH + 1, 257)
+    assert p["sliced"] and (p["nt"], p["dhp"], p["bn"]) == (8, 640, 128)
+    assert (p["col_slices"], p["key_slices"], p["lp"]) == (2, 2, 256)
+    p = ops.plan(514, 8, 257)
+    assert p["sliced"] and (p["nt"], p["dhp"], p["bn"]) == (1, 64, 64)
+    assert (p["col_slices"], p["key_slices"]) == (1, 2)
     gates = torch.zeros(1, 1, 514)
     long = torch.zeros(1, 1, 514, 8)
+    assert ops.mlstm_scan(long, long, long, gates, gates,
+                          chunk=257).shape == long.shape
     with pytest.raises(ValueError, match="no kernel for meta"):
         m = [t.to("meta") for t in (long, long, long, gates, gates)]
         ops.mlstm_scan(*m, chunk=2)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        m = [t.to("meta") for t in (long, long, long, gates, gates)]
+        ops.mlstm_scan(*m, chunk=257)
+
+
+SLICED_CASES = [
+    # B, H, nc, dh, chunk, keys, cols, dtype
+    (1, 2, 2, 16, 64, 16, 8, "float32"),      # 4 key slices, 2 col slices
+    (1, 1, 1, 40, 48, 16, 16, "float32"),     # ragged slices, one chunk
+    (2, 1, 3, 24, 32, 8, 16, "float32"),
+    (1, 2, 2, 32, 64, 32, 32, "bfloat16"),
+    (1, 1, 2, 16, 48, 16, 8, "float16"),
+]
+
+
+@pytest.mark.parametrize("B,H,nc,dh,chunk,keys,cols,dtype", SLICED_CASES)
+def test_sm90_sliced_outputs_match_the_pallas_kernel(B, H, nc, dh, chunk,
+                                                     keys, cols, dtype):
+    """The sliced outputs pass (column slices of ``cols``, key slices of
+    ``keys``, as the card's kernel runs past chunk 256 or dh 512) against
+    the Pallas kernel in interpret mode and the single-block emulation, at
+    slice widths of 8-32 so that dh and chunk <= 64 take several slices."""
+    S = nc * chunk
+    x = _inputs(np.random.RandomState(dh * 11 + S), B, H, S, dh)
+    jx, tx = _jax(x), _torch(x)
+    tol = F32_TOL
+    if dtype in LOW:
+        jdt, tdt, tol = LOW[dtype]
+        jx[:3] = [a.astype(jdt) for a in jx[:3]]
+        tx[:3] = [t.to(tdt) for t in tx[:3]]
+    kernel = np.asarray(jmlstm_scan(*jx, chunk=chunk, interpret=True)
+                        .astype(jnp.float32))
+    got, _ = _sm90_emulate(*tx, chunk, keys=keys, cols=cols)
+    whole, _ = _sm90_emulate(*tx, chunk)
+    np.testing.assert_allclose(got.float().numpy(), kernel, **tol)
+    np.testing.assert_allclose(got.float().numpy(), whole.float().numpy(),
+                               **tol)
+
+
+def test_a_long_chunk_is_one_chunk_in_key_slices():
+    """The sliced route computes a chunk of 64 as one chunk (its keys in
+    slices of 32, the stabilizer m_i from the scalar pass), as the Pallas
+    kernel takes chunk=64, including where the floor of the denominator
+    binds (m_i at -40). Splitting it into two chunks of 32 would be another
+    computation: it agrees here only to rounding (m_i is the running
+    maximum of the log weights either way, floored at -40), which the
+    route does not rely on."""
+    rng = np.random.RandomState(21)
+    x = list(_inputs(rng, 1, 2, 128, 16, 1e-8, 1e-6))
+    x[4] = (rng.randn(1, 2, 128) * 2.0 - 42.0).astype(np.float32)
+    x[4][0, 1, 40] = 9.0             # a large input gate mid-chunk
+    kernel = np.asarray(jmlstm_scan(*_jax(x), chunk=64, interpret=True))
+    got, sc = _sm90_emulate(*_torch(x), 64, keys=32, cols=8)
+    assert bool((sc["m_i"] == MMIN).any()) and bool((sc["m_i"] > MMIN).any())
+    np.testing.assert_allclose(got.numpy(), kernel, **F32_TOL)
+    one = mlstm_scan_ref(*_torch(x), chunk=64).numpy()
+    two = mlstm_scan_ref(*_torch(x), chunk=32).numpy()
+    np.testing.assert_allclose(one, kernel, **F32_TOL)
+    np.testing.assert_allclose(two, one, **F32_TOL)
+
+
+def test_plan_and_the_kernel_source_agree():
+    """Build-free: the wrapper's block limits and sliced tiles are the
+    source's (kMaxChunk, kMaxDh, make_plan's nt and stride rule and its
+    launch switch), and the source has no shape limit left but a grid's
+    2^31 - 1 blocks."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "mlstm_scan_sm90.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kMaxChunk|kMaxDh) = (\d+);",
+                             src))
+    assert consts == {"kMaxChunk": str(ops.BLOCK_CHUNK),
+                      "kMaxDh": str(ops.BLOCK_DH)}
+    inst = {int(n) for n in re.findall(r"outputs_sliced_kernel<T, (\d+)>",
+                                       src)}
+    assert inst == set(ops.SLICED_TILES)
+    assert "dh <= 64 ? 1 : dh <= 256 ? 4 : 8" in src
+    assert "(dh + 127) / 128 * 128" in src
+    assert "dh > kMaxDh || chunk <= 0" not in src     # the old refusal
+    for dh in (1, 64, 65, 256, 257, 512, 513, 520, 768, 1024, 4096):
+        for chunk in (1, 64, 256, 257, 512, 1024):
+            p = ops.plan(4 * chunk, dh, chunk)
+            assert p["nt"] in (ops.SLICED_TILES if p["sliced"]
+                               else ops.OUTPUT_TILES)
+            assert p["col_slices"] * 64 * p["nt"] >= dh
+            assert p["dhp"] >= dh and p["dhp"] % p["bn"] == 0
+            assert p["smem_outputs"] <= ops.MAX_SMEM

@@ -202,14 +202,23 @@ def test_wrapper_raises_at_a_bad_id_inside_the_length(Hq, Hkv, d, page):
 
 
 def test_head_dim_limit_is_the_kernel_s_alone():
-    """``_check_kernel``, which only the CUDA branch calls, refuses a head
-    dim past ``KERNEL_MAX_HEAD_DIM``; the CPU path computes it."""
-    ops._check_kernel(ops.KERNEL_MAX_HEAD_DIM)
-    with pytest.raises(ValueError, match="head_dim <= 2048"):
-        ops._check_kernel(ops.KERNEL_MAX_HEAD_DIM + 1)
-    x = _inputs(14, 1, 2, 1, ops.KERNEL_MAX_HEAD_DIM + 8, 4, 2, 4,
-                lengths=[6])
+    """No head dim is refused any more: past 2048 (where a row no longer
+    fits a lane group's registers) the card's kernel takes the wide route,
+    in slices of ``WIDE_COLS`` columns, and the CPU path computes the same
+    shape; what a CUDA-less device still gets is a refusal to launch."""
+    for elt in (4, 2):
+        assert not ops.wide_route(2048, elt) and ops.wide_route(2049, elt)
+        assert ops.n_slices(2048, elt) == 1
+        assert ops.n_slices(2056, elt) == 2
+        assert ops.n_slices(16384, elt) == 8
+        assert ops.tile_rows(8, 2056, elt) == 8
+        assert ops.tile_rows(3, 16384, elt) == 4
+    x = _inputs(14, 1, 2, 1, 2048 + 8, 4, 2, 4, lengths=[6])
     _wrapper_vs_pallas(x, "float32")
+    meta = {n: torch.from_numpy(a).to("meta") for n, a in x.items()}
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        ops.paged_attention(meta["q"], meta["k"], meta["v"], meta["pt"],
+                            meta["lengths"])
 
 
 # --- the sm90 kernel (csrc/paged_attention_sm90.cu): group tiles, stages,
@@ -409,24 +418,216 @@ def _pick_nvl(G, vec, nv):
 
 def test_tile_rows_and_the_kernel_source_agree():
     """Build-free: the wrapper's tile limits are the source's, and every
-    (rows, vectors per lane) pair that a head dim up to the card's limit
-    and any group size give has an instance in the launch switch; one
-    past that head dim breaks the source's lane rule in float32."""
+    (rows, vectors per lane) pair that a head dim of the register route
+    and any group size give has an instance in the launch switch; the
+    first head dim past it breaks the source's lane rule at one row (its
+    ``wide_route``), and the wide route has an instance for every tile of
+    rows ``tile_rows`` gives there, with the source's slice width."""
     consts, pairs = _source_plan()
     assert consts == {"kMaxRows": ops.MAX_TILE_ROWS,
                       "kMaxLaneFloats": ops.MAX_LANE_FLOATS}
+    src = _SM90_SRC.read_text()
+    assert f"constexpr int kWideCols = {ops.WIDE_COLS};" in src
+    wide_g = {int(g) for g in re.findall(r"case (\d+): err = launch_wide",
+                                         src)}
     for elt in (4, 2):
         vec, seen = 16 // elt, set()
-        for d in range(1, ops.KERNEL_MAX_HEAD_DIM + 1):
+        d = 1
+        while not ops.wide_route(d, elt):
             nv = -(-d * elt // 16)
             lane = 1 << max(0, -(-nv // 32) - 1).bit_length()
             for g in (1, 2, 3, 4, 5, 8, 9, 71):
                 G = ops.tile_rows(g, d, elt)
                 assert G * lane * vec <= ops.MAX_LANE_FLOATS   # make_plan
                 seen.add((G, _pick_nvl(G, vec, nv)))
+            d += 1
         assert seen == pairs[elt], elt
-    nv = -(-(ops.KERNEL_MAX_HEAD_DIM + 1) * 4 // 16)
-    assert (1 << (-(-nv // 32) - 1).bit_length()) * 4 > ops.MAX_LANE_FLOATS
+        assert d == 2049                     # the register route's last: 2048
+        nv = -(-d * elt // 16)
+        assert (1 << (-(-nv // 32) - 1).bit_length()) * vec \
+            > ops.MAX_LANE_FLOATS
+        for dw in (d, 4096, 16384, 65536 + 3):
+            assert {ops.tile_rows(g, dw, elt)
+                    for g in (1, 2, 3, 4, 5, 8, 9, 71)} == wide_g
+    assert "65535" not in src and "blockIdx.y" not in src
+
+
+# --- the wide route (d > 2048 on the card): output slices, scores streamed
+# over the full d, keys in chunks --------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _wide_emulate(q, k, v, pt, lengths, softcap=0.0, pps=1,
+                  cols=ops.WIDE_COLS, keys=32):
+    """What the sm90 kernel's wide route computes, block by block: per
+    (sequence, kv head, group tile of ``tile_rows``, split of ``pps``
+    slots, output slice of ``cols`` columns) the split's live keys in
+    chunks of ``keys``: scores over the full d in log2 units (the same in
+    every slice: the kernel recomputes them per slice), the softcap in log2
+    units, the chunk's max and the running max and sum, p.V over the
+    slice's columns. A bad id inside the length gives NaN; the splits
+    merge by the combine kernel's log-sum-exp rule. ``cols`` and ``keys``
+    are arguments so that a small d takes several slices and a short
+    sequence several chunks."""
+    B, Hq, d = q.shape
+    P, Hkv, page, _ = k.shape
+    g = Hq // Hkv
+    rows = ops.tile_rows(g, max(d, 2049), q.element_size())
+    n_slots = pt.shape[1]
+    n_split = -(-n_slots // pps)
+    n_sl = -(-d // cols)
+    scale = LOG2E / math.sqrt(d)
+    cap_in = math.log(2) / softcap if softcap else 0.0
+    qf = q.float().reshape(B, Hkv, g, d)
+    out = torch.zeros(B, Hkv, g, d)
+    for b in range(B):
+        n_keys = min(max(int(lengths[b]), 0), n_slots * page)
+        for h in range(Hkv):
+            for t0 in range(0, g, rows):
+                qt = qf[b, h, t0:t0 + rows]                 # (G, d)
+                parts = []
+                for s in range(n_split):
+                    k0, k1 = s * pps * page, min(n_keys, (s + 1) * pps * page)
+                    if k1 <= k0:
+                        continue                            # not live
+                    acc = torch.zeros(len(qt), d)
+                    ms = []
+                    for sl in range(n_sl):
+                        c = slice(sl * cols, min(d, (sl + 1) * cols))
+                        m = torch.full((len(qt),), -math.inf)
+                        l = torch.zeros(len(qt))
+                        bad = False
+                        for c0 in range(k0, k1, keys):
+                            pos = range(c0, min(k1, c0 + keys))
+                            ids = [int(pt[b, p // page]) for p in pos]
+                            if any(not 0 <= i < P for i in ids):
+                                bad = True
+                                break
+                            kr = torch.stack([k[i, h, p % page].float()
+                                              for i, p in zip(ids, pos)])
+                            vr = torch.stack([v[i, h, p % page, c].float()
+                                              for i, p in zip(ids, pos)])
+                            x = (qt @ kr.T) * scale
+                            if cap_in:
+                                x = torch.tanh(x * cap_in) / cap_in
+                            m_new = torch.maximum(m, x.amax(-1))
+                            corr = torch.exp2(m - m_new)
+                            p_ = torch.exp2(x - m_new[:, None])
+                            l = l * corr + p_.sum(-1)
+                            acc[:, c] = acc[:, c] * corr[:, None] + p_ @ vr
+                            m = m_new
+                        if bad:
+                            m = l = torch.full((len(qt),), math.nan)
+                        ms.append((m, l))
+                    # every slice saw the same scores: the same m and l
+                    for m_, l_ in ms[1:]:
+                        torch.testing.assert_close(m_, ms[0][0],
+                                                   equal_nan=True)
+                        torch.testing.assert_close(l_, ms[0][1],
+                                                   equal_nan=True)
+                    parts.append((acc, *ms[0]))
+                if not parts:
+                    continue                                # length 0: 0
+                M = torch.stack([m for _, m, _ in parts]).amax(0)
+                L = sum(l * torch.exp2(m - M) for _, m, l in parts)
+                A = sum(a * torch.exp2(m - M)[:, None] for a, m, _ in parts)
+                out[b, h, t0:t0 + rows] = A / L.clamp_min(1e-30)[:, None]
+    return out.reshape(B, Hq, d).to(q.dtype)
+
+
+WIDE_CASES = {
+    # name: (B, Hq, Hkv, d, page, n_slots, P, lengths, pps, cols, keys,
+    #        dtype, softcap)
+    "g1_three_slices": (2, 2, 2, 40, 8, 4, 16, None, 4, 16, 8, "float32",
+                        0.0),
+    "g8_two_slices_chunks": (2, 8, 1, 32, 8, 5, 16, [37, 19], 5, 16, 8,
+                             "float32", 0.0),
+    "g8_softcap_split": (2, 16, 2, 48, 8, 6, 24, [40, 13], 2, 16, 8,
+                         "float32", 30.0),
+    "g3_partial_tile_bf16": (2, 6, 2, 64, 16, 3, 12, None, 1, 16, 32,
+                             "bfloat16", 0.0),
+    "g8_f16_length_0_split": (3, 8, 1, 24, 8, 4, 16, [0, 29, 8], 1, 8, 8,
+                              "float16", 30.0),
+    "slice_wider_than_d": (2, 4, 2, 24, 8, 4, 16, None, 2, 2048, 32,
+                           "float32", 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_route_arithmetic_matches_pallas_kernel(case):
+    """The wide route's tiling (output slices of ``cols`` columns, scores
+    over the full d per slice, keys in chunks, splits merged) against the
+    Pallas kernel in interpret mode, at slice widths of 8 and 16 so that d
+    <= 64 runs in several slices."""
+    (B, Hq, Hkv, d, page, n_slots, P, lengths, pps, cols, keys, dtype,
+     cap) = WIDE_CASES[case]
+    jdt, tdt, tol = DTYPES[dtype]
+    x = _inputs(17, B, Hq, Hkv, d, page, n_slots, P, lengths)
+    got = _run_port(x, tdt, softcap=cap, fn=functools.partial(
+        _wide_emulate, pps=pps, cols=cols, keys=keys))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _run_jax(x, jdt, softcap=cap), **tol)
+    if lengths is not None and 0 in lengths:
+        assert np.all(got[lengths.index(0)] == 0.0)
+
+
+@pytest.mark.parametrize("pps", [1, 4])
+def test_wide_route_bad_id_gives_nan_on_its_sequence_only(pps):
+    x = _inputs(18, 3, 8, 2, 32, 8, 4, 16, lengths=[30, 25, 7])
+    want = _run_port(x, torch.float32)
+    x["pt"][1, 2] = 16           # slot 2 starts at 16 < 25
+    x["pt"][2, 3] = -5           # past the length of 7: never read
+    got = _run_port(x, torch.float32, fn=functools.partial(
+        _wide_emulate, pps=pps, cols=16, keys=8))
+    assert np.isnan(got[1]).all()
+    np.testing.assert_allclose(got[[0, 2]], want[[0, 2]], **F32_TOL)
+
+
+@pytest.mark.parametrize("n_tiles,n_sl,n_split,Hkv,B", [
+    (1, 1, 1, 1, 1), (3, 1, 2, 4, 5), (2, 3, 2, 2, 3), (9, 1, 1, 1, 2),
+    (1, 1, 1, 1, 65543), (1, 1, 1, 65539, 1), (2, 8, 3, 2, 2),
+    (1, 1, 4, 3, 65536 + 7)])
+def test_paged_block_is_a_bijection_onto_the_kernel_s_blocks(
+        n_tiles, n_sl, n_split, Hkv, B):
+    """``paged_block`` (the kernel's decode of the grid's x index) maps the
+    blocks one to one onto (b, kv head, tile, slice, split), tiles fastest,
+    then slices, splits, kv heads and sequences; grids past 65,535
+    sequences or kv heads (the old y and z limits) are checked at both ends
+    and on a sample between, without computing any attention."""
+    n = n_tiles * n_sl * n_split * Hkv * B
+    xs = (range(n) if n <= 4096 else
+          [*range(2048), *range(n - 2048, n),
+           *np.random.RandomState(n % 89).randint(0, n, 2048).tolist()])
+    seen = set()
+    for x in xs:
+        b, h, tile, sl, split = got = ops.paged_block(x, n_tiles, n_sl,
+                                                      n_split, Hkv)
+        assert 0 <= b < B and 0 <= h < Hkv and 0 <= tile < n_tiles
+        assert 0 <= sl < n_sl and 0 <= split < n_split
+        assert x == tile + n_tiles * (sl + n_sl * (split + n_split *
+                                                   (h + Hkv * b)))
+        seen.add(got)
+    assert len(seen) == len(set(xs))
+    assert ops.paged_block(n - 1, n_tiles, n_sl, n_split, Hkv) == (
+        B - 1, Hkv - 1, n_tiles - 1, n_sl - 1, n_split - 1)
+
+
+def test_plain_version_at_65543_sequences_matches_the_jax_reference():
+    """K1's plain version (the card's yardstick) at more sequences than a
+    grid dimension of 65,535 holds, d = 4, one kv head of g = 2, pages of
+    4, against ``repro.kernels.paged_attention.ref`` (interpret mode is
+    far too slow at this B; every length >= 1, where the two agree)."""
+    from repro.kernels.paged_attention.ref import paged_attention_ref as jref
+    B = 65536 + 7
+    x = _inputs(19, B, 2, 1, 4, 4, 2, 64)
+    x["lengths"] = np.maximum(x["lengths"], 1)
+    got = _run_port(x, torch.float32, fn=ops.paged_attention)
+    want = np.asarray(jref(jnp.asarray(x["q"]), jnp.asarray(x["k"]),
+                           jnp.asarray(x["v"]), jnp.asarray(x["pt"]),
+                           jnp.asarray(x["lengths"])))
+    assert got.shape == (B, 2, 4)
+    np.testing.assert_allclose(got, want, **F32_TOL)
 
 
 def test_pages_per_split_never_takes_lengths():

@@ -29,6 +29,7 @@ each within 2 lr per update, while the moments meet the f32 bar. Prefill and
 decode logits: tests/test_torch_lm.py's bar (atol=2e-4, rtol=2e-3). The
 port's three remat modes are held to each other bit for bit.
 """
+import shutil
 import tempfile
 from pathlib import Path
 
@@ -89,6 +90,19 @@ CASES = [("qwen1.5-4b", {}),
 AT_ROUNDING = {"hymba-1.5b"}      # a gradient that cancels to ~1e-8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """pytest-xdist runs several workers on the machine's cores, and
+    torch's default of one thread per core in each oversubscribes them:
+    the threads' barriers then cost more than the reduced models' small
+    ops they split. Two threads a worker in this module; the default comes
+    back after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch):
     n = ARCH_LAYERS[arch]
     return (jreduced(jget_config(arch), n_layers=n),
@@ -117,6 +131,39 @@ def _batches(cfg, n, seed=1, B=B, S=S):
                 "labels": torch.from_numpy(toks[:, 1:].copy())})
 
 
+@pytest.fixture(scope="module")
+def port_steps():
+    """``get(arch, kw)``: the port's three ``build_train_step`` steps
+    (``STEP_KW`` and ``kw``) from the reference's initial weights
+    (``_jax_params``), as (metrics, params, AdamW state) after each step,
+    cloned. The run is a function of (arch, kw) alone, so it is computed
+    once per module and shared by the tests that drive it: the reference
+    match of each case and the remat modes' bit-identity."""
+    runs = {}
+
+    def get(arch, kw):
+        key = (arch, tuple(sorted(kw.items())))
+        if key not in runs:
+            runs[key] = _port_run(arch, kw)
+        return runs[key]
+    return get
+
+
+def _port_run(arch, kw):
+    jcfg, cfg = _configs(arch)
+    run = RunConfig(**{**STEP_KW, **kw})
+    fn = steps.build_train_step(cfg, run, ShapeConfig("t", "train", S, B))
+    p = _to_port(_jax_params(jcfg))
+    opt, err, out = adamw.init(p), torch.zeros(()), []
+    for step, (_, tb) in enumerate(_batches(cfg, 3)):
+        p, opt, err, m = fn(p, opt, err, tb, step)
+        assert set(m) == {"loss", "grad_norm", "lr"}
+        out.append(({k: float(v) for k, v in m.items()},
+                    tree_lib.tree_map(torch.clone, p),
+                    tree_lib.tree_map(torch.clone, opt)))
+    return out
+
+
 def _close(name, ours, ref, atol=TOL["atol"], strays=False, cap=None):
     """Every leaf within (atol, TOL's rtol); with ``strays``, at most 0.1%
     of a leaf's elements (and at least two) may lie outside, each within
@@ -139,22 +186,26 @@ def _close(name, ours, ref, atol=TOL["atol"], strays=False, cap=None):
 @pytest.mark.parametrize("arch,kw", CASES,
                          ids=[f"{a}-{'-'.join(map(str, k.values())) or 'plain'}"
                               for a, k in CASES])
-def test_train_step_matches_reference(arch, kw):
+def test_train_step_matches_reference(arch, kw, port_steps):
     jcfg, cfg = _configs(arch)
     kw = {**STEP_KW, **kw}
     jrun, run = JRunConfig(**kw), RunConfig(**kw)
     jfn, _ = jsteps.build_train_step(jcfg, jrun, make_local_mesh(),
                                      JShapeConfig("t", "train", S, B))
     jfn = jax.jit(jfn)
-    fn = steps.build_train_step(cfg, run, ShapeConfig("t", "train", S, B))
     jp = _jax_params(jcfg)
-    p = _to_port(jp)
-    jopt, opt = jadamw.init(jp), adamw.init(p)
+    jopt = jadamw.init(jp)
     topk = run.grad_compression == "topk"
     jerr = (jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, jnp.float32),
                                    jp) if topk else jnp.zeros(()))
-    err = (tree_lib.tree_map(torch.zeros_like, p) if topk
-           else torch.zeros(()))
+    if topk:        # the port's steps restart from the reference's state
+        fn = steps.build_train_step(cfg, run,
+                                    ShapeConfig("t", "train", S, B))
+        p = _to_port(jp)
+        opt, err = adamw.init(p), tree_lib.tree_map(torch.zeros_like, p)
+    else:           # the port's run alone, shared with the remat test
+        port = port_steps(arch, {k: v for k, v in kw.items()
+                                 if k not in STEP_KW or STEP_KW[k] != v})
     updates = 0
     for step, (jb, tb) in enumerate(_batches(cfg, 3)):
         if topk and step:       # each top-k step from the reference's state
@@ -162,7 +213,10 @@ def test_train_step_matches_reference(arch, kw):
             opt = adamw.AdamWState(torch.tensor(step, dtype=torch.int32),
                                    _to_port(jopt.mu), _to_port(jopt.nu))
         jp, jopt, jerr, jm = jfn(jp, jopt, jerr, jb, jnp.int32(step))
-        p, opt, err, m = fn(p, opt, err, tb, step)
+        if topk:
+            p, opt, err, m = fn(p, opt, err, tb, step)
+        else:
+            m, p, opt = port[step]
         assert set(m) == {"loss", "grad_norm", "lr"}
         for k in m:
             np.testing.assert_allclose(float(m[k]), float(jm[k]), **TOL,
@@ -195,18 +249,15 @@ def test_topk_compress_matches_reference(ratio):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "xlstm-125m"])
-def test_remat_modes_are_bit_identical(arch):
-    _, cfg = _configs(arch)
+def test_remat_modes_are_bit_identical(arch, port_steps):
+    """Three steps in each remat mode, from the reference's initial weights
+    (the runs the reference match drives, ``port_steps``): the metrics of
+    every step and the final parameters and AdamW state bit for bit."""
     out = {}
     for mode in ("none", "full", "dots"):
-        run = RunConfig(**{**STEP_KW, "remat": mode})
-        fn = steps.build_train_step(cfg, run, ShapeConfig("t", "train", S, B))
-        p = get_model(cfg).init(torch.Generator().manual_seed(0))
-        opt, err, log = adamw.init(p), torch.zeros(()), []
-        for step, (_, tb) in enumerate(_batches(cfg, 3)):
-            p, opt, err, m = fn(p, opt, err, tb, step)
-            log.append([float(v) for v in m.values()])
-        out[mode] = (log, tree_lib.leaves((p, opt)))
+        run = port_steps(arch, {} if mode == "none" else {"remat": mode})
+        out[mode] = ([list(m.values()) for m, _, _ in run],
+                     tree_lib.leaves(run[-1][1:]))
     for mode in ("full", "dots"):
         assert out[mode][0] == out["none"][0], mode
         assert all(torch.equal(a, b)
@@ -327,34 +378,43 @@ def _trainer(tmp, **kw):
                    device="cpu", **kw)
 
 
-def test_trainer_loss_decreases_and_resumes():
-    with tempfile.TemporaryDirectory() as d:
-        tr = _trainer(d)
-        st = tr.train(9)
-        losses = [m["loss"] for m in tr.metrics_log]
-        assert losses[-1] < losses[0]
-        assert [m["step"] for m in tr.metrics_log] == list(range(1, 10))
-        tr2 = _trainer(d)
-        st2 = tr2.maybe_restore()
-        assert st2 is not None and st2.step == 8
-        assert tr2.events == ["restored step 8"]
-        # the resumed run repeats the continuous run's ninth step exactly
-        st2 = tr2.train(1, state=st2)
-        assert st2.step == 9
-        assert tr2.metrics_log[0]["loss"] == tr.metrics_log[-1]["loss"]
-        assert all(torch.equal(a, b) for a, b in
-                   zip(tree_lib.leaves(st2.params), tree_lib.leaves(st.params)))
-        st2 = tr2.train(1, state=st2)
-        assert st2.step == 10
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Nine steps of one Trainer that checkpoints every 2 steps (what it
+    saves does not touch the state it trains), shared by the two tests
+    below: (its checkpoint directory, the Trainer, the final state)."""
+    d = tmp_path_factory.mktemp("trainer")
+    tr = _trainer(str(d))
+    tr.ckpt_every = 2
+    st = tr.train(9)
+    return str(d), tr, st
 
 
-def test_trainer_checkpoints_every_n_steps_and_prunes():
-    with tempfile.TemporaryDirectory() as d:
-        tr = _trainer(d)
-        tr.ckpt_every = 2
-        tr.train(9)
-        assert sorted(p.name for p in Path(d).glob("step_*")) == [
-            "step_00000004", "step_00000006", "step_00000008"]
+def test_trainer_loss_decreases_and_resumes(trained, tmp_path):
+    src, tr, st = trained
+    d = str(tmp_path / "ckpt")         # the resumed run saves into a copy
+    shutil.copytree(src, d)
+    losses = [m["loss"] for m in tr.metrics_log]
+    assert losses[-1] < losses[0]
+    assert [m["step"] for m in tr.metrics_log] == list(range(1, 10))
+    tr2 = _trainer(d)
+    st2 = tr2.maybe_restore()
+    assert st2 is not None and st2.step == 8
+    assert tr2.events == ["restored step 8"]
+    # the resumed run repeats the continuous run's ninth step exactly
+    st2 = tr2.train(1, state=st2)
+    assert st2.step == 9
+    assert tr2.metrics_log[0]["loss"] == tr.metrics_log[-1]["loss"]
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_lib.leaves(st2.params), tree_lib.leaves(st.params)))
+    st2 = tr2.train(1, state=st2)
+    assert st2.step == 10
+
+
+def test_trainer_checkpoints_every_n_steps_and_prunes(trained):
+    d, _, _ = trained
+    assert sorted(p.name for p in Path(d).glob("step_*")) == [
+        "step_00000004", "step_00000006", "step_00000008"]
 
 
 def test_trainer_straggler_exclusion():
