@@ -782,12 +782,14 @@ def phase_kernels(baseline):
 
 # ---- shapes past the card's old limits --------------------------------------
 
-def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None):
+def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None,
+                     agree=None):
     """One past-limit shape's times: one eager call between two CUDA events
     (``ms``), device ms per call (CUDA-graph replays), the plain version's
     ms (None where ``plain`` is None), the bound and, where SDPA computes
     the same function (``lib``), its device ms; else ``library`` says
-    why not (``why``, or SDPA's own refusal)."""
+    why not (``why``, or SDPA's own refusal). ``agree``, where given, is
+    handed SDPA's first output and raises if it is not the same function."""
     t = {"max_abs_err": err, "ms": _time_ms(fn, 5),
          "device_ms": _device_ms(fn, 3, 3),
          "plain_ms": None if plain is None else _time_ms(plain, 2)}
@@ -796,12 +798,15 @@ def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None
     t["library"] = why
     if lib is not None:
         try:
-            lib()
+            out = lib()
             torch.cuda.synchronize()
         except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
             t["library"] = f"sdpa refused: {str(e).splitlines()[0][:160]}"
             torch.cuda.empty_cache()
         else:
+            if agree is not None:
+                agree(out)
+            del out
             t["library"] = "sdpa"
             t["library_ms"] = _time_ms(lib, 3)
             t["library_device_ms"] = _device_ms(lib, 3, 3)
@@ -897,10 +902,11 @@ def _flash_past_limits(gen):
     each other, so the plain version runs on slices: the first q tile, the
     last three and one in the middle; under top-left causal alignment a row
     at index >= Sk - 1 sees every key, and there the plain version takes
-    causal=False. Timed beside the bound and, where SDPA computes the same
-    function (no causal mask: SDPA's is_causal is a yardstick only at Sq ==
-    Sk), SDPA's times. The plain version is not timed at these shapes: its
-    float32 scores alone would take 8.6 GB."""
+    causal=False. Timed beside the bound and SDPA's times: SDPA's is_causal
+    keeps the same top-left triangle, and its output is held against the
+    plain version on the same slices before it is timed. The plain version
+    is not timed at these shapes: its float32 scores alone would take 8.6
+    GB."""
     rows = {}
     for dtype, d, causal in ((torch.bfloat16, 256, True),
                              (torch.bfloat16, 256, False),
@@ -919,16 +925,21 @@ def _flash_past_limits(gen):
         if fa_ops.flash_attention.launches != before + 1:
             raise AssertionError(f"flash_attention past-limit {name}: the wrapper "
                                  f"did not launch the kernel once")
-        err = 0.0
+        err, wants = 0.0, []
         for r0, r1 in ((0, tq), (32768 * tq, 32769 * tq),
                        (65534 * tq, Sq)):
             qs = x[0][:, :, r0:r1]
             c = causal and r0 < Sk - 1
-            want = attention_ref(qs, x[1], x[2], causal=c)
+            wants.append((r0, r1, attention_ref(qs, x[1], x[2], causal=c)))
             err = max(err, _assert_close(
                 f"flash_attention past-limit {name} rows {r0}-{r1}",
-                got[:, :, r0:r1], want, TOLS[dtype]))
-        del got, want
+                got[:, :, r0:r1], wants[-1][2], TOLS[dtype]))
+        del got
+
+        def agree(out, name=name, wants=wants):
+            for r0, r1, want in wants:
+                _assert_close(f"sdpa past-limit {name} rows {r0}-{r1}",
+                              out[:, :, r0:r1], want, TOLS[dtype])
         elt = x[0].element_size()
         n_bytes = 2 * Sq * d * elt + 2 * Sk * d * elt
         visible = (Sq * Sk - Sk * (Sk - 1) // 2) if causal else Sq * Sk
@@ -937,17 +948,15 @@ def _flash_past_limits(gen):
             BF16_FLOPS_PER_S
         sdpa = torch.nn.functional.scaled_dot_product_attention
         t = _past_limit_time(f"flash_attention {name}", fn, None,
-                     None if causal else (lambda: sdpa(*x)), n_bytes,
+                     lambda: sdpa(*x, is_causal=causal), n_bytes,
                      3 * n_flops if dtype == torch.float32 else n_flops,
-                     rate, err,
-                     why="sdpa's is_causal is a yardstick only at Sq == Sk"
-                     if causal else None)
+                     rate, err, agree=agree)
         t["bound_note"] = ("3xTF32 products at the TF32 rate"
                            if dtype == torch.float32 else
                            "the 2-byte tensor-core rate")
         t["q_elements"] = x[0].numel()
         rows[name] = t
-        del x, fn
+        del x, fn, agree, wants
         torch.cuda.empty_cache()
     return rows
 

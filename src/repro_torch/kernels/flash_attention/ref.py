@@ -7,8 +7,7 @@ whatever the input type, the output in q's type):
 
 * the scale is ``1/sqrt(d)``, then an optional tanh softcap, then the mask;
 * the causal mask keeps ``q_pos >= k_pos`` with both positions counted
-  from 0: top-left alignment when ``Sq != Sk`` (not the bottom-right
-  alignment of SDPA's ``is_causal``);
+  from 0: top-left alignment when ``Sq != Sk``, as SDPA's ``is_causal``;
 * a window > 0 keeps ``q_pos - k_pos < window``;
 * masked logits are -1e30;
 * GQA maps q-head ``h`` to kv-head ``h // (Hq // Hkv)``.

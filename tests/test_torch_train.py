@@ -265,7 +265,18 @@ def test_remat_modes_are_bit_identical(arch, port_steps):
 
 
 def test_remat_gives_the_same_gradients_per_leaf():
-    _, cfg = _configs("qwen1.5-4b")
+    _remat_gradients_agree("qwen1.5-4b")
+
+
+def test_remat_gives_the_same_gradients_per_leaf_from_xlstm_s_own_init():
+    """xLSTM's own init (its sLSTM and mLSTM blocks) through the three
+    remat modes; the three-step runs above start from the reference's
+    weights."""
+    _remat_gradients_agree("xlstm-125m")
+
+
+def _remat_gradients_agree(arch):
+    _, cfg = _configs(arch)
     p = get_model(cfg).init(torch.Generator().manual_seed(0))
     _, tb = next(_batches(cfg, 1))
     grads = {}
