@@ -16,8 +16,11 @@ The four sm90 sources of commit ff92dab (``flash_attention_sm90.cu``,
 ``flash_attention_f32_sm90.cu``, ``paged_attention_sm90.cu``,
 ``mlstm_scan_sm90.cu``, before the grid folds, K1's wide route and K3's
 sliced routes) are the yardsticks of the shapes that ran before them:
-those shapes must keep their times. Their C entries take the arguments
-the current wrappers pass.
+those shapes must keep their times. Commit 9676424's
+``paged_attention_sm90.cu`` (K1 before its mma route, g >= 8 at d <= 256 on
+the CUDA cores) is the yardstick of K1's routes in the same way; unpack it
+in place of ff92dab's. Their C entries take the arguments the current
+wrappers pass (K1's with the register route's group tiles).
 
 To time them beside the current kernels on one card, unpack commits that
 have them with ``git archive`` into one git-ignored directory and pass it,
@@ -28,6 +31,7 @@ e.g.
   git archive 2142486 src/repro_torch/csrc/flash_attention.cu | tar -x -C build/base
   git archive 8d1f884 src/repro_torch/csrc/paged_attention.cu | tar -x -C build/base
   git archive ff92dab src/repro_torch/csrc | tar -x -C build/base
+  git archive 9676424 src/repro_torch/csrc/paged_attention_sm90.cu | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
 
 ``load(dir)`` builds every one of those sources it finds under
@@ -36,7 +40,7 @@ e.g.
 once) and returns, by source name, a function with the public wrapper's
 signature that launches the earlier kernel on CUDA tensors it takes (K1's
 CUDA-core kernel: g <= 8 and d <= 256; the sm90 sources: what they took at
-ff92dab).
+their commit).
 """
 from __future__ import annotations
 
@@ -186,15 +190,19 @@ def _flash_attention_sm90(name: str):
 
 
 def _paged_attention_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
-    """Commit ff92dab's K1, whose C entry the wrapper's call still fits at
-    the shapes it took (d <= 2048, B and Hkv <= 65,535)."""
+    """An earlier K1 without the mma route (commit ff92dab's: d <= 2048, B
+    and Hkv <= 65,535; commit 9676424's: every shape), whose C entry the
+    wrapper's call fits with the register route's group tiles
+    (``tile_rows``) at every g."""
     fn = lib.paged_attention_sm90_launch
     fn.argtypes, fn.restype = pa_ops.LAUNCH_ARGTYPES, ctypes.c_int
 
     def run(q, k_pages, v_pages, page_table, lengths, *,
             softcap: float = 0.0) -> torch.Tensor:
+        rows = pa_ops.tile_rows(q.shape[1] // k_pages.shape[1], q.shape[2],
+                                q.element_size())
         return pa_ops._run_sm90(q, k_pages, v_pages, page_table, lengths,
-                                softcap, launcher=fn)
+                                softcap, launcher=fn, rows=rows)
 
     return run
 

@@ -21,16 +21,25 @@ Phases (any failure exits non-zero):
              once refused or sent to an earlier kernel (g=9, MQA g=16,
              d=512 and 2048, 24-byte rows, 64 KiB pages, pages of 300 and
              512 keys, pools off 16-byte alignment) through the wrapper;
-             and at published widths with more than eight query heads per
+             and at published widths with eight or more query heads per
              kv head (PAGED_GROUP_SHAPES: Qwen3-235B-A22B, Mistral-Large-2,
-             StarCoder and Falcon-7B, and d=512 g=2; B=32, page 16, 36
-             slots, f32 and bf16). K1 is timed as one call between two CUDA
+             StarCoder and Falcon-7B, qwen1.5-110b's g=8, and d=512 g=2;
+             B=32, page 16, 36 slots, f32, bf16 and f16): the mma route's
+             main path (csrc/paged_attention_sm90.cu's tensor-core route,
+             g >= 8 at d <= 256), its launches
+             counted from 0, each plan's route printed and held to "mma"
+             at g > 8; at g = 8 both routes timed in turns; with
+             --baseline-src commit 9676424's K1 in turns at every group
+             shape, the serving shape, the kernel bench's shapes and the
+             wide route's. K1 is timed as one call between two CUDA
              events (``ms``, host work included, the kernels line's
              measure) and as device time per call from CUDA-graph replays
              (``device_ms``), at the chosen split and (device time) at one
-             split, beside SDPA and the bound (bytes, or the f32 CUDA-core
-             flops where larger); with --baseline-src, the earlier CUDA-core
-             kernel (csrc/paged_attention.cu) at the serving shape.
+             split, beside SDPA and the bound (bytes, or the flops where
+             larger: f32 at the CUDA-core rate, on the mma route at the
+             3xTF32 rate with the f32-rate figure beside it); with
+             --baseline-src, the earlier CUDA-core kernel
+             (csrc/paged_attention.cu) at the serving shape.
              K2 flash attention has two routes, by dtype: bf16 and f16 go
              to the 2-byte wgmma kernel (csrc/flash_attention_sm90.cu; TMA,
              or the producers' own loads where TMA cannot read a tensor),
@@ -55,9 +64,9 @@ Phases (any failure exits non-zero):
              --baseline-src), its bound at the 3xTF32 rate (the record's
              bound_ms) and at the f32 rate, with the f32 kernel's
              registers and spills. With --baseline-src holding commit
-             ff92dab's sources, the bf16 and f32 routes, K1 at the serving
-             shape and K3 at the layer shape are timed in turns beside them
-             (device ms). FLASH_SHAPES times d=512 and SigLIP-so400m's
+             ff92dab's sources (K1's: commit 9676424's), the bf16 and f32
+             routes, K1 at the serving shape and K3 at the layer shape are
+             timed in turns beside them (device ms). FLASH_SHAPES times d=512 and SigLIP-so400m's
              d=72 (by TMA and by the own loads) on every route. K1 and K3
              are also held in f16 (K1 at the serving shape and Qwen3-235B-
              A22B's group, K3 on the sweep and at the layer shape) and
@@ -340,6 +349,8 @@ PAGED_GROUP_SHAPES = {           # K1 at published widths: (Hq, Hkv, d)
     "mistral-large-2 96/8 d128": (96, 8, 128),     # g = 12
     "starcoder MQA 48/1 d128": (48, 1, 128),       # g = 48
     "falcon-7b MQA 71/1 d64": (71, 1, 64),         # g = 71
+    "qwen1.5-110b 64/8 d128": (64, 8, 128),        # g = 8: the paged serve
+                                                   # path's largest group
     "d512 g2 16/8": (16, 8, 512),
 }
 
@@ -390,29 +401,39 @@ def _zero_counts():
         fn.launches = 0
     fa_ops.flash_attention.launches_bf16 = 0
     fa_ops.flash_attention.launches_f16 = 0
+    ops.paged_attention.launches_mma = 0
 
 
-def _against_previous(name, fn, previous, tol, **kw):
-    """A kernel beside an earlier build's (``previous``, commit ff92dab's
-    source: benchmarks_torch/baselines.py) on the same inputs: the two
+def _against_previous(name, fn, previous, tol, commit="ff92dab", **kw):
+    """A kernel beside an earlier build's (``previous``, the source of
+    ``commit``: benchmarks_torch/baselines.py) on the same inputs: the two
     outputs at ``tol``, then device ms per call in two rounds of turns,
     previous, this, this, previous (CUDA-graph replays). None without a
     baseline."""
     if previous is None:
         return None
-    err = _assert_close(f"{name}: this build vs commit ff92dab's", fn(),
+    err = _assert_close(f"{name}: this build vs commit {commit}'s", fn(),
                         previous(), tol, **kw)
-    t = [_device_ms(f, 10, 5) for _ in range(2)
-         for f in (previous, fn, fn, previous)]
-    mine, prev = t[1::4] + t[2::4], t[0::4] + t[3::4]
-    rec = {"source_commit": "ff92dab", "max_abs_err_vs_previous": err,
+    mine, prev = _in_turns(fn, previous)
+    rec = {"source_commit": commit, "max_abs_err_vs_previous": err,
            "device_ms": mine, "previous_device_ms": prev,
            "ratio": sum(mine) / sum(prev)}
     print(f"[kernels] {name}: device ms this build "
-          f"{' / '.join(f'{x:.4f}' for x in mine)}, commit ff92dab's "
+          f"{' / '.join(f'{x:.4f}' for x in mine)}, commit {commit}'s "
           f"{' / '.join(f'{x:.4f}' for x in prev)} (two rounds of previous, "
           f"this, this, previous; ratio {rec['ratio']:.4f})")
     return rec
+
+
+def _in_turns(fn, other):
+    """Device ms per call of ``fn`` and ``other`` in two rounds of turns,
+    other, fn, fn, other (CUDA-graph replays): ([fn] x 4, [other] x 4)."""
+    t = [_device_ms(f, 10, 5) for _ in range(2)
+         for f in (other, fn, fn, other)]
+    return t[1::4] + t[2::4], t[0::4] + t[3::4]
+
+
+K1_BASELINE = "9676424"   # K1's yardstick source: before the mma route
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -505,8 +526,9 @@ def _paged_times(x, enable_gqa=True, previous=None):
     choice), the kernel at one split (device only), SDPA over pre-gathered
     pages and, where given, an earlier kernel behind the same input checks
     as the wrapper; beside the bound, its flops at the card's peak rate for
-    the inputs' dtype (float32 on the CUDA cores, bfloat16 on the tensor
-    cores)."""
+    the inputs' dtype and route (float32 on the CUDA cores, or on the mma
+    route as three TF32 products each, with the f32-rate figure beside it;
+    bfloat16 and float16 on the tensor cores)."""
     B, Hq, _ = x[0].shape
     Hkv, n_slots = x[1].shape[1], x[3].shape[1]
     n_bytes, n_flops, _ = _paged_work(x)
@@ -526,6 +548,10 @@ def _paged_times(x, enable_gqa=True, previous=None):
     rate = (F32_FLOPS_PER_S if x[0].dtype == torch.float32
             else BF16_FLOPS_PER_S)
     t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, rate)
+    if plan["route"] == "mma" and x[0].dtype == torch.float32:
+        t["bound_f32_rate_ms"] = t["bound_ms"]
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, 3 * n_flops,
+                                                TF32_FLOPS_PER_S)
     t["bound_bytes_ms"] = bound_ms(n_bytes, 0, rate)[0]
     for k in ("ms", "device_ms"):
         t[f"gb_s_{k}"] = n_bytes / t[k] / 1e6
@@ -580,45 +606,105 @@ def _paged_formerly_refused(errs, gen):
                    BF16_TOL, 0, {(0, 1): -2}, softcap=30.0)
 
 
-def _paged_group_shapes(errs, gen):
-    """K1 at published attention widths with more than eight query heads
-    per kv head and at d = 512 (``PAGED_GROUP_SHAPES``), B=32, page 16, 36
-    slots, random lengths, f32 and bf16: held against the plain version and
-    timed beside the bound and SDPA (``enable_gqa``)."""
-    rows = {}
+def _paged_group_shapes(errs, gen, previous=None):
+    """K1 at published attention widths with eight or more query heads per
+    kv head and at d = 512 (``PAGED_GROUP_SHAPES``), B=32, page 16, 36
+    slots, random lengths, f32, bf16 and f16. First the mma route's main
+    path: the public wrapper once per shape and type, every count at 0
+    before and read after (each output finite); the route of each plan
+    printed, "mma" wherever g > 8 and the wrapper's rule the source's.
+    Then each held against the plain version at the wrapper's splits and
+    at one split, timed beside the bound and SDPA (``enable_gqa``); at g =
+    8 the route not taken too, held and timed in turns with the taken one;
+    with ``previous`` (commit 9676424's K1) that kernel in turns. Returns
+    the rows and the main path's launches."""
+    cases = {}
     for name, (Hq, Hkv, d) in PAGED_GROUP_SHAPES.items():
-        for dtype, tol in ((torch.float32, F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             B, page, n_slots = 32, 16, 36
             lens = torch.randint(1, page * n_slots + 1, (B,), generator=gen,
                                  device="cuda")
-            x = _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, SERVE_PAGES,
-                              lens, dtype)
-            key = f"{name} {'f32' if dtype == torch.float32 else 'bf16'}"
-            _paged_case(errs, f"(j) {key}", x, tol, splits=(None, 1))
-            t = _paged_times(x)
-            t["plain_ms"] = _time_ms(lambda: paged_attention_ref(*x), 5)
-            rows[key] = t
-            print(f"[kernels] paged_attention {key}: B={B} Hq={Hq} Hkv={Hkv}"
-                  f" d={d} page={page} slots={n_slots}, {t['tiles']} tiles "
-                  f"of {t['tile_rows']} rows, bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']}; bytes alone {t['bound_bytes_ms']:.4f})"
-                  f"; one eager call {t['ms']:.4f} ms, device "
-                  f"{t['device_ms']:.4f} ms at {t['pages_per_split']} pages "
-                  f"per split ({t['bound_share_device_ms']:.3f} of the "
-                  f"bound), {t['device_ms_one_split']:.4f} at one split; "
-                  f"sdpa {t['library_ms']:.4f} eager, "
-                  f"{t['library_device_ms']:.4f} device; plain "
-                  f"{t['plain_ms']:.4f}")
-    return rows
+            key = f"{name} {str(dtype)[6:].replace('float', 'f')}"
+            cases[key] = _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots,
+                                       SERVE_PAGES, lens, dtype)
+    _zero_counts()
+    for key, x in cases.items():
+        out = ops.paged_attention(*x)
+        if out.shape != x[0].shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"paged_attention (j) {key}: output not "
+                                 f"finite or of q's shape")
+    launches = {"all": ops.paged_attention.launches,
+                "mma": ops.paged_attention.launches_mma}
+    if not launches["mma"]:
+        raise AssertionError("(j): the mma route never launched")
+    print(f"[kernels] paged_attention (j) main path of the mma route: "
+          f"launches {json.dumps(launches)}")
+    rows = {}
+    for key, x in cases.items():
+        B, Hq, d = x[0].shape
+        Hkv, g, elt = x[1].shape[1], Hq // x[1].shape[1], x[0].element_size()
+        tol = TOLS[x[0].dtype]
+        _paged_case(errs, f"(j) {key}", x, tol, splits=(None, 1))
+        t = _paged_times(x)
+        if t["source_mma_route"] != ops.mma_route(g, d, elt):
+            raise AssertionError(f"(j) {key}: ops.mma_route and the source's "
+                                 f"rule differ")
+        if (t["route"] == "mma") != ops.mma_route(g, d, elt) or (
+                g > 8 and t["route"] != "mma"):
+            raise AssertionError(f"(j) {key}: g = {g} took the {t['route']} "
+                                 f"route")
+        t["plain_ms"] = _time_ms(lambda: paged_attention_ref(*x), 5)
+        wrapper = lambda: ops.paged_attention(*x)       # noqa: E731
+        if g == 8:                     # both routes, in turns
+            other = (ops.tile_rows(g, d, elt) if t["route"] == "mma"
+                     else ops.mma_tile_rows(g))
+            plan = ops.sm90_plan(g, d, x[1].shape[2], x[0].dtype, rows=other)
+            errs[f"(j) {key} on the {plan['route']} route"] = _assert_close(
+                f"paged_attention (j) {key} {plan['route']} route",
+                ops._run_sm90(*x, 0.0, rows=other), paged_attention_ref(*x),
+                tol)
+            mine, theirs = _in_turns(
+                wrapper, lambda: ops._run_sm90(*x, 0.0, rows=other))
+            t["other_route"] = {"route": plan["route"], "device_ms": theirs,
+                                "this_route_device_ms": mine,
+                                "ratio": sum(mine) / sum(theirs)}
+            print(f"[kernels] paged_attention (j) {key}: in turns, the "
+                  f"{t['route']} route {' / '.join(f'{v:.4f}' for v in mine)}"
+                  f" ms device, the {plan['route']} route "
+                  f"{' / '.join(f'{v:.4f}' for v in theirs)} (ratio "
+                  f"{t['other_route']['ratio']:.4f})")
+        t["previous"] = _against_previous(
+            f"paged_attention (j) {key}", wrapper,
+            None if previous is None else (lambda: previous(*x)), tol,
+            commit=K1_BASELINE)
+        rows[key] = t
+        f32_s = (f", {t['bound_f32_rate_ms']:.4f} at the f32 rate"
+                 if "bound_f32_rate_ms" in t else "")
+        print(f"[kernels] paged_attention (j) {key}: B={B} Hq={Hq} Hkv={Hkv}"
+              f" d={d} page=16 slots=36, the {t['route']} route, "
+              f"{t['tiles']} tiles of {t['tile_rows']} rows, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; bytes alone "
+              f"{t['bound_bytes_ms']:.4f}{f32_s}); one eager call "
+              f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms at "
+              f"{t['pages_per_split']} pages per split "
+              f"({t['bound_share_device_ms']:.3f} of the bound), "
+              f"{t['device_ms_one_split']:.4f} at one split; sdpa "
+              f"{t['library_ms']:.4f} eager, {t['library_device_ms']:.4f} "
+              f"device; plain {t['plain_ms']:.4f}")
+    del cases
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 def phase_kernels(baseline):
     """K1 against its plain version, timed; returns the serving-shape
     record. ``baseline`` (benchmarks_torch/baselines.py, maybe empty): the
-    earlier CUDA-core kernel and commit ff92dab's K1, timed beside K1 at
-    the serving shape."""
+    earlier CUDA-core kernel, timed beside K1 at the serving shape, and
+    commit 9676424's K1 (before the mma route), timed in turns at the
+    serving shape, the kernel bench's shapes, ``PAGED_GROUP_SHAPES`` and
+    the wide route's shapes."""
     previous = baseline.get("paged_attention")
+    old = baseline.get("paged_attention_sm90")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     B, H, d, page, n_slots, P = 32, 20, 128, 16, 36, SERVE_PAGES
@@ -679,9 +765,14 @@ def phase_kernels(baseline):
         _paged_case(errs, f"(g) kernel bench {name}", xk, F32_TOL,
                     splits=(None, 1, shape[5]))
         bench[name] = _paged_times(xk)
+        bench[name]["previous"] = _against_previous(
+            f"paged_attention kernel bench {name}",
+            lambda: ops.paged_attention(*xk),
+            None if old is None else (lambda: old(*xk)), F32_TOL,
+            commit=K1_BASELINE)
     # a page id outside [0, P) inside sequence 1's length: NaN there only;
-    # an id of -3 past sequence 2's length is never read; g=16 (MQA) in two
-    # tiles and g=3 in one, f32 and bf16
+    # an id of -3 past sequence 2's length is never read; g=16 (MQA, the
+    # mma route) and g=2 (the register route), f32 and bf16
     for Hq, Hkv, dtype, tol in ((4, 2, torch.float32, F32_TOL),
                                 (16, 1, torch.bfloat16, BF16_TOL)):
         xh = _paged_inputs(gen, 3, Hq, Hkv, 64, 16, 6, 32, [90, 70, 40],
@@ -689,18 +780,18 @@ def phase_kernels(baseline):
         _paged_bad_ids(errs, f"(h) bad id, g={Hq // Hkv}", xh, tol, 1,
                        {(1, 2): 32 + 7, (2, 4): -3}, splits=(None, 1, 2, 6))
     _paged_formerly_refused(errs, gen)
-    groups = _paged_group_shapes(errs, gen)
-    past = _paged_past_limits(errs, gen)
+    groups, group_launches = _paged_group_shapes(errs, gen, old)
+    past = _paged_past_limits(errs, gen, old)
     print("[kernels] paged_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
-    # timing at the serving shape, in f32 (beside commit ff92dab's K1)
+    # timing at the serving shape, in f32 (beside commit 9676424's K1)
     # and in f16
     t = _paged_times(x, enable_gqa=False, previous=previous)
-    old = baseline.get("paged_attention_sm90")
     prev_sm90 = _against_previous(
         "paged_attention serving shape f32", lambda: ops.paged_attention(*x),
-        None if old is None else (lambda: old(*x)), F32_TOL)
+        None if old is None else (lambda: old(*x)), F32_TOL,
+        commit=K1_BASELINE)
     t16 = _paged_times(x16, enable_gqa=False)
     rec16 = {k: t16[k] for k in ("ms", "device_ms", "library_ms",
                                  "library_device_ms", "bound_ms", "bound_by",
@@ -735,7 +826,8 @@ def phase_kernels(baseline):
            "pages_per_split": t["pages_per_split"],
            "stages": t["stages"], "smem_bytes": t["smem_bytes"],
            "kernel_bench_shapes": bench, "group_shapes": groups,
-           "previous_sm90": prev_sm90, "f16": rec16, "past_limit_shapes": past}
+           "previous_sm90": prev_sm90, "f16": rec16, "past_limit_shapes": past,
+           "routes": _k1_routes(groups, group_launches)}
     prev_s = ""
     if previous is not None:
         rec["previous"] = {"source": "src/repro_torch/csrc/"
@@ -780,6 +872,29 @@ def phase_kernels(baseline):
     return rec
 
 
+def _k1_routes(groups, launches):
+    """The K1 record's routes: the register route's launches (the serve
+    path's, added in main) and the mma route's, on its main path (the
+    public wrapper at ``PAGED_GROUP_SHAPES``, phase (j)), with its numbers
+    at Qwen3-235B-A22B's bf16 group and every group shape's route, device
+    ms and bound."""
+    head = groups["qwen3-235b-a22b 64/4 d128 bf16"]
+    return {
+        "registers": {"launches": launches["all"] - launches["mma"],
+                      "main_path": "the serve phase (Qwen1.5-4B, g = 1)"},
+        "mma": {"launches": launches["mma"],
+                "main_path": "ops.paged_attention at PAGED_GROUP_SHAPES, "
+                             "phase (j)",
+                "shape": "qwen3-235b-a22b 64/4 d128 bf16, B=32",
+                **{k: head[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")},
+                "shapes": {k: {f: v.get(f) for f in (
+                    "route", "device_ms", "bound_ms", "bound_by",
+                    "bound_f32_rate_ms", "library_device_ms")}
+                    for k, v in groups.items()}}}
+
+
 # ---- shapes past the card's old limits --------------------------------------
 
 def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None,
@@ -822,13 +937,15 @@ def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None
     return t
 
 
-def _paged_past_limits(errs, gen):
+def _paged_past_limits(errs, gen, previous=None):
     """K1 past its old limits, through the public wrapper (each call must
     move ``launches`` by one) and at set splits, against the plain version:
     the wide route (d = 2056, 4096 and 16,384; g = 1 and 8; softcap on in
     one case, the split route taken in one; pools 2 bytes off alignment for
     the 2-byte loads), 65,543 sequences and 65,539 kv heads; each timed
-    beside its bound and SDPA over pre-gathered pages (where no softcap)."""
+    beside its bound and SDPA over pre-gathered pages (where no softcap);
+    the wide route's shapes, with ``previous`` (commit 9676424's K1), in
+    turns with it."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
 
     def off(x):                        # both pools 2 bytes off alignment
@@ -889,6 +1006,12 @@ def _paged_past_limits(errs, gen):
                  slices=plan["slices"], pages_per_split=pps,
                  workspace_bytes=(4 * B * Hq * n_split * (d + 2)
                                   if n_split > 1 else 0))
+        if plan["route"] == "wide":
+            t["previous"] = _against_previous(
+                f"paged_attention {name}", lambda: ops.paged_attention(
+                    *x, softcap=cap), None if previous is None else (
+                    lambda: previous(*x, softcap=cap)), tol,
+                commit=K1_BASELINE)
         rows[name] = t
         del x
     torch.cuda.empty_cache()
@@ -1782,6 +1905,8 @@ def phase_serve():
             raise AssertionError(f"step cap {SERVE_STEP_CAP}: finished "
                                  f"{finished}")
     launches = ops.paged_attention.launches
+    if ops.paged_attention.launches_mma:
+        raise AssertionError("serving decode (g = 1) took K1's mma route")
     stream.close()                     # frees the KV pools
     if fa_ops.flash_attention.launches:
         raise AssertionError("serving decode launched flash_attention")
@@ -4059,9 +4184,10 @@ def main(argv=None):
                     help="a directory holding earlier kernels under "
                          "src/repro_torch/csrc: the CUDA-core mlstm_scan.cu "
                          "(K3), flash_attention.cu (K2's f32 route) and "
-                         "paged_attention.cu (K1), and commit ff92dab's four "
-                         "*_sm90.cu sources, each timed beside the kernel "
-                         "that took its place "
+                         "paged_attention.cu (K1), commit ff92dab's four "
+                         "*_sm90.cu sources and commit 9676424's "
+                         "paged_attention_sm90.cu in place of ff92dab's, "
+                         "each timed beside the kernel that took its place "
                          "(benchmarks_torch/baselines.py)")
     args = ap.parse_args(argv)
     if args.sim_cpu_worker:
@@ -4089,7 +4215,11 @@ def main(argv=None):
     _timed(spent, "small", phase_small_input)
     _timed(spent, "small", phase_small_forward)
     _timed(spent, "small", phase_small_xlstm)
-    rec_pa["launches"], params = _timed(spent, "serve", phase_serve)
+    serve_launches, params = _timed(spent, "serve", phase_serve)
+    # K1's main paths: the serve phase (the register route) and phase (j)
+    # (the public wrapper at PAGED_GROUP_SHAPES, the mma route's)
+    rec_pa["routes"]["registers"]["launches"] += serve_launches
+    rec_pa["launches"] = sum(r["launches"] for r in rec_pa["routes"].values())
     rec_fa["launches"] = rec_fa["routes"]["bf16"]["launches"] = \
         _timed(spent, "forward", phase_forward, params, rec_fa["ms"],
                torch.bfloat16)

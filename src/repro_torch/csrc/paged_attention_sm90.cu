@@ -1,18 +1,21 @@
 // Paged decode attention for Hopper (sm_90a), float32, bfloat16 or float16
 // pools:
 // pages split across blocks (flash-decoding), the query rows of a kv head
-// split into group tiles, pages fed to a shared-memory ring by bulk TMA
-// copies (or by the producer warp's own loads where a bulk copy cannot read
-// the pool).
+// in tiles, pages fed to a shared-memory ring by bulk TMA copies (or by the
+// producer warp's own loads where a bulk copy cannot read the pool).
 //
 // Replaces src/repro/kernels/paged_attention/kernel.py::paged_attention (the
 // Pallas TPU kernel, body `_kernel`) for every shape the wrapper accepts:
 // any batch, any g = Hq / Hkv, any number of kv heads, any head dim d, any
-// page size, any row width in bytes and any pool base address. Two kernels:
-// the register route below for d <= 2048 (a row of q in a lane group's
-// registers), and the wide route (paged_attention_sm90_wide_kernel, further
-// down) past it. Same function and conventions as that kernel and as
-// ref.py:
+// page size, any row width in bytes and any pool base address. Three
+// routes (the C entry's tile_rows picks one, ops.group_tile_rows):
+//   - the mma route (paged_attention_sm90_mma_kernel, further down) for g
+//     >= 8 at d <= 256: every query row of a kv head in one block, the
+//     products on the tensor cores;
+//   - the register route below for the other shapes up to d = 2048 (a row
+//     of q in a lane group's registers, the products on the CUDA cores);
+//   - the wide route (paged_attention_sm90_wide_kernel) past d = 2048.
+// Same function and conventions as that kernel and as ref.py:
 //
 //   q          (B, Hq, d)            out (B, Hq, d), same dtype as q
 //   k/v pages  (P, Hkv, page, d)     page_table (B, n_slots) int32
@@ -26,11 +29,15 @@
 // kv-head) output NaN.
 //
 // Bound: the K and V bytes of the live pages; the arithmetic is 4 g d flops
-// per key against 2 d elt bytes. For g <= 8 that is far below the memory
-// line, so tensor cores buy nothing and what counts is bytes in flight on
-// every SM. At large g in float32 (about 20 flops per byte, g ~ 40) the
-// CUDA cores' rate becomes the bound; the group tiles below keep the bytes
-// at about one read from device memory whatever g is.
+// per key against 2 d elt bytes. For small g that is far below the memory
+// line of the CUDA cores (67 TFLOP/s over 3.35 TB/s, 20 flop/byte), and
+// what counts is bytes in flight on every SM: the register route. Past it
+// (g = 12 in 2-byte types is 12 flop/byte, MQA's g = 48-71 is 48-71) the
+// CUDA cores' chain of shuffles and exps set the pace, and the mma route
+// takes the products to the tensor cores, whose ridge (295 flop/byte in
+// bf16) leaves the bytes the bound.
+//
+// The register route:
 //
 // * Group tiles. A block holds G query rows of one kv head in registers
 //   (G = ops.tile_rows: the power of two >= g up to 8, halved while a
@@ -95,6 +102,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kConsumerWarps = 4;
@@ -111,6 +120,11 @@ constexpr int kWideThreads = 256;          // the wide route's block: 8 warps
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideCols = 2048;            // its output columns per block
 constexpr int kWideKeys = 32;              // its keys per chunk, one a lane
+constexpr int kMmaMinGroup = 8;            // the mma route: g >= 8 ...
+constexpr int kMmaMaxD = 256;              // ... at d <= 256
+constexpr int kMmaMaxRows = 64;            // its query rows of a row tile
+constexpr int kMmaMaxStages = 8;           // its ring: up to 8 stages of
+constexpr int kMmaRingBytes = 65536;       // about 64 KiB in all
 
 // At most 128 bytes: on the H100 a larger struct (the same fields and five
 // more ints) gave other register allocations and ran the serving and bench
@@ -134,9 +148,12 @@ struct Params {
 struct Plan {
   int nvl, row_stride, rows_per_stage, stages, tile_stride, stage_bytes,
       smem;
+  int mw, dinst;  // the mma route: m16 tiles a warp, head dims of its instance
 };
 
-inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 
 inline int pow2_at_least(int x) {
   int p = 1;
@@ -161,6 +178,22 @@ bool wide_route(int d, int elt) {
   return pow2_at_least((nv + 31) / 32) * (16 / elt) > kMaxLaneFloats;
 }
 
+// The ring for rows of d elements of elt bytes and pages of `page` keys: a
+// stage holds R keys of K and R of V (a whole page up to 32 KiB of each),
+// 2 to max_stages stages of about ring_bytes in all.
+void ring_plan(int d, int page, int elt, int ring_bytes, int max_stages,
+               Plan* pl) {
+  pl->row_stride = round_up(d * elt, 16);
+  pl->rows_per_stage = kMaxTile / pl->row_stride;  // >= 4: rows <= 8 KiB
+  if (pl->rows_per_stage > page) pl->rows_per_stage = page;
+  if (pl->rows_per_stage < 1) pl->rows_per_stage = 1;
+  pl->tile_stride = round_up(pl->rows_per_stage * pl->row_stride, 128);
+  pl->stage_bytes = 2 * pl->tile_stride;
+  pl->stages = ring_bytes / pl->stage_bytes;
+  if (pl->stages > max_stages) pl->stages = max_stages;
+  if (pl->stages < 2) pl->stages = 2;
+}
+
 // G query rows per tile (a power of two up to 8 whose q fits a lane's 64
 // floats; ops.tile_rows chooses it), head dim d, elt bytes per element.
 bool make_plan(int G, int d, int page, int elt, Plan* pl) {
@@ -170,17 +203,61 @@ bool make_plan(int G, int d, int page, int elt, Plan* pl) {
   const int vec = 16 / elt, row = d * elt, nv = (row + 15) / 16;
   if (G * pow2_at_least((nv + 31) / 32) * vec > kMaxLaneFloats) return false;
   pl->nvl = pick_nvl(G, vec, nv);
-  pl->row_stride = round_up(row, 16);
-  pl->rows_per_stage = kMaxTile / pl->row_stride;  // >= 4: rows <= 8 KiB
-  if (pl->rows_per_stage > page) pl->rows_per_stage = page;
-  if (pl->rows_per_stage < 1) pl->rows_per_stage = 1;
-  pl->tile_stride = round_up(pl->rows_per_stage * pl->row_stride, 128);
-  pl->stage_bytes = 2 * pl->tile_stride;
-  pl->stages = kRingBytes / pl->stage_bytes;
-  if (pl->stages > kMaxStages) pl->stages = kMaxStages;
-  if (pl->stages < 2) pl->stages = 2;
+  ring_plan(d, page, elt, kRingBytes, kMaxStages, pl);
   const int ring = pl->stages * pl->stage_bytes;
   const int red = kConsumerWarps * G * nv * vec * 4;  // the warps' sums
+  pl->smem = kRingOff + (ring > red ? ring : red);
+  return pl->smem <= kSmemBudget;
+}
+
+// Whether g query rows per kv head at head dim d take the mma route
+// (ops.mma_route; every type, elt is there for the rule's signature): g >=
+// 9, and g = 8, where it ran 1.5x (float32) and 3.0x (bfloat16, float16)
+// faster than the register route on the H100 at 64/8, d = 128, in turns.
+bool mma_route(int g, int d, int elt) {
+  return elt > 0 && g >= kMmaMinGroup && d >= 1 && d <= kMmaMaxD;
+}
+
+// Query rows of the mma route's row tile for g rows per kv head: g rounded
+// up to whole m16 tiles, at most kMmaMaxRows (g = 71: a tile of 64 and one
+// of 7).
+int mma_tile_rows(int g) {
+  const int r = round_up(g, 16);
+  return r < kMmaMaxRows ? r : kMmaMaxRows;
+}
+
+// m16 tiles a warp holds (2 where d <= 128 and the tile has 32 rows or
+// more: a K or V fragment then feeds two products) and the head dim of the
+// instance (64, 128 or 256) for a row tile of `rows` at head dim d.
+void mma_shape(int rows, int d, int* mw, int* dinst) {
+  *dinst = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  *mw = *dinst <= 128 && rows >= 32 ? 2 : 1;
+}
+
+// Row groups of a tile of `rows` live rows: ceil(rows / (16 mw)) rounded up
+// to 1, 2 or 4; the 4 consumer warps are row groups x key groups.
+__host__ __device__ inline int mma_row_groups(int rows, int mw) {
+  const int n = ((rows + 15) / 16 + mw - 1) / mw;
+  return n > 2 ? 4 : n;
+}
+
+// The mma route's plan: the ring as the register route's, q's rows of the
+// tile in shared memory after it (float32 as TF32 hi and lo), and at the end
+// the warps' m, l and accumulators where the ring and q were.
+bool make_mma_plan(int rows, int g, int d, int page, int elt, Plan* pl) {
+  if (g < 1 || d < 1 || d > kMmaMaxD || page < 1 || (elt != 2 && elt != 4) ||
+      rows != mma_tile_rows(g))
+    return false;
+  mma_shape(rows, d, &pl->mw, &pl->dinst);
+  pl->nvl = 0;
+  ring_plan(d, page, elt, kMmaRingBytes, kMmaMaxStages, pl);
+  const int ks = elt == 4 ? 8 : 16;                   // the mma's depth
+  const int qs = round_up(d, ks) + (elt == 4 ? 4 : 8);  // q's row stride
+  const int rows_p = mma_row_groups(rows, pl->mw) * 16 * pl->mw;
+  const int q_bytes = rows_p * qs * elt * (elt == 4 ? 2 : 1);
+  const int ring = pl->stages * pl->stage_bytes + q_bytes;
+  const int red = 2 * kConsumerWarps * 32 * 4 +
+                  kConsumerWarps * 16 * pl->mw * round_up(d, 8) * 4;
   pl->smem = kRingOff + (ring > red ? ring : red);
   return pl->smem <= kSmemBudget;
 }
@@ -323,6 +400,67 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
+// The producer warp: the page ids of the live slots (32 at a time, one per
+// lane), then the live rows of each page, R at a time, one stage each. Lane
+// 0 waits for the stage, issues its bulk copies and arrives; where the lanes
+// fill it with their own loads, all of them wait first and lane 0 arrives
+// after them. A bad id goes down the ring as a flag instead of rows, and
+// the producer stops there. Both routes that stage pages use it.
+template <typename T>
+__device__ __forceinline__ void produce(const Params& p, unsigned char* ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        int* stage_bad, int b, int h,
+                                        int slot0, int n_pages, int n_keys,
+                                        int lane) {
+  const int d = p.d, page = p.page, R = p.rows_per_stage;
+  const int* pt = p.page_table + (size_t)b * p.n_slots + slot0;
+  const bool narrow = !p.bulk;
+  const int row_bytes = d * (int)sizeof(T);
+  const int row_stride = (row_bytes + 15) & ~15;  // a row in the ring
+  int s = 0, round = 0;  // the ring's next stage and how often it wrapped
+  for (int i0 = 0; i0 < n_pages; i0 += 32) {
+    const int mine = i0 + lane < n_pages ? pt[i0 + lane] : 0;
+    const int n = min(32, n_pages - i0);
+    for (int j = 0; j < n; ++j) {
+      const int pid = __shfl_sync(0xffffffffu, mine, j);
+      const bool bad = pid < 0 || pid >= p.P;  // the same for every lane
+      const int t_end = min(page, n_keys - (slot0 + i0 + j) * page);
+      const size_t first = ((size_t)pid * p.Hkv + h) * page;  // its row
+      for (int r0 = 0; r0 < t_end; r0 += R) {
+        if (round > 0 && (lane == 0 || (narrow && !bad)))
+          mbar_wait(smem_u32(&empty[s]), (round - 1) & 1);
+        const int nr = min(R, t_end - r0);
+        const size_t off = (first + r0) * row_bytes;
+        unsigned char* kt = ring + s * p.stage_bytes;
+        if (narrow && !bad) {
+          load_rows(kt, p.k + off, nr, row_bytes, row_stride, lane);
+          load_rows(kt + p.tile_stride, p.v + off, nr, row_bytes,
+                    row_stride, lane);
+          __threadfence_block();
+          __syncwarp();  // every lane's stores before lane 0's arrival
+        }
+        if (lane == 0) {
+          const uint32_t fb = smem_u32(&full[s]);
+          stage_bad[s] = bad;
+          if (bad || narrow) {
+            mbar_arrive(fb);
+          } else {
+            const uint32_t bytes = nr * row_bytes;
+            mbar_expect_tx(fb, 2 * bytes);
+            bulk_load(smem_u32(kt), p.k + off, bytes, fb);
+            bulk_load(smem_u32(kt + p.tile_stride), p.v + off, bytes, fb);
+          }
+        }
+        if (bad) return;
+        if (++s == p.stages) {
+          s = 0;
+          ++round;
+        }
+      }
+    }
+  }
+}
+
 // G: query rows of a tile. NVL: 16-byte vectors of a row per lane; a
 // group of lpk = pow2 >= ceil(nv / NVL) lanes holds one key's row, so a
 // warp covers kpw = 32 / lpk keys per step. One block per SM is all the
@@ -380,56 +518,8 @@ paged_attention_sm90_kernel(const Params p) {
   __syncthreads();
 
   if (warp == kConsumerWarps) {
-    // producer: page ids of the live slots, then the live rows of each
-    // page, R at a time, one stage each. Lane 0 waits for the stage, issues
-    // its bulk copies and arrives; where the lanes fill it with their own
-    // loads, all of them wait first and lane 0 arrives after them.
-    const int* pt = p.page_table + (size_t)b * p.n_slots + slot0;
-    const bool narrow = !p.bulk;
-    const int row_bytes = d * (int)sizeof(T);
-    const int row_stride = (row_bytes + 15) & ~15;  // a row in the ring
-    int s = 0, round = 0;  // the ring's next stage and how often it wrapped
-    for (int i0 = 0; i0 < n_pages; i0 += 32) {
-      const int mine = i0 + lane < n_pages ? pt[i0 + lane] : 0;
-      const int n = min(32, n_pages - i0);
-      for (int j = 0; j < n; ++j) {
-        const int pid = __shfl_sync(0xffffffffu, mine, j);
-        const bool bad = pid < 0 || pid >= p.P;  // the same for every lane
-        const int t_end = min(page, n_keys - (slot0 + i0 + j) * page);
-        const size_t first = ((size_t)pid * p.Hkv + h) * page;  // its row
-        for (int r0 = 0; r0 < t_end; r0 += R) {
-          if (round > 0 && (lane == 0 || (narrow && !bad)))
-            mbar_wait(smem_u32(&empty[s]), (round - 1) & 1);
-          const int nr = min(R, t_end - r0);
-          const size_t off = (first + r0) * row_bytes;
-          unsigned char* kt = ring + s * p.stage_bytes;
-          if (narrow && !bad) {
-            load_rows(kt, p.k + off, nr, row_bytes, row_stride, lane);
-            load_rows(kt + p.tile_stride, p.v + off, nr, row_bytes,
-                      row_stride, lane);
-            __threadfence_block();
-            __syncwarp();  // every lane's stores before lane 0's arrival
-          }
-          if (lane == 0) {
-            const uint32_t fb = smem_u32(&full[s]);
-            stage_bad[s] = bad;
-            if (bad || narrow) {
-              mbar_arrive(fb);
-            } else {
-              const uint32_t bytes = nr * row_bytes;
-              mbar_expect_tx(fb, 2 * bytes);
-              bulk_load(smem_u32(kt), p.k + off, bytes, fb);
-              bulk_load(smem_u32(kt + p.tile_stride), p.v + off, bytes, fb);
-            }
-          }
-          if (bad) return;
-          if (++s == p.stages) {
-            s = 0;
-            ++round;
-          }
-        }
-      }
-    }
+    produce<T>(p, ring, full, empty, stage_bad, b, h, slot0, n_pages, n_keys,
+               lane);
     return;
   }
 
@@ -691,6 +781,579 @@ paged_attention_sm90_combine(const float* __restrict__ ws,
   }
 }
 
+
+// ---- the mma route: g >= 8 at d <= 256 -------------------------------------
+//
+// Every query row of a kv head in one block (a row tile of up to 64 rows;
+// past 64, as Falcon-7B's 71, a second tile), the products on the tensor
+// cores: S = q.K^T and P.V by mma.sync with float32 accumulators, as the
+// TPU kernel multiplies its (g, d) block by a page on the MXU. The producer
+// warp, the ring, the bad-id flag, the split and the combine kernel are the
+// register route's.
+//
+// * q. The tile's rows go to shared memory once per block, unscaled, rows
+//   past g and columns past d zero (float32 as TF32 hi and lo, split once);
+//   log2(e) / sqrt(d) scales the float32 accumulator, so 2-byte q stays
+//   exact. Rows are padded by 8 (2-byte) or 4 (float32) elements so that a
+//   fragment's loads hit 32 banks.
+// * Warps. The 4 consumer warps are row groups x key groups: a warp holds MW
+//   m16 tiles of rows (16 MW rows, all d columns of their accumulator in
+//   registers) and takes every KG-th unit of 16 keys, counted across the
+//   stages, so a page of 16 keys is one unit and the warps of a row group
+//   take turns. Rows of a group past g do no work.
+// * Products. bf16 and f16: m16n8k16; the product of two 2-byte values is
+//   exact in float32, so S is the TPU kernel's float32 product up to the
+//   order of the sums. P.V (the TPU kernel's p is float32): f16 takes P in
+//   one rounding, as K2's f16 route does; bf16 as P_hi + P_lo (two
+//   products), as K2's bf16 route does (whether one rounding meets the bf16
+//   bar is not measured). float32: 3xTF32 m16n8k8 (lo.hi + hi.lo + hi.hi),
+//   K and V split as they are read from shared memory, P in registers; the
+//   accumulator holds keys 2t and 2t + 1 where the tf32 A fragment has its
+//   columns t and t + 4, so those columns take keys 2t and 2t + 1 and V's
+//   rows follow that order. Every product of a unit
+//   starts from zero and is added to the accumulator in float32 (mma.sync
+//   truncates what it adds to).
+// * Softmax. Per unit and row: the softcap, keys at or past the stage's
+//   live rows to -inf, the max over the quad's lanes (two shuffles), the
+//   rescale, exp2 (log2 units), a per-lane sum reduced at the end.
+// * Merge. Each warp's m, l and accumulator go to shared memory (the ring
+//   and q, free once every warp is done), and the row group's warps merge
+//   by the log-sum-exp rule as the register route's warps do.
+//
+// Bound: bytes, as the register route's (4 g d flops per key against 2 d
+// elt bytes is 12-71 flop/byte at g = 12-71 in 2-byte types, far below the
+// tensor cores' ridge). The ring holds up to 8 stages of about 64 KiB (the
+// register route's 4 and 32 KiB): the warps of a row group take turns at
+// the units, so each then has its next unit in flight while it works (in
+// float32, where a stage of 16 keys is 16 KiB, 4 stages ran 1.42x faster
+// than 2 on the H100; benchmarks_torch/paged_variants.py times these
+// choices). The ring's rows are staged unpadded (one bulk copy per page),
+// so a fragment's 8 key rows share 4 banks; reads without those conflicts
+// ran at most 7% faster. What sets the pace is the blocks' fixed work (q's
+// load, the first stages' latency, the merge) and the latency of each
+// unit's chain of loads, products and exps with few warps a SM: a build
+// that skipped the products ran in 0.4-0.6 of the time.
+
+// d += a.b, m16n8k16 (bf16 or f16) or m16n8k8 (tf32), float32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]);
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4],
+                                                   const uint32_t (&a)[4],
+                                                   const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+template <>
+__device__ __forceinline__ void mma<__half>(float (&c)[4],
+                                            const uint32_t (&a)[4],
+                                            const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+template <>
+__device__ __forceinline__ void mma<float>(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (ties away from zero, as
+// cvt.rna.tf32.f32), lo = x - hi exactly; the tensor core reads lo's top
+// bits (tests/tf32_split.py).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+// Two floats as one register of two 2-byte values, the first in the low
+// half; and the rounding error of each (P_lo).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x0, float x1);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float x0, float x1) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t bf16_rest(float x0, float x1,
+                                              uint32_t hi) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  return pack2<__nv_bfloat16>(x0 - __bfloat162float(h.x),
+                              x1 - __bfloat162float(h.y));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t ld_u16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// Blocks an SM should hold, which caps each instance's registers: 3 for the
+// 2-byte instances with one m16 tile a warp, 2 for two m16 tiles at d <=
+// 128 (the 2-byte d = 128 ones then spill 152 bytes), else 1 (the float32
+// d = 128 two-tile instance holds 231 registers). Against one block a SM
+// (benchmarks_torch/paged_variants.py's one_block) these ran the bf16
+// group shapes up to 1.4x and the float32 d = 64 instance 1.39x faster on
+// the H100.
+template <typename T, int D, int MW>
+constexpr int mma_min_blocks() {
+  return D == 256 ? 1
+         : sizeof(T) == 4 ? (D == 64 && MW == 2 ? 2 : 1)
+                          : (MW == 1 ? 3 : 2);
+}
+
+// T: float32, bfloat16 or float16. D: the instance's widest head dim (64,
+// 128, 256; d <= D at run time). MW: m16 tiles of rows a warp holds.
+template <typename T, int D, int MW>
+__global__ void __launch_bounds__(kThreads, (mma_min_blocks<T, D, MW>()))
+paged_attention_sm90_mma_kernel(const Params p, int tile_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int KS = kF32 ? 8 : 16;  // the mma's depth
+  constexpr int NT = D / 8;          // n8 tiles of the output columns
+  constexpr int ELT = sizeof(T);
+  // x = tile + n_tiles * (split + n_split * (h + Hkv * b))
+  unsigned x = blockIdx.x;
+  int tile = 0;
+  if (p.n_tiles > 1) {
+    const unsigned xt = x / (unsigned)p.n_tiles;
+    tile = (int)(x - xt * (unsigned)p.n_tiles);
+    x = xt;
+  }
+  const unsigned xs = x / (unsigned)p.n_split;
+  const int split = (int)(x - xs * (unsigned)p.n_split);
+  const int h = (int)(xs % (unsigned)p.Hkv), b = (int)(xs / (unsigned)p.Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int d = p.d, page = p.page, R = p.rows_per_stage;
+  const int rows = min(tile_rows, p.g - tile * tile_rows);
+  const int n_keys = min(max(p.lengths[b], 0), p.n_slots * page);
+  const int slot0 = split * p.pps;
+  const int n_pages = min(p.pps, (n_keys + page - 1) / page - slot0);
+  const size_t row0 =
+      ((size_t)b * p.Hkv + h) * p.g + (size_t)tile * tile_rows;
+  T* out = static_cast<T*>(p.out);
+  if (n_pages <= 0) {  // the run starts at or past the length
+    if (p.n_split == 1)
+      for (int i = tid; i < rows * d; i += kThreads)
+        out[row0 * d + i] = from_f32<T>(0.f);
+    return;
+  }
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMmaMaxStages;
+  int* stage_bad = reinterpret_cast<int*>(smem + 16 * kMmaMaxStages);
+  unsigned char* ring = smem + kRingOff;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    produce<T>(p, ring, full, empty, stage_bad, b, h, slot0, n_pages, n_keys,
+               lane);
+    return;
+  }
+
+  // Consumers: warp = row group + n_rg * key group.
+  const int g8 = lane >> 2, t4 = lane & 3;  // the fragments' row and column
+  const int n_rg = mma_row_groups(rows, MW), n_kg = kConsumerWarps / n_rg;
+  const int rg = warp % n_rg, kg = warp / n_rg;
+  const int rb = rg * 16 * MW;          // the warp's first row of the tile
+  const int dq = round_up(d, KS);       // q's columns in shared memory
+  const int qs = dq + (kF32 ? 4 : 8);   // q's row stride, elements
+  const int rs = round_up(d * ELT, 16);  // a ring row, bytes
+  const int dp = rs / ELT;              // its elements (zero past d)
+  const int rows_p = n_rg * 16 * MW;
+  unsigned char* qa = ring + p.stages * p.stage_bytes;
+  {
+    // 16-byte vectors where q's base and rows allow (QV of them in flight
+    // per thread), else one element at a time
+    const T* q = static_cast<const T*>(p.q) + row0 * d;
+    uint32_t* qh = reinterpret_cast<uint32_t*>(qa);
+    uint32_t* ql = qh + rows_p * qs;
+    constexpr int VE = 16 / ELT, QV = 8;
+    if (reinterpret_cast<uintptr_t>(p.q) % 16 == 0 && d * ELT % 16 == 0) {
+      const int nvr = dq / VE, n = rows_p * nvr;  // vectors a row, in all
+      for (int i0 = tid; i0 < n; i0 += kConsumers * QV) {
+        uint4 v[QV];
+#pragma unroll
+        for (int k = 0; k < QV; ++k) {
+          const int i = i0 + k * kConsumers, r = i / nvr, c = (i % nvr) * VE;
+          v[k] = i < n && r < rows && c < d
+                     ? *reinterpret_cast<const uint4*>(q + (size_t)r * d + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int k = 0; k < QV; ++k) {
+          const int i = i0 + k * kConsumers, r = i / nvr, c = (i % nvr) * VE;
+          if (i >= n) break;
+          if constexpr (kF32) {
+            const float f[4] = {__uint_as_float(v[k].x),
+                                __uint_as_float(v[k].y),
+                                __uint_as_float(v[k].z),
+                                __uint_as_float(v[k].w)};
+            uint4 hi, lo;
+            split_tf32(f[0], hi.x, lo.x);
+            split_tf32(f[1], hi.y, lo.y);
+            split_tf32(f[2], hi.z, lo.z);
+            split_tf32(f[3], hi.w, lo.w);
+            *reinterpret_cast<uint4*>(qh + r * qs + c) = hi;
+            *reinterpret_cast<uint4*>(ql + r * qs + c) = lo;
+          } else {
+            *reinterpret_cast<uint4*>(qa + (r * qs + c) * 2) = v[k];
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < rows_p * dq; i += kConsumers) {
+        const int r = i / dq, c = i - r * dq;
+        const bool live = r < rows && c < d;
+        if constexpr (kF32) {
+          split_tf32(live ? q[(size_t)r * d + c] : 0.f, qh[r * qs + c],
+                     ql[r * qs + c]);
+        } else {
+          reinterpret_cast<T*>(qa)[r * qs + c] =
+              live ? q[(size_t)r * d + c] : from_f32<T>(0.f);
+        }
+      }
+    }
+  }
+  consumer_sync();
+
+  float o[MW][NT][4], m[MW][2], l[MW][2];
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[mi][hf] = -INFINITY;
+      l[mi][hf] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][nt][e] = 0.f;
+  }
+
+  bool bad = false;
+  int s = 0, u = 0;    // the ring's stage; units of 16 keys seen so far
+  uint32_t phase = 0;  // of the full barriers in this round of the ring
+  for (int i = 0; i < n_pages && !bad; ++i) {
+    const int t_end = min(page, n_keys - (slot0 + i) * page);
+    for (int r0 = 0; r0 < t_end; r0 += R) {
+      mbar_wait(smem_u32(&full[s]), phase);
+      if (stage_bad[s]) {  // the same for every consumer; nothing follows
+        bad = true;
+        break;
+      }
+      const unsigned char* kt = ring + s * p.stage_bytes;
+      const unsigned char* vt = kt + p.tile_stride;
+      const int nr = min(R, t_end - r0);  // keys in this stage
+      const int nu = (nr + 15) >> 4;      // its units of 16 keys
+      const int j0 = ((kg - u) % n_kg + n_kg) % n_kg;
+      for (int j = rb < rows ? j0 : nu; j < nu; j += n_kg) {
+        const int kb = j * 16;  // the unit's first key in the stage
+        // S = q.K^T: sc[mi][n8 tile of keys][c]
+        float sc[MW][2][4];
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[mi][nt][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < D / KS; ++ks) {
+          if (ks * KS >= d) break;
+          if constexpr (kF32) {
+            const int c = ks * KS + t4;
+            uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int key = kb + 8 * nt + g8;
+              const unsigned char* kr = kt + key * rs;
+              split_tf32(key < nr && c < dp
+                             ? *reinterpret_cast<const float*>(kr + c * 4)
+                             : 0.f,
+                         bh[nt][0], bl[nt][0]);
+              split_tf32(key < nr && c + 4 < dp
+                             ? *reinterpret_cast<const float*>(kr + c * 4 + 16)
+                             : 0.f,
+                         bh[nt][1], bl[nt][1]);
+            }
+            const uint32_t* qh = reinterpret_cast<const uint32_t*>(qa);
+            const uint32_t* ql = qh + rows_p * qs;
+#pragma unroll
+            for (int mi = 0; mi < MW; ++mi) {
+              if (rb + 16 * mi >= rows) break;
+              const int r = rb + 16 * mi + g8;
+              const int i0 = r * qs + c, i1 = i0 + 8 * qs;
+              const uint32_t ah[4] = {qh[i0], qh[i1], qh[i0 + 4], qh[i1 + 4]};
+              const uint32_t al[4] = {ql[i0], ql[i1], ql[i0 + 4], ql[i1 + 4]};
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+                mma<float>(sc[mi][nt], al, bh[nt]);
+                mma<float>(sc[mi][nt], ah, bl[nt]);
+                mma<float>(sc[mi][nt], ah, bh[nt]);
+              }
+            }
+          } else {
+            const int c = ks * KS + 2 * t4;
+            uint32_t bk[2][2];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int key = kb + 8 * nt + g8;
+              const unsigned char* kr = kt + key * rs + c * 2;
+              bk[nt][0] = key < nr && c < dp ? ld_u32(kr) : 0u;
+              bk[nt][1] = key < nr && c + 8 < dp ? ld_u32(kr + 16) : 0u;
+            }
+#pragma unroll
+            for (int mi = 0; mi < MW; ++mi) {
+              if (rb + 16 * mi >= rows) break;
+              const unsigned char* qr =
+                  qa + ((rb + 16 * mi + g8) * qs + c) * 2;
+              const uint32_t a[4] = {ld_u32(qr), ld_u32(qr + 16 * qs),
+                                     ld_u32(qr + 16), ld_u32(qr + 16 * qs + 16)};
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) mma<T>(sc[mi][nt], a, bk[nt]);
+            }
+          }
+        }
+        // the softmax: scale, softcap, mask, then per row (g8 and g8 + 8 of
+        // each m16 tile) the unit's max over the quad and the rescale
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi) {
+          if (rb + 16 * mi >= rows) break;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float v = sc[mi][nt][2 * hf + e] * p.scale;
+                if (p.cap_in != 0.f) v = tanhf(v * p.cap_in) / p.cap_in;
+                v = kb + 8 * nt + 2 * t4 + e < nr ? v : -INFINITY;
+                sc[mi][nt][2 * hf + e] = v;
+                mx = fmaxf(mx, v);
+              }
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            // key kb is live: mx is finite
+            const float m_new = fmaxf(m[mi][hf], mx);
+            const float corr = exp2f(m[mi][hf] - m_new);  // 0 at the first
+            m[mi][hf] = m_new;
+            float sum = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float pr = exp2f(sc[mi][nt][2 * hf + e] - m_new);
+                sc[mi][nt][2 * hf + e] = pr;
+                sum += pr;
+              }
+            l[mi][hf] = l[mi][hf] * corr + sum;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              o[mi][nt][2 * hf] *= corr;
+              o[mi][nt][2 * hf + 1] *= corr;
+            }
+          }
+        }
+        // O += P.V, n8 tile by n8 tile of the columns
+        if constexpr (kF32) {
+          // A: P's keys 2t and 2t + 1 of each n8 tile of S in the k order
+          // (t, t + 4); split once
+          uint32_t ph[MW][2][4], pl[MW][2][4];
+#pragma unroll
+          for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+            for (int kt2 = 0; kt2 < 2; ++kt2) {
+              const float a[4] = {sc[mi][kt2][0], sc[mi][kt2][2],
+                                  sc[mi][kt2][1], sc[mi][kt2][3]};
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                split_tf32(a[e], ph[mi][kt2][e], pl[mi][kt2][e]);
+            }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (nt * 8 >= d) break;
+            const int col = nt * 8 + g8;
+            float acc[MW][4];
+#pragma unroll
+            for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][e] = 0.f;
+#pragma unroll
+            for (int kt2 = 0; kt2 < 2; ++kt2) {
+              const int k0 = kb + 8 * kt2 + 2 * t4;
+              uint32_t vh[2], vl[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                split_tf32(k0 + e < nr && col < dp
+                               ? *reinterpret_cast<const float*>(
+                                     vt + (k0 + e) * rs + col * 4)
+                               : 0.f,
+                           vh[e], vl[e]);
+#pragma unroll
+              for (int mi = 0; mi < MW; ++mi) {
+                if (rb + 16 * mi >= rows) break;
+                mma<float>(acc[mi], pl[mi][kt2], vh);
+                mma<float>(acc[mi], ph[mi][kt2], vl);
+                mma<float>(acc[mi], ph[mi][kt2], vh);
+              }
+            }
+#pragma unroll
+            for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[mi][nt][e] += acc[mi][e];
+          }
+        } else {
+          // A: P of keys (2t, 2t + 1) and (2t + 8, 2t + 9), rows g8 and
+          // g8 + 8: the S accumulators' own layout
+          constexpr bool kLo = std::is_same<T, __nv_bfloat16>::value;
+          uint32_t ph[MW][4], pl[MW][4];
+#pragma unroll
+          for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v0 = sc[mi][e >> 1][2 * (e & 1)];
+              const float v1 = sc[mi][e >> 1][2 * (e & 1) + 1];
+              ph[mi][e] = pack2<T>(v0, v1);
+              if constexpr (kLo) pl[mi][e] = bf16_rest(v0, v1, ph[mi][e]);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (nt * 8 >= d) break;
+            const int col = nt * 8 + g8;
+            const int k0 = kb + 2 * t4;
+            const unsigned char* vc = vt + col * 2;
+            const bool cl = col < dp;
+            uint32_t bv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = k0 + 8 * e;
+              const uint32_t v0 = cl && k < nr ? ld_u16(vc + k * rs) : 0u;
+              const uint32_t v1 =
+                  cl && k + 1 < nr ? ld_u16(vc + (k + 1) * rs) : 0u;
+              bv[e] = v0 | (v1 << 16);
+            }
+#pragma unroll
+            for (int mi = 0; mi < MW; ++mi) {
+              if (rb + 16 * mi >= rows) break;
+              float acc[4] = {0.f, 0.f, 0.f, 0.f};
+              if constexpr (kLo) mma<T>(acc, pl[mi], bv);
+              mma<T>(acc, ph[mi], bv);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[mi][nt][e] += acc[e];
+            }
+          }
+        }
+      }
+      u += nu;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      if (++s == p.stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+  }
+
+  // Merge: a row's sum over its quad, then the warps of a row group through
+  // shared memory (the ring and q are free: every copy issued has landed and
+  // been read, every warp is past its last product).
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[mi][hf] += __shfl_xor_sync(0xffffffffu, l[mi][hf], 1);
+      l[mi][hf] += __shfl_xor_sync(0xffffffffu, l[mi][hf], 2);
+    }
+  consumer_sync();
+  constexpr int WR = 16 * MW;  // a warp's rows
+  const int dr = round_up(d, 8);
+  float* m_sm = reinterpret_cast<float*>(ring);  // [warp][32]
+  float* l_sm = m_sm + kConsumerWarps * 32;      // [warp][32]
+  float* red = l_sm + kConsumerWarps * 32;       // [warp][WR][dr]
+  if (!bad) {
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi) {
+      if (rb + 16 * mi >= rows) break;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rl = 16 * mi + 8 * hf + g8;
+        if (t4 == 0) {
+          m_sm[warp * 32 + rl] = m[mi][hf];
+          l_sm[warp * 32 + rl] = l[mi][hf];
+        }
+        float* dst = red + ((size_t)warp * WR + rl) * dr + 2 * t4;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt * 8 >= d) break;
+          *reinterpret_cast<float2*>(dst + nt * 8) =
+              make_float2(o[mi][nt][2 * hf], o[mi][nt][2 * hf + 1]);
+        }
+      }
+    }
+  }
+  consumer_sync();
+  const int dc = (d + 3) / 4;  // 4 columns a thread at a time
+  for (int idx = tid; idx < rows * dc; idx += kConsumers) {
+    const int r = idx / dc, e0 = (idx - r * dc) * 4;
+    const int w0 = r / WR, rl = r - w0 * WR;  // row group, row in the group
+    float M = -INFINITY, L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};
+    if (!bad) {
+      for (int k = 0; k < n_kg; ++k)
+        M = fmaxf(M, m_sm[(w0 + n_rg * k) * 32 + rl]);
+      for (int k = 0; k < n_kg; ++k) {
+        const int w = w0 + n_rg * k;
+        const float mw = m_sm[w * 32 + rl];
+        if (mw == -INFINITY) continue;  // this warp saw no key
+        const float c = exp2f(mw - M);
+        L += l_sm[w * 32 + rl] * c;
+        const float4 a = *reinterpret_cast<const float4*>(
+            red + ((size_t)w * WR + rl) * dr + e0);
+        A[0] += a.x * c;
+        A[1] += a.y * c;
+        A[2] += a.z * c;
+        A[3] += a.w * c;
+      }
+    }
+    const int ne = min(4, d - e0);
+    if (p.n_split == 1) {
+      T* o_row = out + (row0 + r) * d + e0;
+      for (int e = 0; e < ne; ++e)
+        o_row[e] = from_f32<T>(bad ? NAN : A[e] / fmaxf(L, 1e-30f));
+    } else {
+      float* w = p.ws + ((row0 + r) * p.n_split + split) * (size_t)(d + 2);
+      for (int e = 0; e < ne; ++e) w[e0 + e] = A[e];
+      if (e0 == 0) {
+        w[d] = bad ? NAN : M;
+        w[d + 1] = bad ? NAN : L;
+      }
+    }
+  }
+}
 
 // ---- the wide route: d > 2048 --------------------------------------------
 //
@@ -970,6 +1633,25 @@ int launch_main(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
     err = launch_main<T, G, NVL>(p, grid, pl.smem, stream);     \
     break;
 
+template <typename T, int D, int MW>
+int launch_mma(const Params& p, dim3 grid, int smem, int tile_rows,
+               cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_sm90_mma_kernel<T, D, MW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  paged_attention_sm90_mma_kernel<T, D, MW>
+      <<<grid, kThreads, smem, stream>>>(p, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+#define MMA_CASE(D, MW)                                           \
+  case D * 10 + MW:                                               \
+    err = launch_mma<T, D, MW>(p, grid, pl.smem, G, stream);      \
+    break;
+
 template <typename T, int G>
 int launch_wide(const Params& p, unsigned grid, int n_slices, bool vec,
                 cudaStream_t stream) {
@@ -991,7 +1673,13 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
              const Plan& pl, int n_slices, bool vec) {
   const unsigned grid = grid_blocks(p, n_slices > 0 ? n_slices : 1, B);
   int err = (int)cudaErrorInvalidValue;
-  if (n_slices > 0) {  // the wide route
+  if (pl.mw > 0) {  // the mma route: the (head dims, m16 tiles) instances
+    switch (pl.dinst * 10 + pl.mw) {  // that mma_shape gives
+      MMA_CASE(64, 1) MMA_CASE(64, 2)
+      MMA_CASE(128, 1) MMA_CASE(128, 2)
+      MMA_CASE(256, 1)
+    }
+  } else if (n_slices > 0) {  // the wide route
     switch (G) {
       case 1: err = launch_wide<T, 1>(p, grid, n_slices, vec, stream); break;
       case 2: err = launch_wide<T, 2>(p, grid, n_slices, vec, stream); break;
@@ -1021,12 +1709,17 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
 }
 
 #undef PA_CASE
+#undef MMA_CASE
 
 }  // namespace
 
 // C entry for ctypes. dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, pools
 // and out).
-// tile_rows: G, query rows per group tile (ops.tile_rows). pages_per_split
+// tile_rows: the route and its query rows per tile (ops.group_tile_rows):
+// up to kMaxRows (8), G of the register route's group tiles (ops.tile_rows)
+// or of the wide route's past d = 2048; above it, the mma route's row tile,
+// which must be mma_tile_rows(g) at d <= kMmaMaxD (ops.mma_route picks the
+// route; a measurement may ask for it at g <= 8). pages_per_split
 // >= 1; with n_split = ceil(n_slots / pages_per_split) > 1, ws is float32
 // scratch of B * Hq * n_split * (d + 2). bulk (ops._bulk_copies): 1 fills
 // the stages by bulk copies, which needs both pools' bases and d * elt to
@@ -1050,15 +1743,17 @@ extern "C" int paged_attention_sm90_launch(
   const uintptr_t kb = reinterpret_cast<uintptr_t>(k_pages);
   const uintptr_t vb = reinterpret_cast<uintptr_t>(v_pages);
   const long long row = (long long)d * elt;
-  const bool wide = d > 0 && wide_route(d, elt);
+  const bool mma = tile_rows > kMaxRows;
+  const bool wide = !mma && d > 0 && wide_route(d, elt);
   if (B <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || d <= 0 ||
       page <= 0 || n_slots <= 0 || P <= 0 || pages_per_split <= 0 ||
       dtype < 0 || dtype > 2 || kb % 2 || vb % 2 ||
       (long long)B * Hq > 0x7fffffffLL ||
       (bulk && (kb % 16 || vb % 16 || row % 16)) ||
-      (wide ? tile_rows < 1 || tile_rows > kMaxRows ||
-                  (tile_rows & (tile_rows - 1))
-            : !make_plan(tile_rows, d, page, elt, &pl)))
+      (mma    ? !make_mma_plan(tile_rows, Hq / Hkv, d, page, elt, &pl)
+       : wide ? tile_rows < 1 || tile_rows > kMaxRows ||
+                    (tile_rows & (tile_rows - 1))
+              : !make_plan(tile_rows, d, page, elt, &pl)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -1100,19 +1795,34 @@ extern "C" int paged_attention_sm90_launch(
   return launch_t<__half>(p, tile_rows, B, Hq, s, pl, n_slices, vec);
 }
 
-// The launch plan for tile_rows query rows per group tile, head_dim d,
-// `page` keys per page and dtype (0 float32, 1 bfloat16, 2 float16): 16-byte
-// vectors of a row per lane, keys per ring stage, ring stages and dynamic
-// shared memory bytes; on the wide route (returns 2) 0 vectors a lane,
-// kWideKeys keys per chunk, no stages and no dynamic shared memory. Returns
-// 0 where the kernel does not take the shape.
-extern "C" int paged_attention_sm90_plan(int tile_rows, int d, int page,
-                                         int dtype, int* vectors_per_lane,
+// The launch plan for tile_rows query rows per tile of g rows per kv head,
+// head_dim d, `page` keys per page and dtype (0 float32, 1 bfloat16, 2
+// float16): 16-byte vectors of a row per lane, keys per ring stage, ring
+// stages, dynamic shared memory bytes and m16 tiles a warp. Returns 1 on the
+// register route; 2 on the wide route (0 vectors a lane, kWideKeys keys per
+// chunk, no stages and no dynamic shared memory); 3 on the mma route
+// (tile_rows > kMaxRows: mma_tile_rows(g); 0 vectors a lane); 0 where the
+// kernel does not take the shape. Where a route is not the mma route, its
+// m16 tiles a warp are 0.
+extern "C" int paged_attention_sm90_plan(int tile_rows, int g, int d,
+                                         int page, int dtype,
+                                         int* vectors_per_lane,
                                          int* keys_per_stage, int* stages,
-                                         int* smem_bytes) {
-  Plan pl;
+                                         int* smem_bytes, int* warp_m16) {
+  Plan pl = {};
+  const int elt = dtype == 0 ? 4 : 2;
   if (dtype < 0 || dtype > 2 || d < 1 || page < 1) return 0;
-  if (wide_route(d, dtype == 0 ? 4 : 2)) {
+  *warp_m16 = 0;
+  if (tile_rows > kMaxRows) {
+    if (!make_mma_plan(tile_rows, g, d, page, elt, &pl)) return 0;
+    *vectors_per_lane = 0;
+    *keys_per_stage = pl.rows_per_stage;
+    *stages = pl.stages;
+    *smem_bytes = pl.smem;
+    *warp_m16 = pl.mw;
+    return 3;
+  }
+  if (wide_route(d, elt)) {
     if (tile_rows < 1 || tile_rows > kMaxRows || (tile_rows & (tile_rows - 1)))
       return 0;
     *vectors_per_lane = 0;
@@ -1121,10 +1831,18 @@ extern "C" int paged_attention_sm90_plan(int tile_rows, int d, int page,
     *smem_bytes = 0;
     return 2;
   }
-  if (!make_plan(tile_rows, d, page, dtype == 0 ? 4 : 2, &pl)) return 0;
+  if (!make_plan(tile_rows, d, page, elt, &pl)) return 0;
   *vectors_per_lane = pl.nvl;
   *keys_per_stage = pl.rows_per_stage;
   *stages = pl.stages;
   *smem_bytes = pl.smem;
   return 1;
+}
+
+// The source's route rule for g query rows per kv head at head dim d and
+// dtype (0 float32, 1 bfloat16, 2 float16): 1 where the mma route takes the
+// shape (mma_route), else 0. ops.sm90_plan reports it beside the plan, so a
+// run on the card holds the wrapper's ops.mma_route to it.
+extern "C" int paged_attention_sm90_mma_route(int g, int d, int dtype) {
+  return mma_route(g, d, dtype == 0 ? 4 : 2) ? 1 : 0;
 }

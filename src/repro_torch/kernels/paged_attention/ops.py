@@ -4,14 +4,18 @@ A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor goes to
 the hand-written kernel ``csrc/paged_attention_sm90.cu``, or the call
 raises. The kernel takes every shape the wrapper accepts: any batch and
 number of kv heads (every block index in the grid's x dimension,
-``paged_block``), any g = Hq / Hkv (the query rows of a kv head in group
-tiles of ``tile_rows``), any head dim (past 2048 the wide route,
-``wide_route``, in slices of ``WIDE_COLS`` output columns), any page size,
-any row width in bytes, any pool base address. Each sequence's pages are
+``paged_block``), any g = Hq / Hkv, any head dim, any page size, any row
+width in bytes, any pool base address. Three routes (``group_tile_rows``):
+g >= 8 at d <= 256 the mma route (``mma_route``: every query row of a kv
+head in a row tile of up to 64 rows, the products on the tensor cores);
+else up to d = 2048 the register route (query rows in group tiles of
+``tile_rows``); past it the wide route (``wide_route``, in slices of
+``WIDE_COLS`` output columns). Each sequence's pages are
 split across blocks; the run of pages per block comes from
 ``_pages_per_split``, which never reads ``lengths``.
 
-``paged_attention.launches`` counts the calls that launched the kernel.
+``paged_attention.launches`` counts the calls that launched the kernel,
+``paged_attention.launches_mma`` those of them on the mma route.
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ SPLIT_BLOCKS_PER_SM = 4         # blocks _pages_per_split aims to give an SM
 MAX_TILE_ROWS = 8               # query rows of a group tile
 MAX_LANE_FLOATS = 64            # a lane's floats of a tile's q rows
 WIDE_COLS = 2048                # the wide route's output columns per block
+MMA_MIN_GROUP = 8               # the mma route: g >= 8 ...
+MMA_MAX_D = 256                 # ... at d <= 256
+MMA_MAX_ROWS = 64               # its query rows of a row tile
 
 
 # the C entry's arguments (csrc/paged_attention_sm90.cu)
@@ -86,8 +93,10 @@ def paged_block(x: int, n_tiles: int, n_sl: int, n_split: int,
 
 
 def tile_rows(g: int, d: int, elt: int) -> int:
-    """Query rows per group tile for g rows per kv head, head dim d and elt
-    bytes per element: the power of two >= g up to ``MAX_TILE_ROWS``,
+    """Query rows per group tile of the register and wide routes for g rows
+    per kv head, head dim d and elt bytes per element (the mma route's
+    shapes take ``mma_tile_rows``): the power of two >= g up to
+    ``MAX_TILE_ROWS``,
     halved while the tile's q would pass ``MAX_LANE_FLOATS`` floats in a
     lane that holds the fewest 16-byte vectors of a row that let 32 lanes
     cover it; on the wide route (no row in registers) not halved. The g
@@ -106,6 +115,48 @@ def tile_rows(g: int, d: int, elt: int) -> int:
     return rows
 
 
+def mma_route(g: int, d: int, elt: int) -> bool:
+    """Whether g query rows per kv head at head dim d take the kernel's mma
+    route, in every type (elt bytes per element): g >= ``MMA_MIN_GROUP`` (g
+    = 8 included: at 64/8 heads, d = 128, the route ran 1.5x (float32) and
+    3.0x (bfloat16, float16) faster than the register route on the H100)
+    at d <= ``MMA_MAX_D``. The kernel source's ``mma_route`` is the same
+    rule."""
+    return elt > 0 and g >= MMA_MIN_GROUP and 1 <= d <= MMA_MAX_D
+
+
+def mma_tile_rows(g: int) -> int:
+    """Query rows of the mma route's row tile: g rounded up to whole m16
+    tiles, at most ``MMA_MAX_ROWS`` (g = 71: a tile of 64 rows and one of
+    7). The source's ``mma_tile_rows``."""
+    return min(MMA_MAX_ROWS, -(-g // 16) * 16)
+
+
+def mma_shape(rows: int, d: int) -> tuple:
+    """(head dim of the kernel instance, m16 tiles a warp holds) for a row
+    tile of ``rows`` at head dim d: 64, 128 or 256; two m16 tiles where d
+    <= 128 and the tile has 32 rows or more, else one. The source's
+    ``mma_shape``; its launch switch has an instance for each pair."""
+    dinst = 64 if d <= 64 else 128 if d <= 128 else 256
+    return dinst, 2 if dinst <= 128 and rows >= 32 else 1
+
+
+def mma_row_groups(rows: int, mw: int) -> int:
+    """Row groups of a tile with ``rows`` live rows and ``mw`` m16 tiles a
+    warp: ceil(rows / (16 mw)) rounded up to 1, 2 or 4. The four consumer
+    warps are row groups x key groups (the source's ``mma_row_groups``)."""
+    n16 = -(-rows // 16)
+    n = -(-n16 // mw)
+    return 4 if n > 2 else n
+
+
+def group_tile_rows(g: int, d: int, elt: int) -> int:
+    """The ``tile_rows`` argument of the kernel's C entry, which also picks
+    the route: ``mma_tile_rows`` (more than ``MAX_TILE_ROWS``) on the mma
+    route, else ``tile_rows``."""
+    return mma_tile_rows(g) if mma_route(g, d, elt) else tile_rows(g, d, elt)
+
+
 def _bulk_copies(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
     """Whether the kernel fills its ring stages from these pools by bulk
     copies (both bases and the row width multiples of 16 bytes) rather than
@@ -115,28 +166,37 @@ def _bulk_copies(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
             and row % 16 == 0)
 
 
-def sm90_plan(g: int, d: int, page: int,
-              dtype: torch.dtype) -> Optional[dict]:
-    """The kernel's plan for a shape: its route ("registers", or "wide"
-    past d = 2048), query rows per group tile and tiles, output slices,
-    16-byte vectors of a row per lane, keys per ring stage (the wide
-    route: per chunk), ring stages and dynamic shared memory bytes. None
-    where the kernel does not take the shape (builds the kernel; needs the
-    CUDA toolkit)."""
+def sm90_plan(g: int, d: int, page: int, dtype: torch.dtype,
+              rows: Optional[int] = None) -> Optional[dict]:
+    """The kernel's plan for a shape: its route ("mma", "registers", or
+    "wide" past d = 2048), query rows per tile and tiles, output slices,
+    16-byte vectors of a row per lane (0 on the mma and wide routes), keys
+    per ring stage (the wide route: per chunk), ring stages, dynamic shared
+    memory bytes and m16 tiles a warp (the mma route; else 0). ``rows``
+    (None: ``group_tile_rows``) asks for another route's tile, e.g.
+    ``mma_tile_rows(g)`` at g <= 8. ``source_mma_route`` is the kernel
+    source's own route rule for (g, d, dtype), which must equal
+    ``mma_route``. None where the kernel does not take the shape (builds
+    the kernel; needs the CUDA toolkit)."""
     from repro_torch.kernels import _build
     elt = torch.empty((), dtype=dtype).element_size()
-    rows = tile_rows(g, d, elt)
-    vals = [ctypes.c_int() for _ in range(4)]
-    ok = _build.load("paged_attention_sm90").paged_attention_sm90_plan(
-        ctypes.c_int(rows), ctypes.c_int(d), ctypes.c_int(page),
-        ctypes.c_int(_DTYPE_CODE[dtype]), *(ctypes.byref(x) for x in vals))
+    rows = rows or group_tile_rows(g, d, elt)
+    lib = _build.load("paged_attention_sm90")
+    vals = [ctypes.c_int() for _ in range(5)]
+    ok = lib.paged_attention_sm90_plan(
+        ctypes.c_int(rows), ctypes.c_int(g), ctypes.c_int(d),
+        ctypes.c_int(page), ctypes.c_int(_DTYPE_CODE[dtype]),
+        *(ctypes.byref(x) for x in vals))
     if not ok:
         return None
-    return {"route": "wide" if ok == 2 else "registers",
+    return {"route": {1: "registers", 2: "wide", 3: "mma"}[ok],
             "tile_rows": rows, "tiles": -(-g // rows),
             "slices": n_slices(d, elt),
             **dict(zip(("vectors_per_lane", "keys_per_stage", "stages",
-                        "smem_bytes"), (x.value for x in vals)))}
+                        "smem_bytes", "warp_m16"), (x.value for x in vals))),
+            "source_mma_route": bool(lib.paged_attention_sm90_mma_route(
+                ctypes.c_int(g), ctypes.c_int(d),
+                ctypes.c_int(_DTYPE_CODE[dtype])))}
 
 
 @functools.cache
@@ -213,19 +273,24 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return torch.empty_like(q)
     out = _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap)
     paged_attention.launches += 1
+    if mma_route(q.shape[1] // k_pages.shape[1], q.shape[2],
+                 q.element_size()):
+        paged_attention.launches_mma += 1
     return out
 
 
 def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
-         pages_per_split=None, launcher=None):
+              pages_per_split=None, launcher=None, rows=None):
     """Launches ``csrc/paged_attention_sm90.cu`` on checked CUDA inputs
     (B >= 1) and returns the output; ``pages_per_split`` (None:
-    ``_pages_per_split``'s choice) lets a measurement pick the split, and
-    ``launcher`` another build's C entry of the same signature."""
+    ``_pages_per_split``'s choice) lets a measurement pick the split,
+    ``launcher`` another build's C entry of the same signature, and
+    ``rows`` (None: ``group_tile_rows``) another route's tile rows, e.g.
+    ``tile_rows`` for a build that has no mma route."""
     B, Hq, d = q.shape
     P, Hkv, page, _ = k_pages.shape
     n_slots = page_table.shape[1]
-    rows = tile_rows(Hq // Hkv, d, q.element_size())
+    rows = rows or group_tile_rows(Hq // Hkv, d, q.element_size())
     out = torch.empty_like(q)
     dev = q.device.index
     pps = pages_per_split or _pages_per_split(
@@ -248,3 +313,4 @@ def _run_sm90(q, k_pages, v_pages, page_table, lengths, softcap,
 
 
 paged_attention.launches = 0
+paged_attention.launches_mma = 0

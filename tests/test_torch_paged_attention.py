@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 import numpy as np
+from tf32_split import mm3
 
 from repro.kernels.paged_attention.kernel import paged_attention as jax_kernel
 from repro_torch.kernels.paged_attention import ops
@@ -584,6 +585,220 @@ def test_wide_route_bad_id_gives_nan_on_its_sequence_only(pps):
     np.testing.assert_allclose(got[[0, 2]], want[[0, 2]], **F32_TOL)
 
 
+# --- the mma route (g >= 8 at d <= 256 on the card): row tiles of up to 64
+# rows, warps as row groups x key groups, the products on the tensor cores --
+
+def _tc_product(a, b, dtype):
+    """a @ b as the route's tensor cores take it: 2-byte operands (exact in
+    float32, so a float32 product summed in float32) or 3xTF32."""
+    if dtype == torch.float32:
+        return mm3(a, b)
+    return a.float() @ b.float()
+
+
+def _mma_emulate(q, k, v, pt, lengths, softcap=0.0, pps=1):
+    """What the sm90 kernel's mma route computes, block by block: per
+    (sequence, kv head, row tile of ``ops.mma_tile_rows`` rows, split of
+    ``pps`` slots) the tile's rows held by ``ops.mma_row_groups`` row groups
+    of 16 x MW rows (rows past g zero); the split's live keys in ring stages
+    of ``_keys_per_stage`` keys, cut into units of 16 keys, unit n of the
+    block (counted across stages) going to key group n mod (4 / row
+    groups). Per warp and unit: S = q.K^T in the input type's products
+    (3xTF32 in float32), the scale log2(e) / sqrt(d) after the product, the
+    softcap in log2 units, keys past the stage's live rows to -inf, the
+    online softmax in log2 units; P.V with P rounded once (float16), as
+    P_hi + P_lo (bfloat16) or 3xTF32 (float32). Then the row group's warps
+    merge (a warp that saw no key skipped), a bad id gives NaN, and the
+    splits combine by the log-sum-exp rule."""
+    B, Hq, d = q.shape
+    P, Hkv, page, _ = k.shape
+    g, n_slots = Hq // Hkv, pt.shape[1]
+    elt, dt = q.element_size(), q.dtype
+    TR = ops.mma_tile_rows(g)
+    _, MW = ops.mma_shape(TR, d)
+    WR = 16 * MW
+    R = _keys_per_stage(page, d, elt)
+    scale = LOG2E / math.sqrt(d)
+    cap_in = math.log(2) / softcap if softcap else 0.0
+    n_split = -(-n_slots // pps)
+    out = torch.zeros(B, Hq, d)
+    for b in range(B):
+        n_keys = min(max(int(lengths[b]), 0), n_slots * page)
+        for h in range(Hkv):
+            for t0 in range(0, g, TR):
+                rows = min(TR, g - t0)
+                n_rg = ops.mma_row_groups(rows, MW)
+                n_kg = 4 // n_rg
+                qt = torch.zeros(n_rg * WR, d, dtype=dt)
+                qt[:rows] = q[b, h * g + t0:h * g + t0 + rows]
+                parts = []
+                for s in range(n_split):
+                    k0 = s * pps * page
+                    k1 = min(n_keys, (s + 1) * pps * page)
+                    if k1 <= k0:
+                        continue                            # not live
+                    # warps [row group][key group]: m, l, acc
+                    m = torch.full((n_kg, n_rg * WR), -math.inf)
+                    l = torch.zeros(n_kg, n_rg * WR)
+                    acc = torch.zeros(n_kg, n_rg * WR, d)
+                    bad, u = False, 0
+                    for slot in range(s * pps, -(-k1 // page)):
+                        pid = int(pt[b, slot])
+                        if not 0 <= pid < P:
+                            bad = True
+                            break
+                        t_end = min(page, n_keys - slot * page)
+                        for r0 in range(0, t_end, R):       # ring stages
+                            nr = min(R, t_end - r0)
+                            nu = -(-nr // 16)
+                            for j in range(nu):             # units
+                                kg = (u + j) % n_kg
+                                keys = slice(r0 + 16 * j,
+                                             r0 + min(nr, 16 * j + 16))
+                                kk = k[pid, h, keys]
+                                x = _tc_product(qt, kk.T, dt) * scale
+                                if cap_in:
+                                    x = torch.tanh(x * cap_in) / cap_in
+                                m_new = torch.maximum(m[kg], x.amax(-1))
+                                corr = torch.exp2(m[kg] - m_new)
+                                p_ = torch.exp2(x - m_new[:, None])
+                                vv = v[pid, h, keys]
+                                if dt == torch.float16:
+                                    pv = _tc_product(p_.half(), vv, dt)
+                                elif dt == torch.bfloat16:
+                                    hi = p_.bfloat16()
+                                    lo = (p_ - hi.float()).bfloat16()
+                                    pv = (_tc_product(lo, vv, dt)
+                                          + _tc_product(hi, vv, dt))
+                                else:
+                                    pv = _tc_product(p_, vv, dt)
+                                l[kg] = l[kg] * corr + p_.sum(-1)
+                                acc[kg] = acc[kg] * corr[:, None] + pv
+                                m[kg] = m_new
+                            u += nu
+                    if bad:
+                        parts.append((None, None, None))
+                        continue
+                    # the row group's warps merge
+                    M = m.amax(0)
+                    w = torch.where(m == -math.inf, 0.0, torch.exp2(m - M))
+                    parts.append(((acc * w[..., None]).sum(0)[:rows],
+                                  M[:rows], (l * w).sum(0)[:rows]))
+                rows_out = slice(h * g + t0, h * g + t0 + rows)
+                if not parts:
+                    continue                                # length 0: 0
+                if any(a is None for a, _, _ in parts):
+                    out[b, rows_out] = math.nan
+                    continue
+                M = torch.stack([m_ for _, m_, _ in parts]).amax(0)
+                L = sum(l_ * torch.exp2(m_ - M) for _, m_, l_ in parts)
+                A = sum(a * torch.exp2(m_ - M)[:, None] for a, m_, _ in parts)
+                out[b, rows_out] = A / L.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+MMA_CASES = {
+    # name: (B, Hq, Hkv, d, page, n_slots, P, lengths, pps, softcap)
+    "g12": (2, 24, 2, 128, 16, 4, 16, [0, 53], 1, 0.0),
+    "g16_softcap": (2, 16, 1, 128, 16, 4, 12, [37, 64], 2, 30.0),
+    "g48": (2, 48, 1, 128, 16, 3, 8, [45, 9], 1, 0.0),
+    "g71_d64": (2, 71, 1, 64, 16, 3, 8, [0, 41], 2, 0.0),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(MMA_CASES))
+def test_mma_route_arithmetic_matches_pallas_kernel(case, dtype):
+    """The mma route's tiling and products (``_mma_emulate``) against the
+    Pallas kernel in interpret mode at g = 12 (two kv heads), 16 (softcap),
+    48 (one tile of two row groups of 32) and 71 (d = 64: tiles of 64 and 7
+    rows), with a length of 0, several splits and partial units; each
+    type's bar (tests/test_kernels.py's, and 11 significant bits for
+    float16)."""
+    B, Hq, Hkv, d, page, n_slots, P, lengths, pps, cap = MMA_CASES[case]
+    jdt, tdt, tol = DTYPES[dtype]
+    assert ops.mma_route(Hq // Hkv, d, 4 if dtype == "float32" else 2)
+    x = _inputs(20, B, Hq, Hkv, d, page, n_slots, P, lengths)
+    got = _run_port(x, tdt, softcap=cap, fn=functools.partial(
+        _mma_emulate, pps=pps))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _run_jax(x, jdt, softcap=cap), **tol)
+    if 0 in lengths:
+        assert np.all(got[lengths.index(0)] == 0.0)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mma_route_takes_g8(dtype):
+    """qwen1.5-110b's group (g = 8) runs on the mma route: a row tile of 16
+    rows, 8 of them padding, pages of 8 keys (half units); g = 7 stays on
+    the register route."""
+    jdt, tdt, tol = DTYPES[dtype]
+    elt = 4 if dtype == "float32" else 2
+    assert ops.mma_route(8, 128, elt) and not ops.mma_route(7, 128, elt)
+    assert ops.group_tile_rows(8, 128, elt) == 16
+    assert ops.group_tile_rows(7, 128, elt) == ops.tile_rows(7, 128, elt)
+    x = _inputs(21, 2, 16, 2, 128, 8, 4, 16, lengths=[30, 11])
+    got = _run_port(x, tdt, fn=functools.partial(_mma_emulate, pps=2))
+    np.testing.assert_allclose(got, _run_jax(x, jdt), **tol)
+
+
+@pytest.mark.parametrize("pps", [1, 2])
+def test_mma_route_bad_id_gives_nan_on_its_sequence_only(pps):
+    """A page id outside [0, P) inside sequence 1's length: NaN in all of its
+    rows (both row tiles of g = 71), the other sequences as the plain
+    version; an id past sequence 2's length is never read."""
+    x = _inputs(22, 3, 71, 1, 32, 8, 4, 16, lengths=[30, 25, 7])
+    want = _run_port(x, torch.float32)
+    x["pt"][1, 2] = 16           # slot 2 starts at 16 < 25
+    x["pt"][2, 3] = -5           # past the length of 7: never read
+    got = _run_port(x, torch.float32,
+                    fn=functools.partial(_mma_emulate, pps=pps))
+    assert np.isnan(got[1]).all()
+    np.testing.assert_allclose(got[[0, 2]], want[[0, 2]], **F32_TOL)
+
+
+def test_mma_route_and_the_kernel_source_agree():
+    """Build-free: the wrapper's mma rule is the source's (its constants and
+    its route line), ``group_tile_rows`` gives the C entry a tile over
+    ``MAX_TILE_ROWS`` exactly on the mma route (the entry's route switch),
+    every tile covers g in whole m16 tiles, and the (head dims, m16 tiles a
+    warp) pairs that every g and d <= 256 give are the source's launch
+    switch's ``MMA_CASE`` instances."""
+    src = _SM90_SRC.read_text()
+    consts = {n: int(v) for n, v in re.findall(
+        r"constexpr int (kMmaMinGroup|kMmaMaxD|kMmaMaxRows) = (\d+);", src)}
+    assert consts == {"kMmaMinGroup": ops.MMA_MIN_GROUP,
+                      "kMmaMaxD": ops.MMA_MAX_D,
+                      "kMmaMaxRows": ops.MMA_MAX_ROWS}
+    assert ("return elt > 0 && g >= kMmaMinGroup && d >= 1 && d <= kMmaMaxD;"
+            in src)
+    assert "const bool mma = tile_rows > kMaxRows;" in src
+    cases = {(int(a), int(b)) for a, b in re.findall(
+        r"MMA_CASE\((\d+), (\d+)\)", src)}
+    seen = set()
+    for elt in (4, 2):
+        for d in (*range(1, 260, 3), 64, 128, 256, 257):
+            for g in (*range(1, 80), 128):
+                rows = ops.group_tile_rows(g, d, elt)
+                if not ops.mma_route(g, d, elt):
+                    assert rows == ops.tile_rows(g, d, elt)
+                    assert rows <= ops.MAX_TILE_ROWS
+                    assert d > ops.MMA_MAX_D or g < ops.MMA_MIN_GROUP
+                    continue
+                assert rows == ops.mma_tile_rows(g) > ops.MAX_TILE_ROWS
+                assert rows % 16 == 0 and rows <= ops.MMA_MAX_ROWS
+                tiles = -(-g // rows)
+                assert (tiles - 1) * rows < g <= tiles * rows
+                dinst, mw = ops.mma_shape(rows, d)
+                assert d <= dinst and mw * dinst <= 256
+                seen.add((dinst, mw))
+                for t in range(tiles):   # every tile's row groups: 4 warps
+                    n_rg = ops.mma_row_groups(min(rows, g - t * rows), mw)
+                    assert n_rg in (1, 2, 4)
+                    assert n_rg * 16 * mw >= min(rows, g - t * rows)
+    assert seen == cases
+
+
 @pytest.mark.parametrize("n_tiles,n_sl,n_split,Hkv,B", [
     (1, 1, 1, 1, 1), (3, 1, 2, 4, 5), (2, 3, 2, 2, 3), (9, 1, 1, 1, 2),
     (1, 1, 1, 1, 65543), (1, 1, 1, 65539, 1), (2, 8, 3, 2, 2),
@@ -740,3 +955,25 @@ def test_paged_call_time_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         paged_call_time.main([])
+
+
+def test_paged_variants_edits_match_the_kernel_source(monkeypatch):
+    """benchmarks_torch/paged_variants.py's variants of the mma route still
+    apply to the kernel source as it is (build-free): each edit matches,
+    each variant differs from the source, and a stale edit raises."""
+    from benchmarks_torch import paged_variants
+    texts = paged_variants.variant_sources(list(paged_variants.VARIANTS))
+    assert set(texts) == {"source", *paged_variants.VARIANTS}
+    for name in paged_variants.VARIANTS:
+        assert texts[name] != texts["source"], name
+    monkeypatch.setitem(paged_variants.VARIANTS, "stale",
+                        [("no such text", "")])
+    with pytest.raises(ValueError, match="no longer matches"):
+        paged_variants.variant_sources(["stale"])
+
+
+def test_paged_variants_refuses_to_run_without_a_card(monkeypatch):
+    from benchmarks_torch import paged_variants
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        paged_variants.main([])

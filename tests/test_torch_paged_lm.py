@@ -53,9 +53,16 @@ def _step_both(jcfg, cfg, jparams, params, jpools, pools, tok, pos, pt, page):
     return np.asarray(jl), tl.numpy(), jpools, pools
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_paged_decode_matches_jax_across_pages(arch):
-    jcfg, cfg, jparams, params = _setup(arch)
+@pytest.mark.parametrize("arch,replace", [
+    *(pytest.param(a, {}, id=a) for a in ARCHS),
+    # qwen1.5-110b's dense sequential block with 12 query heads over one kv
+    # head: every layer calls the kernel wrapper at g = 12, the card's mma
+    # route
+    pytest.param("qwen1.5-110b", dict(n_heads=12, n_kv_heads=1),
+                 id="qwen1.5-110b-12-over-1")])
+def test_paged_decode_matches_jax_across_pages(arch, replace):
+    jcfg, cfg, jparams, params = _setup(arch, **replace)
+    assert not cfg.parallel_block
     page, n_pages = 4, 16
     pt = np.array([[3, 0, 7, 9], [1, 12, 5, 2], [4, 6, 8, 10]], np.int32)
     start = np.array([0, 2, 5])
