@@ -19,8 +19,13 @@ sliced routes) are the yardsticks of the shapes that ran before them:
 those shapes must keep their times. Commit 9676424's
 ``paged_attention_sm90.cu`` (K1 before its mma route, g >= 8 at d <= 256 on
 the CUDA cores) is the yardstick of K1's routes in the same way; unpack it
+in place of ff92dab's. Commit 076818b's four sm90 sources (before the
+cluster routes: K2's float32 route past d = 256 and K1's wide route past d
+= 2048 recomputing the scores per output slice) are the yardsticks of
+those two routes, and of every route that kept its code since; unpack them
 in place of ff92dab's. Their C entries take the arguments the current
-wrappers pass (K1's with the register route's group tiles).
+wrappers pass (K1's with the register route's group tiles, or with the
+mma route's where the source has that route).
 
 To time them beside the current kernels on one card, unpack commits that
 have them with ``git archive`` into one git-ignored directory and pass it,
@@ -32,6 +37,12 @@ e.g.
   git archive 8d1f884 src/repro_torch/csrc/paged_attention.cu | tar -x -C build/base
   git archive ff92dab src/repro_torch/csrc | tar -x -C build/base
   git archive 9676424 src/repro_torch/csrc/paged_attention_sm90.cu | tar -x -C build/base
+  python3 chip_smoke.py --baseline-src build/base
+
+or, for the routes as they stood before the cluster routes,
+
+  mkdir -p build/base
+  git archive 076818b src/repro_torch/csrc | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
 
 ``load(dir)`` builds every one of those sources it finds under
@@ -50,7 +61,7 @@ import math
 import os
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -62,9 +73,12 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 CSRC = Path("src") / "repro_torch" / "csrc"
 
 
-def _libraries(srcs: Dict[str, Path]) -> Dict[str, ctypes.CDLL]:
+def _libraries(srcs: Dict[str, Path],
+               failed: Optional[Dict[str, str]] = None
+               ) -> Dict[str, ctypes.CDLL]:
     """Each source's library, built where missing, one nvcc each, all at
-    once."""
+    once. Raises where nvcc fails, or, given ``failed``, puts nvcc's output
+    there by name and leaves that source out."""
     libs, procs = {}, {}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for name, src in srcs.items():
@@ -80,6 +94,10 @@ def _libraries(srcs: Dict[str, Path]) -> Dict[str, ctypes.CDLL]:
                 text=True))
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
+        if proc.returncode and failed is not None:
+            failed[name] = out
+            del libs[name]
+            continue
         if proc.returncode:
             raise RuntimeError(f"baselines: nvcc failed on {srcs[name]}:\n"
                                f"{out}")
@@ -190,17 +208,21 @@ def _flash_attention_sm90(name: str):
 
 
 def _paged_attention_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
-    """An earlier K1 without the mma route (commit ff92dab's: d <= 2048, B
-    and Hkv <= 65,535; commit 9676424's: every shape), whose C entry the
-    wrapper's call fits with the register route's group tiles
-    (``tile_rows``) at every g."""
+    """An earlier K1 (commit ff92dab's: d <= 2048, B and Hkv <= 65,535;
+    commit 9676424's: every shape; commit 076818b's: every shape, with the
+    mma route), whose C entry the wrapper's call fits with the register
+    route's group tiles (``tile_rows``) at every g, or the wrapper's own
+    (``group_tile_rows``) where the source has the mma route."""
     fn = lib.paged_attention_sm90_launch
     fn.argtypes, fn.restype = pa_ops.LAUNCH_ARGTYPES, ctypes.c_int
+    tiles = (pa_ops.group_tile_rows
+             if hasattr(lib, "paged_attention_sm90_mma_route")
+             else pa_ops.tile_rows)
 
     def run(q, k_pages, v_pages, page_table, lengths, *,
             softcap: float = 0.0) -> torch.Tensor:
-        rows = pa_ops.tile_rows(q.shape[1] // k_pages.shape[1], q.shape[2],
-                                q.element_size())
+        rows = tiles(q.shape[1] // k_pages.shape[1], q.shape[2],
+                     q.element_size())
         return pa_ops._run_sm90(q, k_pages, v_pages, page_table, lengths,
                                 softcap, launcher=fn, rows=rows)
 

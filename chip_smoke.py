@@ -29,9 +29,11 @@ Phases (any failure exits non-zero):
              g >= 8 at d <= 256), its launches
              counted from 0, each plan's route printed and held to "mma"
              at g > 8; at g = 8 both routes timed in turns; with
-             --baseline-src commit 9676424's K1 in turns at every group
+             --baseline-src commit 076818b's K1 in turns at every group
              shape, the serving shape, the kernel bench's shapes and the
-             wide route's. K1 is timed as one call between two CUDA
+             wide route's (d split across the CTAs of a thread-block
+             cluster; its cluster size and the card's most active such
+             clusters printed). K1 is timed as one call between two CUDA
              events (``ms``, host work included, the kernels line's
              measure) and as device time per call from CUDA-graph replays
              (``device_ms``), at the chosen split and (device time) at one
@@ -64,10 +66,17 @@ Phases (any failure exits non-zero):
              --baseline-src), its bound at the 3xTF32 rate (the record's
              bound_ms) and at the f32 rate, with the f32 kernel's
              registers and spills. With --baseline-src holding commit
-             ff92dab's sources (K1's: commit 9676424's), the bf16 and f32
-             routes, K1 at the serving shape and K3 at the layer shape are
-             timed in turns beside them (device ms). FLASH_SHAPES times d=512 and SigLIP-so400m's
-             d=72 (by TMA and by the own loads) on every route. K1 and K3
+             076818b's sources, the bf16, f16 and f32 routes, K1 at the
+             serving shape and K3 at the layer shape are timed in turns
+             beside them (device ms). FLASH_SHAPES times d=256, d=512,
+             d=1280, d=2304 and SigLIP-so400m's d=72 (by TMA and by the
+             own loads) on every route, in turns with 076818b's where
+             given; the f32 route past d = 256 (its cluster route: d in
+             slices of 128 columns, or 256 at 1024 < d <= 2048, over a
+             cluster of CTAs, S summed once over distributed shared
+             memory; d=2304 past one cluster's reach) with its cluster
+             size and the card's most active such clusters printed (the
+             other slice width: benchmarks_torch/wide_variants.py). K1 and K3
              are also held in f16 (K1 at the serving shape and Qwen3-235B-
              A22B's group, K3 on the sweep and at the layer shape) and
              timed there. The shapes past the card's old limits are
@@ -404,20 +413,36 @@ def _zero_counts():
     ops.paged_attention.launches_mma = 0
 
 
-def _against_previous(name, fn, previous, tol, commit="ff92dab", **kw):
+def _against_previous(name, fn, previous, tol, commit=None, want=None,
+                      **kw):
     """A kernel beside an earlier build's (``previous``, the source of
     ``commit``: benchmarks_torch/baselines.py) on the same inputs: the two
     outputs at ``tol``, then device ms per call in two rounds of turns,
-    previous, this, this, previous (CUDA-graph replays). None without a
-    baseline."""
+    previous, this, this, previous (CUDA-graph replays). Where the caller
+    gives the plain version's output (``want``; it holds this build to it
+    itself) the earlier build's error against it is recorded and, past
+    ``tol``, printed, not raised: the earlier build is only timed here, and
+    two kernels each within ``tol`` of the plain version may be twice that
+    apart. None without a baseline."""
     if previous is None:
         return None
-    err = _assert_close(f"{name}: this build vs commit {commit}'s", fn(),
-                        previous(), tol, **kw)
+    commit = commit or SM90_BASELINE
+    rec = {"source_commit": commit}
+    if want is None:
+        rec["max_abs_err_vs_previous"] = _assert_close(
+            f"{name}: this build vs commit {commit}'s", fn(), previous(), tol,
+            **kw)
+    else:
+        try:
+            rec["previous_max_abs_err_vs_plain"] = _assert_close(
+                f"{name}: commit {commit}'s", previous(), want, tol, **kw)
+            rec["previous_within_tol"] = True
+        except AssertionError as e:
+            rec["previous_within_tol"] = False
+            print(f"[kernels] note: {e} (commit {commit}'s build, timed only)")
     mine, prev = _in_turns(fn, previous)
-    rec = {"source_commit": commit, "max_abs_err_vs_previous": err,
-           "device_ms": mine, "previous_device_ms": prev,
-           "ratio": sum(mine) / sum(prev)}
+    rec.update(device_ms=mine, previous_device_ms=prev,
+               ratio=sum(mine) / sum(prev))
     print(f"[kernels] {name}: device ms this build "
           f"{' / '.join(f'{x:.4f}' for x in mine)}, commit {commit}'s "
           f"{' / '.join(f'{x:.4f}' for x in prev)} (two rounds of previous, "
@@ -433,7 +458,11 @@ def _in_turns(fn, other):
     return t[1::4] + t[2::4], t[0::4] + t[3::4]
 
 
-K1_BASELINE = "9676424"   # K1's yardstick source: before the mma route
+# the sm90 sources' yardstick (benchmarks_torch/baselines.py): commit
+# 076818b's, before the cluster routes of K2's float32 route past d = 256
+# and K1's wide route
+SM90_BASELINE = "076818b"
+K1_BASELINE = SM90_BASELINE
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -616,7 +645,7 @@ def _paged_group_shapes(errs, gen, previous=None):
     Then each held against the plain version at the wrapper's splits and
     at one split, timed beside the bound and SDPA (``enable_gqa``); at g =
     8 the route not taken too, held and timed in turns with the taken one;
-    with ``previous`` (commit 9676424's K1) that kernel in turns. Returns
+    with ``previous`` (commit 076818b's K1) that kernel in turns. Returns
     the rows and the main path's launches."""
     cases = {}
     for name, (Hq, Hkv, d) in PAGED_GROUP_SHAPES.items():
@@ -700,9 +729,9 @@ def phase_kernels(baseline):
     """K1 against its plain version, timed; returns the serving-shape
     record. ``baseline`` (benchmarks_torch/baselines.py, maybe empty): the
     earlier CUDA-core kernel, timed beside K1 at the serving shape, and
-    commit 9676424's K1 (before the mma route), timed in turns at the
-    serving shape, the kernel bench's shapes, ``PAGED_GROUP_SHAPES`` and
-    the wide route's shapes."""
+    commit 076818b's K1 (before the wide route's clusters), timed in turns
+    at the serving shape, the kernel bench's shapes, ``PAGED_GROUP_SHAPES``
+    and the wide route's shapes."""
     previous = baseline.get("paged_attention")
     old = baseline.get("paged_attention_sm90")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -785,7 +814,7 @@ def phase_kernels(baseline):
     print("[kernels] paged_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
 
-    # timing at the serving shape, in f32 (beside commit 9676424's K1)
+    # timing at the serving shape, in f32 (beside commit 076818b's K1)
     # and in f16
     t = _paged_times(x, enable_gqa=False, previous=previous)
     prev_sm90 = _against_previous(
@@ -940,11 +969,12 @@ def _past_limit_time(name, fn, plain, lib, n_bytes, n_flops, rate, err, why=None
 def _paged_past_limits(errs, gen, previous=None):
     """K1 past its old limits, through the public wrapper (each call must
     move ``launches`` by one) and at set splits, against the plain version:
-    the wide route (d = 2056, 4096 and 16,384; g = 1 and 8; softcap on in
-    one case, the split route taken in one; pools 2 bytes off alignment for
-    the 2-byte loads), 65,543 sequences and 65,539 kv heads; each timed
+    the wide route (d = 2056, 4096, 16,384 and, past one cluster's reach,
+    18,432; g = 1 and 8; softcap on in one case, the split route taken in
+    one; pools 2 bytes off alignment for the 2-byte loads; a bad page id),
+    65,543 sequences and 65,539 kv heads; each timed
     beside its bound and SDPA over pre-gathered pages (where no softcap);
-    the wide route's shapes, with ``previous`` (commit 9676424's K1), in
+    the wide route's shapes, with ``previous`` (commit 076818b's K1), in
     turns with it."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
 
@@ -977,6 +1007,9 @@ def _paged_past_limits(errs, gen, previous=None):
         ("d=16384 g=1 f16", _paged_inputs(
             gen, 2, 2, 2, 16384, 16, 4, 16, lens(2, 64), f16), F16_TOL, 0.0,
          (None, 1)),
+        ("d=18432 g=8 f32 (past one cluster: two groups of 8 slices)",
+         _paged_inputs(gen, 2, 8, 1, 18432, 16, 4, 16, lens(2, 64), f32),
+         F32_TOL, 0.0, (None, 1, 2)),
         ("B=65543 Hq=8 Hkv=1 d=64 page 16 f32", _paged_inputs(
             gen, 65543, 8, 1, 64, 16, 2, 2 * 65543, lens(65543, 32), f32),
          F32_TOL, 0.0, (None, 1)),
@@ -984,6 +1017,13 @@ def _paged_past_limits(errs, gen, previous=None):
             gen, 1, 65539, 65539, 16, 16, 2, 4, lens(1, 32), f32), F32_TOL,
          0.0, (None, 1)),
     ]
+    # a bad page id on the wide route: NaN on its sequence only, in every
+    # CTA of its clusters
+    _paged_bad_ids(errs, "(p) bad id, d=4100 g=8 f32 (wide route)",
+                   _paged_inputs(gen, 3, 8, 1, 4100, 16, 6, 32, [90, 70, 40],
+                                 f32), F32_TOL, 1, {(1, 2): 32 + 7,
+                                                    (2, 4): -3},
+                   splits=(None, 1, 2))
     rows = {}
     for name, x, tol, cap, splits in cases:
         _paged_case(errs, f"(p) {name}", x, tol, softcap=cap, splits=splits)
@@ -1007,6 +1047,12 @@ def _paged_past_limits(errs, gen, previous=None):
                  workspace_bytes=(4 * B * Hq * n_split * (d + 2)
                                   if n_split > 1 else 0))
         if plan["route"] == "wide":
+            t.update(ops.wide_clusters(plan["tile_rows"], d, x[0].dtype))
+            print(f"[kernels] paged_attention {name}: the wide route, "
+                  f"{plan['slices']} slices of {ops.WIDE_COLS} columns, "
+                  f"{t['cluster']} CTAs a cluster, at most "
+                  f"{t['max_active_clusters']} such clusters active at once "
+                  f"(cudaOccupancyMaxActiveClusters)")
             t["previous"] = _against_previous(
                 f"paged_attention {name}", lambda: ops.paged_attention(
                     *x, softcap=cap), None if previous is None else (
@@ -1180,7 +1226,7 @@ def _build_regs(name):
 def phase_flash_kernels(baseline):
     """K2 against its plain version, both routes and both 2-byte types;
     returns the record. ``baseline`` (``benchmarks_torch/baselines.load``,
-    maybe empty): the earlier CUDA-core f32 kernel and commit ff92dab's two
+    maybe empty): the earlier CUDA-core f32 kernel and commit 076818b's two
     sm90 sources, timed beside the routes at the forward shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
@@ -1323,6 +1369,9 @@ def phase_flash_kernels(baseline):
            "library_device_ms": _device_ms(lib_h, 10, 5),
            "max_abs_err": err_h, "bound_ms": bound, "bound_by": by,
            "source": "src/repro_torch/csrc/flash_attention_sm90.cu"}
+    f16["previous_sm90"] = _against_previous(
+        "flash_attention forward shape f16", fh,
+        _previous(baseline, "flash_attention_sm90", xh), F16_TOL)
     del xh
     print(f"[kernels] flash_attention forward shape f16 (one P.V product): "
           f"{f16['ms']:.4f} ms eager, {f16['device_ms']:.4f} ms device "
@@ -1392,7 +1441,8 @@ def phase_flash_kernels(baseline):
            "launches": None, "max_abs_err": err_a, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": library_ms, "routes": routes,
-           "shapes": _flash_other_shapes(gen), "past_limit_shapes": _flash_past_limits(gen)}
+           "shapes": _flash_other_shapes(gen, baseline),
+           "past_limit_shapes": _flash_past_limits(gen)}
     prev_s = ("not measured (no --baseline-src)" if prev is None else
               f"{prev['ms']:.4f} ms eager, {prev['device_ms']:.4f} ms device")
     print(f"[kernels] flash_attention forward shape f32 (3xTF32 route): "
@@ -1412,25 +1462,34 @@ def phase_flash_kernels(baseline):
 
 
 def _previous(baseline, name, x):
-    """commit ff92dab's K2 source ``name`` on x, or None."""
+    """commit 076818b's K2 source ``name`` on x, or None."""
     old = baseline.get(name)
     return None if old is None else (lambda: old(*x))
 
 
-# K2 timed past the forward's shape: a head dim past 256 (the output's
-# slices), and SigLIP-so400m's vision tower (1152 / 16 = 72, 729 patches,
-# no mask) by TMA and by the own loads (rows of 73)
+# K2 timed past the forward's shape: gemma2's d = 256 (the widest tile of
+# one CTA), head dims past 256 (the output's slices; on the f32 route a
+# cluster of 4 CTAs of 128 columns at d = 512, of 5 of 256 at d = 1280, and
+# past one cluster's reach at d = 2304: 18 slices of 128, three groups of
+# 8, the last padded), and SigLIP-so400m's vision tower (1152 / 16 = 72,
+# 729 patches, no mask) by TMA and by the own loads (rows of 73)
 FLASH_SHAPES = {
+    "d256 B=1 H=8 S=2048 causal": (1, 8, 2048, 256, True, 0),
     "d512 B=1 H=8 S=2048 causal": (1, 8, 2048, 512, True, 0),
+    "d1280 B=1 H=4 S=1024 causal": (1, 4, 1024, 1280, True, 0),
+    "d2304 B=1 H=2 S=512 causal": (1, 2, 512, 2304, True, 0),
     "siglip d72 B=8 H=16 S=729 non-causal": (8, 16, 729, 72, False, 0),
     "siglip d72 rows of 73 (own loads)": (8, 16, 729, 72, False, 1),
 }
 
 
-def _flash_other_shapes(gen):
-    """K2 at FLASH_SHAPES, every route: device ms beside the bound (the
-    dtype's tensor-core rate; 3xTF32 at the TF32 rate for f32), the plain
-    version and SDPA on the same inputs."""
+def _flash_other_shapes(gen, baseline):
+    """K2 at FLASH_SHAPES, every route: eager and device ms beside the
+    bound (the dtype's tensor-core rate; 3xTF32 at the TF32 rate for f32),
+    the plain version and SDPA on the same inputs; with ``baseline``
+    (commit 076818b's sources) that route's kernel in turns. The f32 route
+    past d = 256 (the cluster route): its slice width, cluster size and the
+    card's most active such clusters (``f32_clusters``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     for name, (B, H, S, d, causal, pad) in FLASH_SHAPES.items():
@@ -1444,29 +1503,45 @@ def _flash_other_shapes(gen):
             lib = lambda: sdpa(*x, is_causal=causal)               # noqa
             # SDPA's kernels refuse rows off 16-byte alignment: no library
             # call computes the own-load inputs
+            want = attention_ref(*x, causal=causal)
             err = _assert_close(f"flash_attention {name} {dtype}", fn(),
-                                attention_ref(*x, causal=causal),
-                                TOLS[dtype])
+                                want, TOLS[dtype])
             pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
             n_flops, n_bytes = 4 * d * pairs, 4 * B * H * S * d * \
                 x[0].element_size()
             f32 = dtype == torch.float32
             b, by = bound_ms(n_bytes, 3 * n_flops if f32 else n_flops,
                              TF32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+            key = f"{name} {str(dtype)[6:]}"
             r = {"unit": fa_ops._sm90_unit(*x), "max_abs_err": err,
-                 "device_ms": _device_ms(fn, 5, 3),
+                 "ms": _time_ms(fn, 5), "device_ms": _device_ms(fn, 5, 3),
                  "plain_ms": _time_ms(lambda: attention_ref(
                      *x, causal=causal), 3),
                  "library_device_ms": None if pad else _device_ms(lib, 5, 3),
                  "bound_ms": b, "bound_by": by}
-            out[f"{name} {str(dtype)[6:]}"] = r
+            if f32 and d > 256:
+                r.update(fa_ops.f32_clusters(d))
+                print(f"[kernels] flash_attention {key}: the cluster route, "
+                      f"slices of {r['cols']} columns, {r['cluster']} CTAs "
+                      f"a cluster, at most {r['max_active_clusters']} such "
+                      f"clusters active at once (cudaOccupancyMaxActive"
+                      f"Clusters)")
+            r["previous"] = _against_previous(
+                f"flash_attention {key}", fn, None if baseline.get(
+                    fa_ops.SOURCES[dtype]) is None else (
+                    lambda: baseline[fa_ops.SOURCES[dtype]](
+                        *x, causal=causal)), TOLS[dtype], want=want)
+            out[key] = r
             lib_s = ("none" if pad else
                      f"{r['library_device_ms']:.4f} ms device")
             print(f"[kernels] flash_attention {name} {str(dtype)[6:]} "
-                  f"(unit {r['unit']}): {r['device_ms']:.4f} ms device, "
+                  f"(unit {r['unit']}): {r['ms']:.4f} ms eager, "
+                  f"{r['device_ms']:.4f} ms device, "
                   f"bound {b:.4f} ms ({by}; {b / r['device_ms']:.3f} of "
                   f"it), sdpa {lib_s}, plain {r['plain_ms']:.4f} ms; "
                   f"max|err| {err:.3e}")
+            del x, rows, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1585,7 +1660,7 @@ def _k3_edge_cases(rng):
 def phase_mlstm_kernels(baselines):
     """K3 against its plain version; the xLSTM-125m layer shape and the
     kernel bench's shapes timed, beside the earlier CUDA-core kernel and
-    commit ff92dab's K3 where ``baselines`` (``baselines.load``) gives
+    commit 076818b's K3 where ``baselines`` (``baselines.load``) gives
     them. Returns the layer-shape record."""
     baseline = baselines.get("mlstm_scan")
     rng = np.random.RandomState(3)
@@ -4184,9 +4259,8 @@ def main(argv=None):
                     help="a directory holding earlier kernels under "
                          "src/repro_torch/csrc: the CUDA-core mlstm_scan.cu "
                          "(K3), flash_attention.cu (K2's f32 route) and "
-                         "paged_attention.cu (K1), commit ff92dab's four "
-                         "*_sm90.cu sources and commit 9676424's "
-                         "paged_attention_sm90.cu in place of ff92dab's, "
+                         "paged_attention.cu (K1) and commit 076818b's "
+                         "four *_sm90.cu sources, "
                          "each timed beside the kernel that took its place "
                          "(benchmarks_torch/baselines.py)")
     args = ap.parse_args(argv)

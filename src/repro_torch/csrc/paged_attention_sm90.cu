@@ -14,7 +14,9 @@
 //     products on the tensor cores;
 //   - the register route below for the other shapes up to d = 2048 (a row
 //     of q in a lane group's registers, the products on the CUDA cores);
-//   - the wide route (paged_attention_sm90_wide_kernel) past d = 2048.
+//   - the wide route (paged_attention_sm90_wide_kernel) past d = 2048: d
+//     split across the CTAs of a thread-block cluster, the scores summed
+//     over distributed shared memory.
 // Same function and conventions as that kernel and as ref.py:
 //
 //   q          (B, Hq, d)            out (B, Hq, d), same dtype as q
@@ -118,8 +120,10 @@ constexpr int kSmemBudget = 232448;        // a block's shared memory on H100
 constexpr int kRingOff = 384;              // barriers, flags, warps' m and l
 constexpr int kWideThreads = 256;          // the wide route's block: 8 warps
 constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kWideCols = 2048;            // its output columns per block
+constexpr int kWideCols = 2048;            // its columns of d per CTA
 constexpr int kWideKeys = 32;              // its keys per chunk, one a lane
+constexpr int kMaxCluster = 8;             // its CTAs a cluster (portable)
+constexpr int kWideCombineCols = 1024;     // its combine's columns a block
 constexpr int kMmaMinGroup = 8;            // the mma route: g >= 8 ...
 constexpr int kMmaMaxD = 256;              // ... at d <= 256
 constexpr int kMmaMaxRows = 64;            // its query rows of a row tile
@@ -743,7 +747,8 @@ paged_attention_sm90_kernel(const Params p) {
 // Merges the live splits' partials of one (b, q head) by the log-sum-exp
 // rule, m in log2 units: out = sum_s acc_s 2^(m_s - M) / max(sum_s l_s
 // 2^(m_s - M), 1e-30), M = max_s m_s. A NaN m (a bad id) gives NaN; no live
-// split gives 0.
+// split gives 0. The grid's y shares a row's columns out (the wide route:
+// a block for every kWideCombineCols columns; 1 elsewhere).
 template <typename T>
 __global__ void __launch_bounds__(128)
 paged_attention_sm90_combine(const float* __restrict__ ws,
@@ -763,7 +768,8 @@ paged_attention_sm90_combine(const float* __restrict__ ws,
     bad = bad || isnan(ms);
     M = fmaxf(M, ms);
   }
-  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+  for (int e = threadIdx.x + blockIdx.y * blockDim.x; e < d;
+       e += blockDim.x * gridDim.y) {
     float o = 0.f;
     if (bad) {
       o = NAN;
@@ -1358,31 +1364,47 @@ paged_attention_sm90_mma_kernel(const Params p, int tile_rows) {
 // ---- the wide route: d > 2048 --------------------------------------------
 //
 // A row of q no longer fits a lane group's registers, so nothing of a row is
-// held whole. The output columns are cut into slices of kWideCols (2048,
-// the register route's widest row): a block owns G query rows of one kv
-// head, one split and one slice, and its 256 threads hold the slice's
-// accumulator, 8 floats a row each, in registers. The keys of its run go
-// by in chunks of 32:
+// held whole. d is cut into slices of kWideCols (2048, the register route's
+// widest row), and a thread-block cluster of n = min(slices, kMaxCluster)
+// CTAs takes one (group tile of G query rows, split, kv head, sequence):
+// CTA r of it owns slice r, for the scores and for the output. Its 256
+// threads hold the slice's accumulator, 8 floats a row each, in registers,
+// and its shared memory q's slice of the tile's G rows (64 KiB at G = 8 in
+// float32), staged once. The keys of the split's run go by in chunks of
+// 32:
 //
-// 1. Scores over the full d. Warp w takes keys w, w + 8, w + 16 and w + 24
-//    of the chunk; its lanes stream the four K rows and the G q rows from
-//    device memory (L1 and L2 serve q, which every chunk reads again) in
-//    16-byte vectors where the pools, q and the row width allow it, else
-//    2 bytes at a time, and reduce by shuffles. Nothing bounds d: no buffer
-//    holds a row.
-// 2. Softmax. Warp gi takes query row gi, one key a lane: the chunk's max,
-//    the running max and sum in log2 units, p into shared memory and the
-//    accumulator's correction.
+// 1. Partial scores. Warp w takes keys w, w + 8, w + 16 and w + 24 of the
+//    chunk; its lanes stream the slice's columns of the four K rows from
+//    device memory in 16-byte vectors where the pools and the row width
+//    allow it, else 2 bytes at a time, and dot them with q's slice from
+//    shared memory (staged by warps 1-7, by cp.async where q is 16-byte
+//    aligned, while warp 0 reads the first chunk's page ids); shuffles
+//    reduce. Each CTA reads only its own columns of K: K is read once in
+//    all.
+// 2. Sum. The partials (G x 32 floats) go to shared memory, in one of two
+//    buffers by the chunk's parity; after a cluster barrier warp gi of
+//    every CTA reads row gi of all n partials through distributed shared
+//    memory and sums them in rank order 0, 1, ..., n - 1, so every CTA
+//    holds the same bits of the scores, and so the same running max and
+//    sum. Then scale, softcap, the chunk's max, the running max and sum in
+//    log2 units, p into shared memory, the accumulator's correction. A
+//    buffer is written again two chunks later, after the next barrier,
+//    which no peer passes before its reads of it: one barrier a chunk, and
+//    one more whose wait ends the block, after its output is written.
 // 3. p.V. Each thread reads its slice columns of the chunk's live V rows
 //    and adds p-weighted sums to its accumulator.
 //
-// Every slice computes the same scores (the same operations in the same
-// order, so the same bits), so K is read once per slice: n_slices = d /
-// 2048 rounded up times K's bytes, through L2 where the slices of a (kv
-// head, split) run together (the slice is the second-fastest block index:
-// x = tile + n_tiles * (slice + n_slices * (split + n_split * (kv head +
-// Hkv * b)))). V is read once. m and l of a split go to the workspace from
-// slice 0; the combine kernel is the register route's.
+// The slice is the fastest block index, x = slice + n_slp * (tile +
+// n_tiles * (split + n_split * (kv head + Hkv * b))), so the cluster dims
+// (n, 1, 1) divide the grid (ops.paged_block). Past kMaxCluster slices the
+// slices go in groups of one cluster each (n_slp: the slices rounded up to
+// whole groups; a padding CTA owns no column): CTA r of every group sums
+// the scores over slices r, r + n, ..., its q staged again for each of
+// them per chunk, and each group recomputes the scores. m and l of a split
+// go to the workspace from slice 0; the combine kernel is the register
+// route's, its grid's y sharing out each row's columns (a block for every
+// kWideCombineCols: with one block a row it took 0.171 of 0.195 ms at d =
+// 16,384, g = 8 on an H100 at 700 W, benchmarks_torch/wide_variants.py).
 
 // One element of T at a 2-byte aligned address, as a float.
 template <typename T>
@@ -1397,27 +1419,64 @@ __device__ __forceinline__ float ld2(const unsigned char* p) {
   }
 }
 
-// G: query rows of a tile; vecm: 16-byte loads of q, K and V (pools, q and
-// the row width 16-byte aligned), else 2-byte loads (the same for every
-// thread: one instance serves both).
+// Thread-block clusters: every thread of the cluster arrives, then waits;
+// the arrival releases this thread's shared-memory writes to the cluster,
+// the wait acquires the others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The float at shared-memory address `addr` of CTA `rank` of the cluster.
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// The wide route's slices, CTAs a cluster, and the slices with the last
+// group's padding, for head dim d (ops.wide_plan).
+void wide_plan(int d, int* n_sl, int* n_cl, int* n_slp) {
+  *n_sl = (d + kWideCols - 1) / kWideCols;
+  *n_cl = *n_sl < kMaxCluster ? *n_sl : kMaxCluster;
+  *n_slp = (*n_sl + *n_cl - 1) / *n_cl * *n_cl;
+}
+
+// G: query rows of a tile; vecm bit 0: 16-byte loads of K and V (pools and
+// the row width 16-byte aligned), else 2-byte loads; bit 1: 16-byte copies
+// of q (its base and rows 16-byte aligned), else element by element (the
+// same for every thread: one instance serves all). n_slices: slices of d;
+// n_cl: CTAs a cluster.
 template <typename T, int G>
 __global__ void __launch_bounds__(kWideThreads, 1)
-paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
+paged_attention_sm90_wide_kernel(const Params p, int n_slices, int n_cl,
+                                 int vecm) {
   constexpr int VEC = Vec<T>::N;
   constexpr int ACC = 8;                    // a row's slice floats a thread
   constexpr int KPW = kWideKeys / kWideWarps;  // keys per warp per chunk
-  __shared__ float sc[G][kWideKeys];        // scores, then p
+  extern __shared__ uint4 q_s4[];           // [G][kWideCols] of T: q's slice
+  const T* q_s = reinterpret_cast<const T*>(q_s4);
+  __shared__ float part_s[2][G][kWideKeys];  // partial scores, by chunk parity
+  __shared__ float sc[G][kWideKeys];        // p
   __shared__ float corr_s[G], m_s[G], l_s[G];
   __shared__ long long key_row[kWideKeys];  // each key's row in the pools
   __shared__ int bad_s;
-  unsigned x = blockIdx.x;
-  const unsigned x1 = x / (unsigned)p.n_tiles;
-  const int tile = (int)(x - x1 * (unsigned)p.n_tiles);
-  const unsigned x2 = x1 / (unsigned)n_slices;
-  const int slice = (int)(x1 - x2 * (unsigned)n_slices);
+  const int n_slp = (n_slices + n_cl - 1) / n_cl * n_cl;
+  const unsigned x = blockIdx.x;
+  const unsigned x1 = x / (unsigned)n_slp;
+  const int slice = (int)(x - x1 * (unsigned)n_slp);
+  const unsigned x2 = x1 / (unsigned)p.n_tiles;
+  const int tile = (int)(x1 - x2 * (unsigned)p.n_tiles);
   const unsigned xs = x2 / (unsigned)p.n_split;
   const int split = (int)(x2 - xs * (unsigned)p.n_split);
   const int h = (int)(xs % (unsigned)p.Hkv), b = (int)(xs / (unsigned)p.Hkv);
+  const int rank = slice % n_cl;  // the CTA's rank in its cluster
+  const bool resident = n_slp == n_cl;  // one group: q's slice stays
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int d = p.d, page = p.page;
   const int rows = min(G, p.g - tile * G);
@@ -1430,11 +1489,12 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
   // this thread's columns of the slice: 16-byte vectors tid and tid + 256
   // (float32) or tid (2-byte types), or 2-byte loads of columns tid + 256 i
   auto col = [&](int i) {
-    return vecm ? c0 + (tid + kWideThreads * (i / VEC)) * VEC + i % VEC
+    return (vecm & 1) ? c0 + (tid + kWideThreads * (i / VEC)) * VEC + i % VEC
                 : c0 + tid + kWideThreads * i;
   };
   T* out = static_cast<T*>(p.out);
-  if (k_end <= k_begin) {  // the run starts at or past the length
+  if (k_end <= k_begin) {  // the run starts at or past the length (the
+                           // same in every CTA of the cluster)
     if (p.n_split == 1)
       for (int gi = 0; gi < rows; ++gi)
 #pragma unroll
@@ -1443,8 +1503,37 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
     return;
   }
   const int elt = (int)sizeof(T), row_bytes = d * elt;
-  const unsigned char* qb = static_cast<const unsigned char*>(p.q) +
-                            row0 * row_bytes;
+  const T* qt = static_cast<const T*>(p.q) + row0 * d;
+  // q's slice s of the tile's rows into q_s as it is (T), zeros past d and
+  // past the tile's rows, by threads t0, t0 + 1, ... of the block: 16-byte
+  // cp.async copies where q's base and rows are 16-byte aligned (vecm bit
+  // 1), else element by element; the caller waits (cp_wait_all) and syncs
+  auto stage_q = [&](int s, int t0) {
+    const int cs = s * kWideCols;
+    const uint32_t qs = static_cast<uint32_t>(__cvta_generic_to_shared(q_s4));
+    if (vecm & 2) {
+      constexpr int UPR = kWideCols / VEC;  // 16-byte units a row
+      for (int i = tid - t0; i < G * UPR; i += kWideThreads - t0) {
+        const int gi = i / UPR, c = cs + (i % UPR) * VEC;
+        const bool ok = gi < rows && c < d;  // d is a multiple of VEC
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         qs + 16 * i),
+                     "l"(ok ? qt + (size_t)gi * d + c : qt), "r"(ok ? 16 : 0)
+                     : "memory");
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    } else {
+      T* q_w = reinterpret_cast<T*>(q_s4);
+      for (int i = tid - t0; i < G * kWideCols; i += kWideThreads - t0) {
+        const int gi = i / kWideCols, c = cs + i % kWideCols;
+        q_w[i] = gi < rows && c < d ? qt[(size_t)gi * d + c]
+                                    : from_f32<T>(0.f);
+      }
+    }
+  };
+  auto staged = [] {  // this thread's copies of q have landed
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  };
   float acc[G][ACC];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
@@ -1456,6 +1545,7 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
   }
   if (tid == 0) bad_s = 0;
   bool bad = false;
+  int parity = 0;  // which part_s this chunk writes
   for (long long k0 = k_begin; k0 < k_end && !bad; k0 += kWideKeys) {
     const int nk = (int)min((long long)kWideKeys, k_end - k0);
     __syncthreads();  // the last chunk's p and rows are read
@@ -1472,13 +1562,16 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
                                                                 page);
       }
       key_row[tid] = r;
+    } else if (resident && k0 == k_begin) {
+      stage_q(slice, kWideKeys);  // beside warp 0's page ids
+      staged();
     }
     __syncthreads();
-    if (bad_s) {  // the same for every thread; nothing follows
+    if (bad_s) {  // the same for every thread of the cluster; nothing follows
       bad = true;
       break;
     }
-    // 1. scores: warp w's keys w + 8 j
+    // 1. partial scores over this CTA's slices: warp w's keys w + 8 j
     float part[G][KPW];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi)
@@ -1490,39 +1583,53 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
       const long long r = key_row[warp + kWideWarps * j];
       kr[j] = p.k + (r < 0 ? 0 : r) * row_bytes;
     }
-    if (vecm) {
-      const int nv = row_bytes / 16;
-      for (int u = lane; u < nv; u += 32) {
-        float kv[KPW][VEC];
+    for (int s = rank; s < n_slices; s += n_cl) {
+      if (!resident) {
+        __syncthreads();  // q_s is read
+        stage_q(s, 0);
+        staged();
+        __syncthreads();
+      }
+      const int cs = s * kWideCols, nc = min(kWideCols, d - cs);
+      if (vecm & 1) {  // (d - cs) * elt is a multiple of 16 bytes
+        for (int u = lane; u < nc * elt / 16; u += 32) {
+          float kv[KPW][VEC];
 #pragma unroll
-        for (int j = 0; j < KPW; ++j) Vec<T>::load(kr[j] + u * 16, kv[j]);
+          for (int j = 0; j < KPW; ++j)
+            Vec<T>::load(kr[j] + (size_t)cs * elt + u * 16, kv[j]);
 #pragma unroll
-        for (int gi = 0; gi < G; ++gi) {
-          if (gi < rows) {
-            float qv[VEC];
-            Vec<T>::load(qb + (size_t)gi * row_bytes + u * 16, qv);
+          for (int gi = 0; gi < G; ++gi) {
+            if (gi < rows) {
+              float qv[VEC];
+              Vec<T>::load(reinterpret_cast<const unsigned char*>(
+                               q_s4 + gi * (kWideCols / VEC) + u),
+                           qv);
 #pragma unroll
-            for (int j = 0; j < KPW; ++j)
+              for (int j = 0; j < KPW; ++j)
 #pragma unroll
-              for (int e = 0; e < VEC; ++e) part[gi][j] += qv[e] * kv[j][e];
+                for (int e = 0; e < VEC; ++e) part[gi][j] += qv[e] * kv[j][e];
+            }
           }
         }
-      }
-    } else {
-      for (int e = lane; e < d; e += 32) {
-        float kv[KPW];
+      } else {
+        for (int e = lane; e < nc; e += 32) {
+          float kv[KPW];
 #pragma unroll
-        for (int j = 0; j < KPW; ++j) kv[j] = ld2<T>(kr[j] + e * elt);
+          for (int j = 0; j < KPW; ++j)
+            kv[j] = ld2<T>(kr[j] + (size_t)(cs + e) * elt);
 #pragma unroll
-        for (int gi = 0; gi < G; ++gi) {
-          if (gi < rows) {
-            const float qv = ld2<T>(qb + (size_t)gi * row_bytes + e * elt);
+          for (int gi = 0; gi < G; ++gi) {
+            if (gi < rows) {
+              const float qv = to_f32(q_s[gi * kWideCols + e]);
 #pragma unroll
-            for (int j = 0; j < KPW; ++j) part[gi][j] += qv * kv[j];
+              for (int j = 0; j < KPW; ++j) part[gi][j] += qv * kv[j];
+            }
           }
         }
       }
     }
+    // this chunk's partials to part_s[parity]; a peer read the other one
+    // last (before the barrier this CTA passed then)
 #pragma unroll
     for (int gi = 0; gi < G; ++gi)
 #pragma unroll
@@ -1531,17 +1638,20 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) {
-          const int t = warp + kWideWarps * j;
-          float xs2 = v * p.scale;
-          if (p.cap_in != 0.f) xs2 = tanhf(xs2 * p.cap_in) / p.cap_in;
-          sc[gi][t] = t < nk ? xs2 : -INFINITY;
-        }
+        if (lane == 0) part_s[parity][gi][warp + kWideWarps * j] = v;
       }
-    __syncthreads();
-    // 2. softmax: warp gi, one key a lane
+    cluster_arrive();
+    cluster_wait();  // every CTA's partials of this chunk are written
+    // 2. the scores (the partials summed in rank order: the same bits in
+    // every CTA), softmax: warp gi, one key a lane
     if (warp < G) {
-      const float xv = sc[warp][lane];
+      const uint32_t src = static_cast<uint32_t>(
+          __cvta_generic_to_shared(&part_s[parity][warp][lane]));
+      float xv = ld_cluster(src, 0);
+      for (int r = 1; r < n_cl; ++r) xv += ld_cluster(src, (uint32_t)r);
+      xv *= p.scale;
+      if (p.cap_in != 0.f) xv = tanhf(xv * p.cap_in) / p.cap_in;
+      if (lane >= nk) xv = -INFINITY;
       float mx = xv;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -1561,6 +1671,7 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
         l_s[warp] = l_s[warp] * c + sum;
       }
     }
+    parity ^= 1;
     __syncthreads();
     // 3. p.V over this thread's slice columns
 #pragma unroll
@@ -1572,7 +1683,7 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
     for (int t = 0; t < nk; ++t) {
       const unsigned char* vr = p.v + key_row[t] * row_bytes;
       float vv[ACC];
-      if (vecm) {
+      if (vecm & 1) {
 #pragma unroll
         for (int i = 0; i < ACC; i += VEC) {
           if (col(i) < d)
@@ -1594,8 +1705,13 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
       }
     }
   }
+  // every read of a peer's partials is done: arrive here, wait at the end
+  // (no CTA leaves while a peer may still read its shared memory)
+  cluster_arrive();
   __syncthreads();
-  for (int gi = 0; gi < rows; ++gi) {
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {  // unrolled: acc stays in registers
+    if (gi >= rows) break;
     const float L = l_s[gi], M = m_s[gi];
     if (p.n_split == 1) {
 #pragma unroll
@@ -1614,6 +1730,7 @@ paged_attention_sm90_wide_kernel(const Params p, int n_slices, int vecm) {
       }
     }
   }
+  cluster_wait();
 }
 
 template <typename T, int G, int NVL>
@@ -1652,16 +1769,42 @@ int launch_mma(const Params& p, dim3 grid, int smem, int tile_rows,
     err = launch_mma<T, D, MW>(p, grid, pl.smem, G, stream);      \
     break;
 
+// The wide route's launch in clusters of (n_cl, 1, 1) over `grid` blocks;
+// with max_active, no launch: the most such clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters).
 template <typename T, int G>
-int launch_wide(const Params& p, unsigned grid, int n_slices, bool vec,
-                cudaStream_t stream) {
-  paged_attention_sm90_wide_kernel<T, G>
-      <<<grid, kWideThreads, 0, stream>>>(p, n_slices, vec ? 1 : 0);
+int launch_wide(const Params& p, unsigned grid, int n_slices, int vec,
+                cudaStream_t stream, int* max_active = nullptr) {
+  void (*kernel)(Params, int, int, int) =
+      paged_attention_sm90_wide_kernel<T, G>;
+  constexpr int smem = G * kWideCols * (int)sizeof(T);  // q's slice
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int n_sl, n_cl, n_slp;
+  wide_plan(p.d, &n_sl, &n_cl, &n_slp);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)n_cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (max_active)
+    return (int)cudaOccupancyMaxActiveClusters(max_active, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, p, n_slices, n_cl, vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The block count of a launch: tiles x slices x splits x kv heads x
-// sequences, or 0 where it passes the x dimension's 2^31 - 1.
+// The block count of a launch: tiles x slices (on the wide route with the
+// last group's padding) x splits x kv heads x sequences, or 0 where it
+// passes the x dimension's 2^31 - 1.
 unsigned grid_blocks(const Params& p, int n_slices, int B) {
   const long long n =
       (long long)p.n_tiles * n_slices * p.n_split * p.Hkv * B;
@@ -1670,8 +1813,8 @@ unsigned grid_blocks(const Params& p, int n_slices, int B) {
 
 template <typename T>
 int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
-             const Plan& pl, int n_slices, bool vec) {
-  const unsigned grid = grid_blocks(p, n_slices > 0 ? n_slices : 1, B);
+             const Plan& pl, int n_slices, int n_slp, int vec) {
+  const unsigned grid = grid_blocks(p, n_slices > 0 ? n_slp : 1, B);
   int err = (int)cudaErrorInvalidValue;
   if (pl.mw > 0) {  // the mma route: the (head dims, m16 tiles) instances
     switch (pl.dinst * 10 + pl.mw) {  // that mma_shape gives
@@ -1702,7 +1845,14 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
     }
   }
   if (err || p.n_split == 1) return err;
-  paged_attention_sm90_combine<T><<<(unsigned)(B * Hq), 128, 0, stream>>>(
+  // the wide route's rows over the grid's y, a block for every
+  // kWideCombineCols columns (at most 65,535 blocks; the kernel strides)
+  const long long chunks =
+      n_slices > 0 ? ((long long)p.d + kWideCombineCols - 1) / kWideCombineCols
+                   : 1;
+  const dim3 cgrid((unsigned)(B * Hq),
+                   (unsigned)(chunks < 65535 ? chunks : 65535));
+  paged_attention_sm90_combine<T><<<cgrid, 128, 0, stream>>>(
       p.ws, p.lengths, static_cast<T*>(p.out), Hq, p.d, p.page, p.n_slots,
       p.pps, p.n_split);
   return (int)cudaGetLastError();
@@ -1725,10 +1875,10 @@ int launch_t(const Params& p, int G, int B, int Hq, cudaStream_t stream,
 // the stages by bulk copies, which needs both pools' bases and d * elt to
 // be multiples of 16 bytes; 0 by the producer warp's 2-byte loads, which
 // needs the bases 2-byte aligned (on the wide route, d > 2048: 16-byte
-// loads where bulk is 1 and q's base is 16-byte aligned too, else 2-byte
-// loads). Any B, Hkv, d and page up to 2^31 - 1 blocks (B Hkv x group
-// tiles x splits, x slices of 2048 columns on the wide route) and B Hq
-// combine blocks. Launches on `stream` of `device` and returns
+// loads of K and V where bulk is 1, else 2-byte loads). Any B, Hkv, d and
+// page up to 2^31 - 1 blocks (B Hkv x group tiles x splits, x slices of
+// 2048 columns on the wide route, with the last cluster's padding) and B
+// Hq combine blocks. Launches on `stream` of `device` and returns
 // cudaGetLastError() (0 when the launches were accepted); shapes it does
 // not take (paged_attention_sm90_plan) return cudaErrorInvalidValue
 // without launching.
@@ -1779,20 +1929,24 @@ extern "C" int paged_attention_sm90_launch(
   p.stage_bytes = wide ? 0 : pl.stage_bytes;
   p.scale = scale * 1.4426950408889634f;  // log2(e)
   p.cap_in = softcap != 0.f ? 0.6931471805599453f / softcap : 0.f;
-  const int n_slices = wide ? (d + kWideCols - 1) / kWideCols : 0;
-  const bool vec = bulk && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  int n_slices = 0, n_cl = 1, n_slp = 1;
+  if (wide) wide_plan(d, &n_slices, &n_cl, &n_slp);
+  // the wide route's loads: bit 0 16-byte loads of K and V (bulk), bit 1
+  // 16-byte copies of q (its base and rows 16-byte aligned)
+  const int vec = (bulk != 0) |
+                  (reinterpret_cast<uintptr_t>(q) % 16 == 0 && row % 16 == 0)
+                      << 1;
   if (p.n_split > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  if (grid_blocks(p, wide ? n_slices : 1, B) == 0)
-    return (int)cudaErrorInvalidValue;
+  if (grid_blocks(p, n_slp, B) == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_t<float>(p, tile_rows, B, Hq, s, pl, n_slices, vec);
+    return launch_t<float>(p, tile_rows, B, Hq, s, pl, n_slices, n_slp, vec);
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(p, tile_rows, B, Hq, s, pl, n_slices,
-                                   vec);
-  return launch_t<__half>(p, tile_rows, B, Hq, s, pl, n_slices, vec);
+                                   n_slp, vec);
+  return launch_t<__half>(p, tile_rows, B, Hq, s, pl, n_slices, n_slp, vec);
 }
 
 // The launch plan for tile_rows query rows per tile of g rows per kv head,
@@ -1800,7 +1954,8 @@ extern "C" int paged_attention_sm90_launch(
 // float16): 16-byte vectors of a row per lane, keys per ring stage, ring
 // stages, dynamic shared memory bytes and m16 tiles a warp. Returns 1 on the
 // register route; 2 on the wide route (0 vectors a lane, kWideKeys keys per
-// chunk, no stages and no dynamic shared memory); 3 on the mma route
+// chunk, no stages, q's slice of the tile's rows in dynamic shared memory);
+// 3 on the mma route
 // (tile_rows > kMaxRows: mma_tile_rows(g); 0 vectors a lane); 0 where the
 // kernel does not take the shape. Where a route is not the mma route, its
 // m16 tiles a warp are 0.
@@ -1828,7 +1983,7 @@ extern "C" int paged_attention_sm90_plan(int tile_rows, int g, int d,
     *vectors_per_lane = 0;
     *keys_per_stage = kWideKeys;
     *stages = 0;
-    *smem_bytes = 0;
+    *smem_bytes = tile_rows * kWideCols * 4;
     return 2;
   }
   if (!make_plan(tile_rows, d, page, elt, &pl)) return 0;
@@ -1845,4 +2000,43 @@ extern "C" int paged_attention_sm90_plan(int tile_rows, int g, int d,
 // run on the card holds the wrapper's ops.mma_route to it.
 extern "C" int paged_attention_sm90_mma_route(int g, int d, int dtype) {
   return mma_route(g, d, dtype == 0 ? 4 : 2) ? 1 : 0;
+}
+
+// The wide route (d > 2048) for tile_rows query rows per tile at head dim d
+// and dtype (0 float32, 1 bfloat16, 2 float16) on `device`: CTAs a cluster
+// and the most such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters). Returns the CUDA error
+// (cudaErrorInvalidValue where the shape is not the wide route's).
+extern "C" int paged_attention_sm90_wide_clusters(int tile_rows, int d,
+                                                  int dtype, int device,
+                                                  int* cluster,
+                                                  int* max_active) {
+  const int elt = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 || d < 1 || !wide_route(d, elt))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int n_sl, n_slp;
+  wide_plan(d, &n_sl, cluster, &n_slp);
+  Params p = {};
+  p.d = d;
+  const unsigned grid = (unsigned)*cluster;
+  int (*fn)(const Params&, unsigned, int, int, cudaStream_t, int*) = nullptr;
+#define WIDE_FN(T)                                      \
+  switch (tile_rows) {                                  \
+    case 1: fn = launch_wide<T, 1>; break;              \
+    case 2: fn = launch_wide<T, 2>; break;              \
+    case 4: fn = launch_wide<T, 4>; break;              \
+    case 8: fn = launch_wide<T, 8>; break;              \
+  }
+  if (dtype == 0) {
+    WIDE_FN(float)
+  } else if (dtype == 1) {
+    WIDE_FN(__nv_bfloat16)
+  } else {
+    WIDE_FN(__half)
+  }
+#undef WIDE_FN
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(p, grid, n_sl, 1, 0, max_active);
 }

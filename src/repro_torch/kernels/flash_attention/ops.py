@@ -10,11 +10,17 @@ one of two hand-written kernels, chosen by dtype, or the call raises:
   TF32 tensor-core products (3xTF32: the float32 tolerance rules out a
   single TF32 product, not the split one).
 
-Both take any head_dim (past 256 in slices of 256 output columns), any
-sequence length and any layout whose last dimension is contiguous: a
-block's batch x head is the grid's x, and its (q tile, slice) one index
-spread over the grid's y and z (``flash_grid``, ``flash_block``), so the
-grid's 65,535 blocks a dimension bound no q length.
+Both take any head_dim, any sequence length and any layout whose last
+dimension is contiguous: a block's batch x head is the grid's x, and its
+(q tile, slice) one index spread over the grid's y and z (``flash_grid``,
+``flash_block``), so the grid's 65,535 blocks a dimension bound no q
+length. Past d = 256 the 2-byte kernel cuts the output into slices of
+``SLICE_COLS`` columns, each recomputing S; the float32 kernel cuts d into
+slices (``f32_wide_cols``: 128 columns, or 256 where only then one
+cluster covers d) taken by the CTAs of a thread-block cluster
+(``f32_wide_plan``),
+which sum their partial S over distributed shared memory, so S is computed
+once per cluster.
 
 ``flash_attention.launches`` counts the launches of both kernels,
 ``flash_attention.launches_bf16`` and ``flash_attention.launches_f16`` those
@@ -41,7 +47,9 @@ SOURCES = {torch.float32: "flash_attention_f32_sm90",
            torch.bfloat16: "flash_attention_sm90",
            torch.float16: "flash_attention_sm90"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-SLICE_COLS = 256        # output columns per block past d = 256
+SLICE_COLS = 256        # output columns per block past d = 256 (2-byte)
+F32_WIDE_COLS = 128     # the float32 route's columns per CTA past d = 256
+CLUSTER_MAX = 8         # CTAs a cluster (the portable limit)
 GRID_YZ = 65535         # blocks the grid's y (and z) dimension holds
 
 
@@ -71,37 +79,101 @@ def kernel_config(dtype: torch.dtype, d: int) -> dict:
                     (x.value for x in vals)))
 
 
+def f32_wide_cols(d: int) -> int:
+    """The float32 route's slice width past d = 256: ``F32_WIDE_COLS``, or
+    twice that where then one cluster of ``CLUSTER_MAX`` CTAs covers d and
+    otherwise would not (1024 < d <= 2048: there the 128-column slices take
+    groups of clusters that stage q and K for every key tile, 2.89x slower
+    at d = 1280; past 2048 both take groups, and 128 ran 1.89x faster at d
+    = 2304; an H100 at 700 W, benchmarks_torch/wide_variants.py). The
+    source's ``wide_cols``."""
+    reach = F32_WIDE_COLS * CLUSTER_MAX
+    return 2 * F32_WIDE_COLS if reach < d <= 2 * reach else F32_WIDE_COLS
+
+
 def q_rows_per_block(dtype: torch.dtype, d: int) -> int:
     """A block's q rows, as ``kernel_config`` gives them: 128, or 64 on the
-    float32 route past d = 128."""
-    return 64 if dtype == torch.float32 and d > 128 else 128
+    float32 route at 128 < d <= 256; past d = 256 the float32 CTA's at its
+    slice width (``f32_wide_cols``: 128 rows at 128 columns, 64 at 256)."""
+    if dtype != torch.float32 or d <= 128:
+        return 128
+    return 128 if d > 256 and f32_wide_cols(d) == 128 else 64
+
+
+def f32_wide_plan(d: int, cols: Optional[int] = None,
+                  cluster: int = CLUSTER_MAX) -> tuple:
+    """The float32 route past d = 256: (slices of ``cols`` columns (None:
+    ``f32_wide_cols``), CTAs a cluster, slices with the last group's
+    padding). A cluster holds at most ``cluster`` CTAs; past that the
+    slices go in groups of one cluster each, the last padded to a whole
+    cluster with CTAs that own no column (the source's ``wide_plan``)."""
+    cols = cols or f32_wide_cols(d)
+    n_sl = -(-d // cols)
+    ncl = min(n_sl, cluster)
+    return n_sl, ncl, -(-n_sl // ncl) * ncl
+
+
+def flash_cluster(dtype: torch.dtype, d: int) -> int:
+    """CTAs a cluster along the grid's y: the float32 route's past d = 256,
+    else 1."""
+    return f32_wide_plan(d)[1] if dtype == torch.float32 and d > 256 else 1
 
 
 def flash_grid(dtype: torch.dtype, B: int, Hq: int, Sq: int,
                d: int) -> tuple:
     """Both kernels' grid (x, y, z) for these shapes, and its q tiles (of
-    ``q_rows_per_block`` rows) and output slices (of ``SLICE_COLS``
-    columns past d = 256): x = B * Hq; y and z hold the n_qt * slices
-    (tile, slice) indices, y = min(that, ``GRID_YZ``) (the sources'
-    ``grid_of``)."""
+    ``q_rows_per_block`` rows) and slices: x = B * Hq; y and z hold the
+    n_qt * slices (tile, slice) indices over y + ny * z, ny = that up to
+    ``GRID_YZ``, else ``GRID_YZ`` rounded down to a multiple of the cluster
+    (``flash_cluster``), so the cluster dims (1, cluster, 1) divide the
+    grid (the sources' ``grid_of``). Slices: ``SLICE_COLS`` output columns
+    past d = 256 on the 2-byte route; ``f32_wide_plan``'s padded slices on
+    the float32 route."""
     n_qt = -(-Sq // q_rows_per_block(dtype, d))
-    n_sl = -(-d // SLICE_COLS) if d > SLICE_COLS else 1
-    ny = min(n_qt * n_sl, GRID_YZ)
-    return (B * Hq, ny, -(-(n_qt * n_sl) // ny)), n_qt, n_sl
+    if dtype == torch.float32:
+        n_sl = f32_wide_plan(d)[2] if d > 256 else 1
+    else:
+        n_sl = -(-d // SLICE_COLS) if d > SLICE_COLS else 1
+    step = flash_cluster(dtype, d)
+    n = n_qt * n_sl
+    ny = n if n <= GRID_YZ else GRID_YZ - GRID_YZ % step
+    return (B * Hq, ny, -(-n // ny)), n_qt, n_sl
 
 
 def flash_block(x: int, y: int, z: int, ny: int, n_qt: int,
-                n_sl: int) -> Optional[tuple]:
-    """The (b * Hq + h, q tile, slice) of block (x, y, z), as both kernels
+                n_sl: int, cluster: int = 1) -> Optional[tuple]:
+    """The (b * Hq + h, q tile, slice) of block (x, y, z), as the kernels
     decode it, or None for a block past the last index (the grid's
-    rounding; it exits at once): t + n_qt * slice = y + ny * z, and index t
-    holds q tile n_qt - 1 - t. A (x, y, z) grid runs x fastest, then y and
-    z, so the blocks run in a (B*Hq, n_qt, slices) grid's order: the
-    heaviest causal tiles first."""
+    rounding; it exits at once). lin = y + ny * z; index t holds q tile
+    n_qt - 1 - t. Without a cluster (``cluster`` 1: the 2-byte route, and
+    float32 to d = 256) lin = t + n_qt * slice; in clusters (the float32
+    route past d = 256) lin = slice + n_sl * t, so a cluster's CTAs
+    (``cluster`` consecutive y) are consecutive slices of one q tile, and a
+    CTA's rank in it is its slice % cluster. A (x, y, z) grid runs x
+    fastest, then y and z: the heaviest causal tiles first."""
     lin = y + ny * z
     if lin >= n_qt * n_sl:
         return None
+    if cluster > 1:
+        return x, n_qt - 1 - lin // n_sl, lin % n_sl
     return x, n_qt - 1 - lin % n_qt, lin // n_qt
+
+
+def f32_clusters(d: int, device: int = 0) -> dict:
+    """The float32 route at d > 256 on ``device``: its slice width, CTAs a
+    cluster, and the most such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; builds the kernel)."""
+    from repro_torch.kernels import _build
+    name = SOURCES[torch.float32]
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = getattr(_build.load(name), f"{name}_clusters")(
+        ctypes.c_int(d), ctypes.c_int(device),
+        *(ctypes.byref(x) for x in vals))
+    if err:
+        raise RuntimeError(f"flash_attention: cluster occupancy query failed "
+                           f"with CUDA error {err}")
+    return dict(zip(("cols", "cluster", "max_active_clusters"),
+                    (x.value for x in vals)))
 
 
 def _aligned(t: torch.Tensor, unit: int) -> bool:

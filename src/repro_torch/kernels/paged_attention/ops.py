@@ -9,8 +9,10 @@ width in bytes, any pool base address. Three routes (``group_tile_rows``):
 g >= 8 at d <= 256 the mma route (``mma_route``: every query row of a kv
 head in a row tile of up to 64 rows, the products on the tensor cores);
 else up to d = 2048 the register route (query rows in group tiles of
-``tile_rows``); past it the wide route (``wide_route``, in slices of
-``WIDE_COLS`` output columns). Each sequence's pages are
+``tile_rows``); past it the wide route (``wide_route``: d in slices of
+``WIDE_COLS`` columns taken by the CTAs of a thread-block cluster, which
+sum their partial scores over distributed shared memory, ``wide_plan``).
+Each sequence's pages are
 split across blocks; the run of pages per block comes from
 ``_pages_per_split``, which never reads ``lengths``.
 
@@ -33,7 +35,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SPLIT_BLOCKS_PER_SM = 4         # blocks _pages_per_split aims to give an SM
 MAX_TILE_ROWS = 8               # query rows of a group tile
 MAX_LANE_FLOATS = 64            # a lane's floats of a tile's q rows
-WIDE_COLS = 2048                # the wide route's output columns per block
+WIDE_COLS = 2048                # the wide route's columns of d per CTA
+CLUSTER_MAX = 8                 # its CTAs a cluster (the portable limit)
 MMA_MIN_GROUP = 8               # the mma route: g >= 8 ...
 MMA_MAX_D = 256                 # ... at d <= 256
 MMA_MAX_ROWS = 64               # its query rows of a row tile
@@ -79,14 +82,29 @@ def n_slices(d: int, elt: int) -> int:
     return -(-d // WIDE_COLS) if wide_route(d, elt) else 1
 
 
+def wide_plan(d: int, cluster: int = CLUSTER_MAX) -> tuple:
+    """The wide route at head dim d: (slices of ``WIDE_COLS`` columns, CTAs
+    a cluster, slices with the last group's padding). A cluster holds at
+    most ``cluster`` CTAs; past that the slices go in groups of one cluster
+    each, the last padded to a whole cluster with CTAs that own no column
+    (the source's ``wide_plan``)."""
+    n_sl = -(-d // WIDE_COLS)
+    n_cl = min(n_sl, cluster)
+    return n_sl, n_cl, -(-n_sl // n_cl) * n_cl
+
+
 def paged_block(x: int, n_tiles: int, n_sl: int, n_split: int,
                 Hkv: int) -> tuple:
     """The (b, kv head, group tile, slice, split) of the block at index
-    ``x`` of the grid's x dimension, as the kernel decodes it: x = tile +
-    n_tiles * (slice + n_sl * (split + n_split * (h + Hkv * b))), the
-    tiles (and slices) of one (b, kv head, split) next to each other."""
-    x, tile = divmod(x, n_tiles)
+    ``x`` of the grid's x dimension, as the kernel decodes it: x = slice +
+    n_sl * (tile + n_tiles * (split + n_split * (h + Hkv * b))), with n_sl
+    the grid's slices (``wide_plan``'s padded count on the wide route, 1
+    elsewhere). The slices of one (b, kv head, split, tile) are next to
+    each other, so a cluster of ``wide_plan``'s CTAs (which divides n_sl)
+    is consecutive slices of one tile, a CTA's rank in it its slice %
+    cluster; then the tiles of one (b, kv head, split)."""
     x, sl = divmod(x, n_sl)
+    x, tile = divmod(x, n_tiles)
     x, split = divmod(x, n_split)
     b, h = divmod(x, Hkv)
     return b, h, tile, sl, split
@@ -169,10 +187,11 @@ def _bulk_copies(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
 def sm90_plan(g: int, d: int, page: int, dtype: torch.dtype,
               rows: Optional[int] = None) -> Optional[dict]:
     """The kernel's plan for a shape: its route ("mma", "registers", or
-    "wide" past d = 2048), query rows per tile and tiles, output slices,
-    16-byte vectors of a row per lane (0 on the mma and wide routes), keys
-    per ring stage (the wide route: per chunk), ring stages, dynamic shared
-    memory bytes and m16 tiles a warp (the mma route; else 0). ``rows``
+    "wide" past d = 2048), query rows per tile and tiles, output slices
+    and CTAs a cluster (1 off the wide route), 16-byte vectors of a row per
+    lane (0 on the mma and wide routes), keys per ring stage (the wide
+    route: per chunk), ring stages, dynamic shared memory bytes and m16
+    tiles a warp (the mma route; else 0). ``rows``
     (None: ``group_tile_rows``) asks for another route's tile, e.g.
     ``mma_tile_rows(g)`` at g <= 8. ``source_mma_route`` is the kernel
     source's own route rule for (g, d, dtype), which must equal
@@ -192,11 +211,30 @@ def sm90_plan(g: int, d: int, page: int, dtype: torch.dtype,
     return {"route": {1: "registers", 2: "wide", 3: "mma"}[ok],
             "tile_rows": rows, "tiles": -(-g // rows),
             "slices": n_slices(d, elt),
+            "cluster": wide_plan(d)[1] if ok == 2 else 1,
             **dict(zip(("vectors_per_lane", "keys_per_stage", "stages",
                         "smem_bytes", "warp_m16"), (x.value for x in vals))),
             "source_mma_route": bool(lib.paged_attention_sm90_mma_route(
                 ctypes.c_int(g), ctypes.c_int(d),
                 ctypes.c_int(_DTYPE_CODE[dtype])))}
+
+
+def wide_clusters(rows: int, d: int, dtype: torch.dtype,
+                  device: int = 0) -> dict:
+    """The wide route for ``rows`` query rows a tile at head dim d > 2048
+    on ``device``: CTAs a cluster and the most such clusters the card holds
+    at once (``cudaOccupancyMaxActiveClusters``; builds the kernel)."""
+    from repro_torch.kernels import _build
+    lib = _build.load("paged_attention_sm90")
+    vals = [ctypes.c_int() for _ in range(2)]
+    err = lib.paged_attention_sm90_wide_clusters(
+        ctypes.c_int(rows), ctypes.c_int(d),
+        ctypes.c_int(_DTYPE_CODE[dtype]), ctypes.c_int(device),
+        *(ctypes.byref(x) for x in vals))
+    if err:
+        raise RuntimeError(f"paged_attention: cluster occupancy query "
+                           f"failed with CUDA error {err}")
+    return {"cluster": vals[0].value, "max_active_clusters": vals[1].value}
 
 
 @functools.cache

@@ -9,6 +9,7 @@ is shown to miss the float32 bar, and one float16 rounding of P to meet the
 float16 bar. The CUDA kernels themselves are held against the plain version
 on the card by chip_smoke.py."""
 import ctypes
+import functools
 import math
 import re
 from pathlib import Path
@@ -121,7 +122,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         for dtype, d, rows in ((torch.bfloat16, 1024, 128),
                                (torch.float16, 37, 128),
                                (torch.float32, 128, 128),
-                               (torch.float32, 320, 64)):
+                               (torch.float32, 256, 64),
+                               (torch.float32, 320, 128),
+                               (torch.float32, 1280, 64)):
             assert ops.q_rows_per_block(dtype, d) == rows
             Sq = 65535 * rows + 1
             mq = torch.empty(1, 1, Sq, d, dtype=dtype, device="meta")
@@ -387,57 +390,138 @@ def test_sm90_unit_is_tma_or_the_widest_own_load(case, unit):
                                        (65535, 1), (65537, 1), (3, 65536),
                                        (65537, 3), (200000, 2)])
 def test_flash_block_is_a_bijection_onto_tiles_and_slices(n_qt, n_sl):
-    """``flash_block`` (both kernels' decode of the grid) maps the blocks of
+    """``flash_block`` (the kernels' decode of the grid) maps the blocks of
     ``flash_grid``'s y and z one to one onto (q tile, slice), the blocks
-    past the end (the grid's rounding) to None, in a (n_qt, n_sl) grid's
-    order with the heaviest (last) q tile first; x is the batch x head.
-    Past 65,535 tiles (the old limit) the blocks at both ends and a sample
+    past the end (the grid's rounding) to None, with the heaviest (last) q
+    tile first; x is the batch x head. Without a cluster the slice is the
+    slow index (a (n_qt, n_sl) grid's order); in clusters of c = min(n_sl,
+    8) (the float32 route past d = 256, n_sl padded to a multiple of c) it
+    is the fast one, y's extent is a multiple of c, so the cluster dims (1,
+    c, 1) divide the grid, and a cluster's CTAs (c consecutive y) are
+    consecutive slices of one q tile, each CTA's rank its slice % c. Past
+    65,535 tiles (the old limit) the blocks at both ends and a sample
     between are checked, without computing any attention."""
-    n = n_qt * n_sl
-    ny = min(n, ops.GRID_YZ)
-    nz = -(-n // ny)
-    assert ny <= ops.GRID_YZ and nz <= ops.GRID_YZ and ny * nz >= n
-    idx = (range(ny * nz) if ny * nz <= 4096 else
-           [*range(2048), *range(ny * nz - 2048, ny * nz),
-            *np.random.RandomState(n % 97).randint(0, ny * nz, 2048)
-            .tolist()])
-    seen = set()
-    for i in idx:
-        got = ops.flash_block(3, i % ny, i // ny, ny, n_qt, n_sl)
-        if i >= n:
-            assert got is None
-            continue
-        assert got == (3, n_qt - 1 - i % n_qt, i // n_qt)
-        seen.add(got)
-    assert len(seen) == len({i for i in idx if i < n})
-    if ny * nz <= 4096:
-        assert len(seen) == n
-    assert ops.flash_block(0, 0, 0, ny, n_qt, n_sl) == (0, n_qt - 1, 0)
-    last = n - 1
-    assert ops.flash_block(0, last % ny, last // ny, ny, n_qt, n_sl) == (
-        0, 0, n_sl - 1)
+    for c in sorted({1, min(n_sl, ops.CLUSTER_MAX)}):
+        nsl = -(-n_sl // c) * c
+        n = n_qt * nsl
+        ny = n if n <= ops.GRID_YZ else ops.GRID_YZ - ops.GRID_YZ % c
+        nz = -(-n // ny)
+        assert ny <= ops.GRID_YZ and nz <= ops.GRID_YZ and ny * nz >= n
+        assert ny % c == 0
+        idx = (range(ny * nz) if ny * nz <= 4096 else
+               [*range(2048), *range(ny * nz - 2048, ny * nz),
+                *np.random.RandomState(n % 97).randint(0, ny * nz, 2048)
+                .tolist()])
+        seen = set()
+        for i in idx:
+            got = ops.flash_block(3, i % ny, i // ny, ny, n_qt, nsl, c)
+            if i >= n:
+                assert got is None
+                continue
+            want = ((3, n_qt - 1 - i % n_qt, i // n_qt) if c == 1 else
+                    (3, n_qt - 1 - i // nsl, i % nsl))
+            assert got == want
+            seen.add(got)
+        assert len(seen) == len({i for i in idx if i < n})
+        if ny * nz <= 4096:
+            assert len(seen) == n
+        assert ops.flash_block(0, 0, 0, ny, n_qt, nsl, c) == (0, n_qt - 1, 0)
+        last = n - 1
+        assert ops.flash_block(0, last % ny, last // ny, ny, n_qt, nsl,
+                               c) == (0, 0, nsl - 1)
+        if c > 1:          # a cluster: whole, one q tile, ranks 0..c-1
+            for i in [i - i % c for i in idx][:256]:
+                y, z = i % ny, i // ny
+                members = [ops.flash_block(0, y + r, z, ny, n_qt, nsl, c)
+                           for r in range(c)]
+                if members[0] is None:
+                    assert all(m is None for m in members)
+                    continue
+                assert {m[1] for m in members} == {members[0][1]}
+                assert [m[2] % c for m in members] == list(range(c))
+
+
+def _f32_cta_bytes(D):
+    """The float32 source's ``Cfg<D>::kSmem`` and ``Wide<D>``'s partial
+    bytes and rule: (CTA bytes, one partial's bytes, two partial buffers
+    fit beside the CTA's tiles in the 227 KiB a block may hold)."""
+    wg = 2 if D <= 128 else 1
+    nt, bq, bk = 128 * wg, 64 * wg, 32 if D <= 128 else 16
+    q_bytes, k_bytes = bq * D * 4, bk * D * 4
+    smem = (1 if D <= 128 else 2) * q_bytes + 6 * k_bytes + 1024
+    part = nt * (bk // 2) * 4
+    return smem, part, smem + 2 * part <= 227 * 1024
+
+
+@pytest.mark.parametrize("cols,two", [(128, True), (256, False)])
+def test_f32_cluster_partials_double_buffered_where_they_fit(cols, two):
+    """The float32 cluster route keeps its partial S in two buffers of its
+    own by tile parity, with one cluster barrier a tile, where they fit
+    (slices of 128: 161 + 32 KiB); slices of 256 (225 KiB) keep it in K's
+    hi tile, one partial's bytes at most, with two barriers a tile (the
+    source's ``Wide``)."""
+    from repro_torch.kernels import _build
+    smem, part, fits = _f32_cta_bytes(cols)
+    assert fits == two
+    assert part <= (32 if cols == 128 else 16) * cols * 4   # K's hi tile
+    assert smem + (2 * part if fits else 0) <= 227 * 1024
+    f32 = (_build.CSRC / f"{ops.SOURCES[torch.float32]}.cu").read_text()
+    assert ("static constexpr bool kTwoParts = C::kSmem + 2 * kPart <= "
+            "227 * 1024;") in f32
+    assert "constexpr int bytes = Wide<D>::kSmem;" in f32
 
 
 def test_grid_and_slices_follow_the_kernel_sources():
     """The wrapper's grid (``flash_grid``, ``SLICE_COLS``, ``GRID_YZ``) is
     what both sources launch (their ``grid_of``): x = B Hq, the (q tile,
     slice) indices over y and z, q tiles of 128 rows (64 on the float32
-    route past d = 128), slices of 256 output columns past d = 256."""
+    route at 128 < d <= 256); on the 2-byte route slices of 256 output
+    columns past d = 256; on the float32 route past d = 256 slices of
+    ``F32_WIDE_COLS`` columns, or twice as wide where only then
+    ``CLUSTER_MAX`` of them cover d (``f32_wide_cols``, the source's
+    ``wide_cols``), in
+    clusters of up to ``CLUSTER_MAX`` CTAs along y (``f32_wide_plan``, the
+    source's ``wide_plan``)."""
     from repro_torch.kernels import _build
     for name in set(ops.SOURCES.values()):
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert f"constexpr int kSlice = {ops.SLICE_COLS};" in src
-        assert f"n_lin < {ops.GRID_YZ} ? n_lin : {ops.GRID_YZ}" in src
         assert "blockIdx.y + gridDim.y * blockIdx.z" in src
         assert "n_qt <= 65535 &&" not in src         # the old refusal
+    two = (_build.CSRC / f"{ops.SOURCES[torch.bfloat16]}.cu").read_text()
+    assert f"constexpr int kSlice = {ops.SLICE_COLS};" in two
+    assert f"n_lin < {ops.GRID_YZ} ? n_lin : {ops.GRID_YZ}" in two
+    f32 = (_build.CSRC / f"{ops.SOURCES[torch.float32]}.cu").read_text()
+    assert f"constexpr int kWideCols = {ops.F32_WIDE_COLS};" in f32
+    assert f"constexpr int kMaxCluster = {ops.CLUSTER_MAX};" in f32
+    assert (f"n_lin < {ops.GRID_YZ} ? n_lin : {ops.GRID_YZ} - "
+            f"{ops.GRID_YZ} % step") in f32
+    assert "cudaLaunchAttributeClusterDimension" in f32
     assert ops.flash_grid(torch.bfloat16, 2, 20, 4096, 128) == (
         (40, 32, 1), 32, 1)
+    assert ops.flash_grid(torch.bfloat16, 1, 8, 2048, 512) == (
+        (8, 32, 1), 16, 2)
     assert ops.flash_grid(torch.float32, 1, 8, 2048, 512) == (
-        (8, 64, 1), 32, 2)
+        (8, 64, 1), 16, 4)
+    assert [ops.f32_wide_cols(d) for d in (257, 1024, 1025, 2048, 2049)] \
+        == [128, 128, 256, 256, 128]
+    assert ops.f32_wide_plan(512) == (4, 4, 4)
+    assert ops.f32_wide_plan(1280) == (5, 5, 5)
+    assert ops.f32_wide_plan(1280, 128) == (10, 8, 16)
+    assert ops.f32_wide_plan(2304) == (18, 8, 24)
+    assert ops.flash_cluster(torch.float32, 512) == 4
+    assert ops.flash_cluster(torch.float32, 256) == 1
+    assert ops.flash_cluster(torch.bfloat16, 512) == 1
     assert ops.flash_grid(torch.float16, 1, 1, 8388736, 64) == (
         (1, 65535, 2), 65537, 1)
     assert ops.flash_grid(torch.float32, 1, 1, 4194368, 256) == (
         (1, 65535, 2), 65537, 1)
+    # past 65,535 (tile, slice) indices y is a whole number of clusters
+    assert ops.flash_grid(torch.float32, 1, 1, 64 * 20000, 1280) == (
+        (1, 65535, 2), 20000, 5)
+    assert ops.flash_grid(torch.float32, 1, 1, 128 * 20000, 2304) == (
+        (1, 65528, 8), 20000, 24)
+    assert ops.flash_grid(torch.float32, 1, 1, 128 * 20000, 1000) == (
+        (1, 65528, 3), 20000, 8)
 
 
 def test_launch_arguments_follow_the_c_entries(monkeypatch):
@@ -479,25 +563,70 @@ def test_launch_arguments_follow_the_c_entries(monkeypatch):
                          r"int device,\s+void\* stream\)", src)
 
 
-# the float32 kernel's tiles (q rows, keys) by head_dim: its Cfg<D>
+# the float32 kernel's tiles (q rows, keys) by head_dim: its Cfg<D>; past
+# d = 256 the CTA's at its slice width (Cfg<128> at 128 columns)
 F32_TILES = {True: (128, 32), False: (64, 16)}      # d <= 128, d > 128
+F32_WIDE_TILES = {128: (128, 32), 256: (64, 16)}
+
+
+def _cluster_partials(qt, kt, mm, cols, cluster):
+    """The wide route's partial S of each CTA of a cluster: d in slices of
+    ``cols`` columns, CTA r of a cluster of n = min(slices, ``cluster``)
+    summing its slices r, r + n, ... in that order (past one cluster each
+    group's CTA r takes the same ones). Returns (partials by rank, slices,
+    n, slices with the last group's padding)."""
+    d = qt.shape[-1]
+    n_sl, n, nslp = ops.f32_wide_plan(d, cols, cluster)
+    parts = []
+    for r in range(n):
+        p = None
+        for j in range(r, n_sl, n):
+            c = slice(j * cols, (j + 1) * cols)
+            t = mm(qt[..., c], kt[..., c].transpose(-1, -2))
+            p = t if p is None else p + t
+        parts.append(p)
+    return parts, n_sl, n, nslp
+
+
+def _cluster_scores(parts, nslp, rotated=False):
+    """The scores each CTA of a cluster (by slice, padding included) holds
+    after the exchange: the partials summed in rank order 0, 1, ..., n - 1
+    (``rotated``: from its own rank on, the order the kernel must not
+    take)."""
+    n = len(parts)
+    out = []
+    for sl in range(nslp):
+        order = ([(sl % n + i) % n for i in range(n)] if rotated
+                 else range(n))
+        s = None
+        for r in order:
+            s = parts[r].clone() if s is None else s + parts[r]
+        out.append(s)
+    return out
 
 
 def _f32_sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
-                      terms=3):
+                      terms=3, cols=None, cluster=ops.CLUSTER_MAX):
     """csrc/flash_attention_f32_sm90.cu's arithmetic in plain PyTorch: q
     tiles of 128 rows (64 at d > 128), each visiting the key tiles of 32
     (16) its band reaches; S = Q.K^T and O += P.V as 3xTF32 products of
-    operands split once (past d = 256 S summed over 64-column chunks, the
-    wide kernel's; its 256-column slices of O change no other arithmetic); scores in log2 units (masked -1e30, keys past Sk
+    operands split once; scores in log2 units (masked -1e30, keys past Sk
     -inf); a float32 online softmax from -1e30 with exp2; out = acc /
-    max(l, 1e-30)."""
+    max(l, 1e-30). Past d = 256 (or at any d where ``cols`` is given, so
+    that a small d takes several slices) the wide route: the tiles of the
+    CTA at ``cols`` columns (``ops.f32_wide_cols``), each CTA's partial S
+    over its slices (``_cluster_partials``), summed in rank order in every
+    CTA (``_cluster_scores``; the test asserts the same bits in every
+    slice), so its slices of O change no other arithmetic."""
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
-    block_q, block_k = F32_TILES[d <= 128]
+    wide = cols is not None or d > 256
+    cols = cols or ops.f32_wide_cols(d)
+    block_q, block_k = (F32_WIDE_TILES[max(cols, 128)] if wide
+                        else F32_TILES[d <= 128])
     # terms=1 keeps hi.hi alone (single-pass TF32)
     mm = mm3 if terms == 3 else (lambda x, y: tf32(x) @ tf32(y))
     log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
@@ -515,7 +644,14 @@ def _f32_sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
         for k0 in range(k_first, k_end, block_k):
             kt = kf[:, :, k0:k0 + block_k]
             vt = vf[:, :, k0:k0 + block_k]
-            s = _chunked_qk(qt, kt, mm, d > 256)
+            if wide:
+                parts, _, _, nslp = _cluster_partials(qt, kt, mm, cols,
+                                                      cluster)
+                every = _cluster_scores(parts, nslp)
+                assert all(torch.equal(x, every[0]) for x in every)
+                s = every[0]
+            else:
+                s = mm(qt, kt.transpose(-1, -2))
             if softcap:
                 s = (softcap * log2e) * torch.tanh(s * (scale / softcap))
             else:
@@ -568,6 +704,51 @@ def test_f32_sm90_wide_tiling_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = _port(x, torch.float32, fn=_f32_sm90_emulate, **kw)
     np.testing.assert_allclose(got, _pallas(x, "float32", **kw), **F32_TOL)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap,cols,"
+                         "cluster", [
+                             (1, 2, 1, 192, 192, 160, True, 0, 0.0, 16, 4),
+                             (1, 4, 2, 128, 192, 100, False, 0, 50.0, 8, 8),
+                             (1, 2, 2, 128, 128, 2304, True, 0, 0.0, None,
+                              8)])
+def test_f32_sm90_past_one_cluster_matches_pallas_kernel(
+        B, Hq, Hkv, Sq, Sk, d, causal, window, softcap, cols, cluster):
+    """Past one cluster's reach the slices go in groups of one cluster,
+    each recomputing S (CTA r of a group over slices r, r + n, ...), the
+    last group padded: at narrow emulated slices (160 / 16 = 10 slices in
+    clusters of 4, three groups; 100 / 8 = 13 in clusters of 8) and at
+    the kernel's own width (2304 / 128 = 18 in clusters of 8, three
+    groups), against the Pallas kernel in interpret mode."""
+    x = _qkv(11, B, Hq, Hkv, Sq, Sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n_sl, n, nslp = ops.f32_wide_plan(d, cols, cluster)
+    assert n_sl > n and nslp > n_sl                 # padded groups
+    got = _port(x, torch.float32, fn=functools.partial(
+        _f32_sm90_emulate, cols=cols, cluster=cluster), **kw)
+    np.testing.assert_allclose(got, _pallas(x, "float32", **kw), **F32_TOL)
+
+
+@pytest.mark.parametrize("d,cols,cluster", [(512, 128, 8), (512, 256, 8),
+                                            (1024, 128, 8), (160, 16, 4)])
+def test_f32_cluster_scores_are_the_same_bits_in_every_slice(d, cols,
+                                                             cluster):
+    """Every CTA of a cluster sums the partial S in rank order 0, 1, ...,
+    n - 1, so every slice holds the same bits of S (and so of m and l);
+    a CTA that began with its own partial would not: with three partials
+    or more the rotated sums differ in some bits on these inputs, which is
+    why the kernel fixes the order (two partials commute exactly)."""
+    q, k, _ = (torch.from_numpy(a) for a in _qkv(12, 1, 1, 1, 128, 32, d))
+    parts, _, n, nslp = _cluster_partials(q, k, mm3, cols, cluster)
+    every = _cluster_scores(parts, nslp)
+    assert len(every) == nslp and n > 1
+    assert all(torch.equal(s, every[0]) for s in every)
+    rotated = _cluster_scores(parts, nslp, rotated=True)
+    assert torch.equal(rotated[0], every[0])
+    if n > 2:           # a + b == b + a: two partials commute
+        assert any(not torch.equal(s, every[0]) for s in rotated[1:])
+    else:
+        assert all(torch.equal(s, every[0]) for s in rotated)
 
 
 def test_single_pass_tf32_misses_the_float32_bar():

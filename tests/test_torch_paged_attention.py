@@ -429,6 +429,7 @@ def test_tile_rows_and_the_kernel_source_agree():
                       "kMaxLaneFloats": ops.MAX_LANE_FLOATS}
     src = _SM90_SRC.read_text()
     assert f"constexpr int kWideCols = {ops.WIDE_COLS};" in src
+    assert f"constexpr int kMaxCluster = {ops.CLUSTER_MAX};" in src
     wide_g = {int(g) for g in re.findall(r"case (\d+): err = launch_wide",
                                          src)}
     for elt in (4, 2):
@@ -450,7 +451,13 @@ def test_tile_rows_and_the_kernel_source_agree():
         for dw in (d, 4096, 16384, 65536 + 3):
             assert {ops.tile_rows(g, dw, elt)
                     for g in (1, 2, 3, 4, 5, 8, 9, 71)} == wide_g
-    assert "65535" not in src and "blockIdx.y" not in src
+    # every block index of the attention kernels lies in the grid's x; only
+    # the combine kernel's y cuts a row's columns (at most 65,535 chunks)
+    body, combine = src.split("paged_attention_sm90_combine(", 1)
+    combine = combine.split("// ---- the mma route", 1)[0]
+    assert "blockIdx.y" not in body and "blockIdx.z" not in src
+    assert src.count("blockIdx.y") == combine.count("blockIdx.y") == 1
+    assert src.count("65535") == 2 and "chunks < 65535 ? chunks : 65535" in src
 
 
 # --- the wide route (d > 2048 on the card): output slices, scores streamed
@@ -459,18 +466,57 @@ def test_tile_rows_and_the_kernel_source_agree():
 LOG2E = 1.4426950408889634
 
 
+def _wide_partials(qt, kr, cols, cluster):
+    """The wide route's partial scores of each CTA of a cluster, for the
+    tile's q rows qt (G, d) and a chunk's K rows kr (keys, d): d in slices
+    of ``cols`` columns, CTA r of a cluster of n = min(slices, ``cluster``)
+    summing slices r, r + n, ... in that order (past one cluster each
+    group's CTA r takes the same ones). Returns (partials by rank, slices
+    with the last group's padding)."""
+    d = qt.shape[-1]
+    n_sl = -(-d // cols)
+    n = min(n_sl, cluster)
+    parts = []
+    for r in range(n):
+        p = None
+        for s in range(r, n_sl, n):
+            c = slice(s * cols, (s + 1) * cols)
+            t = qt[:, c] @ kr[:, c].T
+            p = t if p is None else p + t
+        parts.append(p)
+    return parts, -(-n_sl // n) * n
+
+
+def _wide_scores(parts, n_slp, rotated=False):
+    """The scores each CTA (by slice, padding included) holds after the
+    exchange: the partials summed in rank order 0, 1, ..., n - 1
+    (``rotated``: from its own rank on, which the kernel must not do)."""
+    n = len(parts)
+    out = []
+    for sl in range(n_slp):
+        order = ([(sl % n + i) % n for i in range(n)] if rotated
+                 else range(n))
+        x = None
+        for r in order:
+            x = parts[r].clone() if x is None else x + parts[r]
+        out.append(x)
+    return out
+
+
 def _wide_emulate(q, k, v, pt, lengths, softcap=0.0, pps=1,
-                  cols=ops.WIDE_COLS, keys=32):
+                  cols=ops.WIDE_COLS, keys=32, cluster=ops.CLUSTER_MAX):
     """What the sm90 kernel's wide route computes, block by block: per
     (sequence, kv head, group tile of ``tile_rows``, split of ``pps``
-    slots, output slice of ``cols`` columns) the split's live keys in
-    chunks of ``keys``: scores over the full d in log2 units (the same in
-    every slice: the kernel recomputes them per slice), the softcap in log2
-    units, the chunk's max and the running max and sum, p.V over the
-    slice's columns. A bad id inside the length gives NaN; the splits
-    merge by the combine kernel's log-sum-exp rule. ``cols`` and ``keys``
-    are arguments so that a small d takes several slices and a short
-    sequence several chunks."""
+    slots) a cluster of CTAs, one per slice of ``cols`` columns (at most
+    ``cluster``; past that in groups, the last padded), walking the split's
+    live keys in chunks of ``keys``: each CTA's partial scores over its
+    slices (``_wide_partials``), the scores summed in rank order in every
+    CTA (``_wide_scores``: the same bits in every slice, asserted), scaled
+    to log2 units, the softcap in log2 units, the chunk's max and the
+    running max and sum, p.V over the CTA's own slice. A bad id inside
+    the length gives NaN; the splits merge by the combine kernel's
+    log-sum-exp rule. ``cols`` and ``keys`` are arguments so that a small
+    d takes several slices and a short sequence several chunks."""
     B, Hq, d = q.shape
     P, Hkv, page, _ = k.shape
     g = Hq // Hkv
@@ -493,41 +539,35 @@ def _wide_emulate(q, k, v, pt, lengths, softcap=0.0, pps=1,
                     if k1 <= k0:
                         continue                            # not live
                     acc = torch.zeros(len(qt), d)
-                    ms = []
-                    for sl in range(n_sl):
-                        c = slice(sl * cols, min(d, (sl + 1) * cols))
-                        m = torch.full((len(qt),), -math.inf)
-                        l = torch.zeros(len(qt))
-                        bad = False
-                        for c0 in range(k0, k1, keys):
-                            pos = range(c0, min(k1, c0 + keys))
-                            ids = [int(pt[b, p // page]) for p in pos]
-                            if any(not 0 <= i < P for i in ids):
-                                bad = True
-                                break
-                            kr = torch.stack([k[i, h, p % page].float()
-                                              for i, p in zip(ids, pos)])
-                            vr = torch.stack([v[i, h, p % page, c].float()
-                                              for i, p in zip(ids, pos)])
-                            x = (qt @ kr.T) * scale
-                            if cap_in:
-                                x = torch.tanh(x * cap_in) / cap_in
-                            m_new = torch.maximum(m, x.amax(-1))
-                            corr = torch.exp2(m - m_new)
-                            p_ = torch.exp2(x - m_new[:, None])
-                            l = l * corr + p_.sum(-1)
-                            acc[:, c] = acc[:, c] * corr[:, None] + p_ @ vr
-                            m = m_new
-                        if bad:
+                    m = torch.full((len(qt),), -math.inf)
+                    l = torch.zeros(len(qt))
+                    for c0 in range(k0, k1, keys):
+                        pos = range(c0, min(k1, c0 + keys))
+                        ids = [int(pt[b, p // page]) for p in pos]
+                        if any(not 0 <= i < P for i in ids):
                             m = l = torch.full((len(qt),), math.nan)
-                        ms.append((m, l))
-                    # every slice saw the same scores: the same m and l
-                    for m_, l_ in ms[1:]:
-                        torch.testing.assert_close(m_, ms[0][0],
-                                                   equal_nan=True)
-                        torch.testing.assert_close(l_, ms[0][1],
-                                                   equal_nan=True)
-                    parts.append((acc, *ms[0]))
+                            break
+                        kr = torch.stack([k[i, h, p % page].float()
+                                          for i, p in zip(ids, pos)])
+                        vr = torch.stack([v[i, h, p % page].float()
+                                          for i, p in zip(ids, pos)])
+                        every = _wide_scores(*_wide_partials(qt, kr, cols,
+                                                             cluster))
+                        # every slice holds the same bits: one m and l
+                        assert all(torch.equal(x, every[0]) for x in every)
+                        x = every[0] * scale
+                        if cap_in:
+                            x = torch.tanh(x * cap_in) / cap_in
+                        m_new = torch.maximum(m, x.amax(-1))
+                        corr = torch.exp2(m - m_new)
+                        p_ = torch.exp2(x - m_new[:, None])
+                        l = l * corr + p_.sum(-1)
+                        for sl in range(n_sl):             # each CTA's slice
+                            c = slice(sl * cols, min(d, (sl + 1) * cols))
+                            acc[:, c] = acc[:, c] * corr[:, None] + \
+                                p_ @ vr[:, c]
+                        m = m_new
+                    parts.append((acc, m, l))
                 if not parts:
                     continue                                # length 0: 0
                 M = torch.stack([m for _, m, _ in parts]).amax(0)
@@ -539,38 +579,70 @@ def _wide_emulate(q, k, v, pt, lengths, softcap=0.0, pps=1,
 
 WIDE_CASES = {
     # name: (B, Hq, Hkv, d, page, n_slots, P, lengths, pps, cols, keys,
-    #        dtype, softcap)
+    #        dtype, softcap, cluster)
     "g1_three_slices": (2, 2, 2, 40, 8, 4, 16, None, 4, 16, 8, "float32",
-                        0.0),
+                        0.0, 8),
     "g8_two_slices_chunks": (2, 8, 1, 32, 8, 5, 16, [37, 19], 5, 16, 8,
-                             "float32", 0.0),
+                             "float32", 0.0, 8),
     "g8_softcap_split": (2, 16, 2, 48, 8, 6, 24, [40, 13], 2, 16, 8,
-                         "float32", 30.0),
+                         "float32", 30.0, 8),
     "g3_partial_tile_bf16": (2, 6, 2, 64, 16, 3, 12, None, 1, 16, 32,
-                             "bfloat16", 0.0),
+                             "bfloat16", 0.0, 8),
     "g8_f16_length_0_split": (3, 8, 1, 24, 8, 4, 16, [0, 29, 8], 1, 8, 8,
-                              "float16", 30.0),
+                              "float16", 30.0, 8),
     "slice_wider_than_d": (2, 4, 2, 24, 8, 4, 16, None, 2, 2048, 32,
-                           "float32", 0.0),
+                           "float32", 0.0, 8),
+    # past one cluster's reach: 80 / 16 = 5 slices in clusters of 2 (three
+    # groups, the last padded); 56 / 8 = 7 in clusters of 3, bf16 softcap
+    "two_groups_g8_f32": (2, 8, 1, 80, 8, 5, 16, [37, 19], 2, 16, 8,
+                          "float32", 0.0, 2),
+    "three_groups_g3_bf16_softcap": (2, 6, 2, 56, 16, 3, 12, None, 1, 8, 32,
+                                     "bfloat16", 30.0, 3),
 }
 
 
 @pytest.mark.parametrize("case", list(WIDE_CASES))
 def test_wide_route_arithmetic_matches_pallas_kernel(case):
-    """The wide route's tiling (output slices of ``cols`` columns, scores
-    over the full d per slice, keys in chunks, splits merged) against the
-    Pallas kernel in interpret mode, at slice widths of 8 and 16 so that d
-    <= 64 runs in several slices."""
+    """The wide route's tiling (slices of ``cols`` columns in clusters of
+    CTAs, the partial scores summed in rank order, keys in chunks, splits
+    merged) against the Pallas kernel in interpret mode, at slice widths
+    of 8 and 16 so that d <= 80 runs in several slices, and past one
+    cluster's reach (clusters of 2 and 3, slices in padded groups)."""
     (B, Hq, Hkv, d, page, n_slots, P, lengths, pps, cols, keys, dtype,
-     cap) = WIDE_CASES[case]
+     cap, cluster) = WIDE_CASES[case]
     jdt, tdt, tol = DTYPES[dtype]
     x = _inputs(17, B, Hq, Hkv, d, page, n_slots, P, lengths)
     got = _run_port(x, tdt, softcap=cap, fn=functools.partial(
-        _wide_emulate, pps=pps, cols=cols, keys=keys))
+        _wide_emulate, pps=pps, cols=cols, keys=keys, cluster=cluster))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, _run_jax(x, jdt, softcap=cap), **tol)
     if lengths is not None and 0 in lengths:
         assert np.all(got[lengths.index(0)] == 0.0)
+
+
+@pytest.mark.parametrize("d,cols,cluster", [(16384, 2048, 8),
+                                            (18432, 2048, 8), (80, 16, 2),
+                                            (56, 8, 3)])
+def test_wide_scores_are_the_same_bits_in_every_slice(d, cols, cluster):
+    """Every CTA of a cluster sums the partial scores in rank order 0, 1,
+    ..., n - 1, so every slice holds the same bits of the scores (and so of
+    m and l; slice 0 alone writes them to the workspace). A CTA that began
+    with its own partial would not: with three partials or more the
+    rotated sums differ in some bits on these inputs, which is why the
+    kernel fixes the order (two partials commute exactly)."""
+    rng = np.random.RandomState(20)
+    qt = torch.from_numpy(rng.randn(8, d).astype(np.float32))
+    kr = torch.from_numpy(rng.randn(32, d).astype(np.float32))
+    parts, n_slp = _wide_partials(qt, kr, cols, cluster)
+    assert len(parts) > 1 and n_slp % len(parts) == 0
+    every = _wide_scores(parts, n_slp)
+    assert all(torch.equal(x, every[0]) for x in every)
+    rotated = _wide_scores(parts, n_slp, rotated=True)
+    assert torch.equal(rotated[0], every[0])
+    if len(parts) > 2:           # a + b == b + a: two partials commute
+        assert any(not torch.equal(x, every[0]) for x in rotated[1:])
+    else:
+        assert all(torch.equal(x, every[0]) for x in rotated)
 
 
 @pytest.mark.parametrize("pps", [1, 4])
@@ -802,14 +874,19 @@ def test_mma_route_and_the_kernel_source_agree():
 @pytest.mark.parametrize("n_tiles,n_sl,n_split,Hkv,B", [
     (1, 1, 1, 1, 1), (3, 1, 2, 4, 5), (2, 3, 2, 2, 3), (9, 1, 1, 1, 2),
     (1, 1, 1, 1, 65543), (1, 1, 1, 65539, 1), (2, 8, 3, 2, 2),
-    (1, 1, 4, 3, 65536 + 7)])
+    (1, 1, 4, 3, 65536 + 7), (2, 16, 3, 1, 2), (3, 4, 2, 2, 3)])
 def test_paged_block_is_a_bijection_onto_the_kernel_s_blocks(
         n_tiles, n_sl, n_split, Hkv, B):
     """``paged_block`` (the kernel's decode of the grid's x index) maps the
-    blocks one to one onto (b, kv head, tile, slice, split), tiles fastest,
-    then slices, splits, kv heads and sequences; grids past 65,535
+    blocks one to one onto (b, kv head, tile, slice, split), slices
+    fastest, then tiles, splits, kv heads and sequences; grids past 65,535
     sequences or kv heads (the old y and z limits) are checked at both ends
-    and on a sample between, without computing any attention."""
+    and on a sample between, without computing any attention. On the wide
+    route the cluster (n, 1, 1) divides the grid: where n_sl is
+    ``wide_plan``'s padded slice count of some d (2-8, or 16 for d =
+    18,432's 9 slices in two groups of 8), n divides it, and each cluster's
+    CTAs are consecutive slices of one (b, kv head, tile, split), its rank
+    the slice % n."""
     n = n_tiles * n_sl * n_split * Hkv * B
     xs = (range(n) if n <= 4096 else
           [*range(2048), *range(n - 2048, n),
@@ -820,12 +897,24 @@ def test_paged_block_is_a_bijection_onto_the_kernel_s_blocks(
                                                       n_split, Hkv)
         assert 0 <= b < B and 0 <= h < Hkv and 0 <= tile < n_tiles
         assert 0 <= sl < n_sl and 0 <= split < n_split
-        assert x == tile + n_tiles * (sl + n_sl * (split + n_split *
+        assert x == sl + n_sl * (tile + n_tiles * (split + n_split *
                                                    (h + Hkv * b)))
         seen.add(got)
     assert len(seen) == len(set(xs))
     assert ops.paged_block(n - 1, n_tiles, n_sl, n_split, Hkv) == (
         B - 1, Hkv - 1, n_tiles - 1, n_sl - 1, n_split - 1)
+    # the cluster of the wide route whose padded slices are n_sl
+    for d in range(2049, 2048 * 17, 2048):
+        n_real, cl, n_slp = ops.wide_plan(d)
+        if n_slp != n_sl:
+            continue
+        assert n_sl % cl == 0 and n % cl == 0 and n_real <= n_slp
+        for x0 in [x - x % cl for x in xs][:512]:
+            members = [ops.paged_block(x0 + r, n_tiles, n_sl, n_split, Hkv)
+                       for r in range(cl)]
+            assert {m[:3] + m[4:] for m in members} == {members[0][:3]
+                                                        + members[0][4:]}
+            assert [m[3] % cl for m in members] == list(range(cl))
 
 
 def test_plain_version_at_65543_sequences_matches_the_jax_reference():
@@ -977,3 +1066,29 @@ def test_paged_variants_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         paged_variants.main([])
+
+
+def test_wide_variants_edits_match_the_kernel_sources(monkeypatch):
+    """benchmarks_torch/wide_variants.py's variants of the two cluster
+    routes (K2's float32 route past d = 256, K1's wide route and its
+    combine grid) still apply to the kernel sources as they are
+    (build-free): each edit matches, each variant differs from its source,
+    and a stale edit raises."""
+    from benchmarks_torch import wide_variants
+    texts = wide_variants.variant_sources(list(wide_variants.VARIANTS))
+    assert set(texts) == {"flash_attention_f32_sm90", "paged_attention_sm90",
+                          *wide_variants.VARIANTS}
+    for name, (src, text) in texts.items():
+        if name in wide_variants.VARIANTS:
+            assert text != texts[src][1], name
+    monkeypatch.setitem(wide_variants.VARIANTS, "stale",
+                        ("paged_attention_sm90", [("no such text", "")]))
+    with pytest.raises(ValueError, match="no longer matches"):
+        wide_variants.variant_sources(["stale"])
+
+
+def test_wide_variants_refuses_to_run_without_a_card(monkeypatch):
+    from benchmarks_torch import wide_variants
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        wide_variants.main([])
