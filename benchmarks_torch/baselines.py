@@ -229,15 +229,33 @@ def _paged_attention_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
     return run
 
 
+def sliced_plan(S: int, dh: int, chunk: int) -> dict:
+    """The plan of the sliced outputs pass (``outputs_sliced_kernel``,
+    commits 9676424 to 774e907) past chunk 256 or dh 512: a block of 64 nt
+    columns, nt 1, 4 or 8 (dh <= 64, <= 256, above), over column slices, P
+    tiles of 256 keys at most; inside both limits the plan as it is."""
+    p = ml_ops.plan(S, dh, chunk)
+    if not p["sliced"]:
+        return p
+    nt = 1 if dh <= 64 else 4 if dh <= 256 else 8
+    lp = min(-(-chunk // 64) * 64, ml_ops.BLOCK_CHUNK)
+    return {**p, "nt": nt, "lp": lp, "col_slices": -(-dh // (64 * nt)),
+            "smem_outputs": ml_ops.outputs_smem(64 * nt, lp)}
+
+
 def _mlstm_scan_sm90(lib: ctypes.CDLL) -> Callable[..., torch.Tensor]:
-    """Commit ff92dab's K3, whose C entry the wrapper's call still fits at
-    the shapes it took (chunk <= 256, dh <= 512)."""
+    """An earlier K3: commit ff92dab's, whose C entry the wrapper's call
+    still fits at the shapes it took (chunk <= 256, dh <= 512), or commit
+    774e907's (every shape; past those limits the sliced outputs pass,
+    ``sliced_plan``). The function also takes ``passes``, ``ws`` and
+    ``out`` as ``ops._run_sm90`` does."""
     fn = lib.mlstm_scan_sm90_launch
     fn.argtypes, fn.restype = ml_ops.LAUNCH_ARGTYPES, ctypes.c_int
 
-    def run(q, k, v, lf, li, *, chunk: int = 128) -> torch.Tensor:
-        return ml_ops._run_sm90(q, k, v, lf, li, min(chunk, q.shape[2]),
-                                launcher=fn)
+    def run(q, k, v, lf, li, *, chunk: int = 128, **kw) -> torch.Tensor:
+        chunk = min(chunk, q.shape[2])
+        return ml_ops._run_sm90(q, k, v, lf, li, chunk,
+                                build=(fn, sliced_plan), **kw)
 
     return run
 

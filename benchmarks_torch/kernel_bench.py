@@ -276,6 +276,17 @@ def mlstm_bound_3xtf32(B, H, S, dh, chunk) -> float:
                     TF32_FLOPS_PER_S)[0]
 
 
+def mlstm_pass_bounds_3xtf32(B, H, S, dh, chunk) -> Dict[str, float]:
+    """The 3xTF32 bound of K3's two product passes, in ms: the states pass
+    the update C += (k wL)^T v (2 B H S dh^2), the outputs pass q.C and the
+    causal q.k^T and P.v (2 B H S dh^2 plus the causal pairs); together the
+    operations of ``mlstm_bound_3xtf32``."""
+    update = 2 * B * H * S * dh * dh
+    needed = mlstm_flops(B, H, S, dh, chunk)[1]
+    return {"states": 3 * update / TF32_FLOPS_PER_S * 1e3,
+            "outputs": 3 * (needed - update) / TF32_FLOPS_PER_S * 1e3}
+
+
 def _fmt(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 

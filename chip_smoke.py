@@ -84,7 +84,14 @@ Phases (any failure exits non-zero):
              bounds and SDPA: K1 at d = 2056-16,384 (the wide
              route), 65,543 sequences and 65,539 kv heads; K2 at 65,537 q
              tiles in bf16 (q past 2^31 elements), f16 and f32; K3 at chunk
-             512 and 1024 and dh 520-1024 (the sliced routes).
+             512 and 1024 and dh 520-1024, 4096 and 4100 (the cluster
+             outputs pass), and at K3_WIDE_SHAPES (the xLSTM head widths
+             dh = 768, 1024 and 1280 at B=8, H=4, S=2048, chunk 256, and
+             dh=384 and 64 at chunk 512: f32, dh=1024 also bf16 and f16;
+             each pass timed apart
+             beside its 3xTF32 bound, the cluster size and the card's
+             most active clusters), with --baseline-src in turns with
+             commit 774e907's sliced outputs pass.
 3. small   — the reduced models, kernel path on the card against the plain
              path on the CPU from the same weights: the serving example
              (same generated tokens) and a 2-layer Qwen forward with
@@ -251,7 +258,8 @@ views in f32 and bf16, the gate extremes of the CPU tests (m at its floor of
 -40; a stabilizer that switches between chunks), dh=512 at chunk 256, dh=6,
 bases off 16-byte alignment and chunk 1. It times the xLSTM-125m layer shape (B=8, H=4, S=2048, dh=384) at
 chunk 256 and 128 (one eager call, the device time from CUDA-graph replays,
-and each pass alone) and the kernel bench's two shapes; with
+and each pass alone), the kernel bench's two shapes and K3_WIDE_SHAPES, and
+the scalar pass alone at chunk 512 and 1024; with
 ``--baseline-src DIR`` (a directory holding the earlier CUDA-core kernels,
 K3's csrc/mlstm_scan.cu, K2's f32 csrc/flash_attention.cu and K1's
 csrc/paged_attention.cu, unpacked from older commits;
@@ -349,6 +357,18 @@ MLSTM_SWEEP = [                  # tests/test_kernels.py:97-100
     (1, 1, 96, 8, 96),           # single chunk
     (2, 1, 64, 16, 8),           # many small chunks
 ]
+K3_WIDE_SHAPES = [               # K3 past one block's dh: B, H, S, dh, chunk
+    # dh = ssm_expand 2 x d_model / 4 heads (models/xlstm.py:30-35, the
+    # rule of configs/xlstm_125m.py) at the d_model of arXiv:2405.04517's
+    # 760M, 1.3B and 2.7B models (1536, 2048, 2560); then xlstm-125m's
+    # dh=384 at chunk 512, and the narrowest CTA (dh=64, the 64-column
+    # instance) at chunk 512
+    (8, 4, 2048, 768, 256), (8, 4, 2048, 1024, 256),
+    (8, 4, 2048, 1280, 256), (8, 4, 2048, 384, 512),
+    (8, 4, 2048, 64, 512),
+]
+K3_BASELINE = "774e907"          # K3 before its cluster pass (the same
+                                 # file as 076818b's)
 XLSTM_B, XLSTM_S = 8, 2048       # 16,384 scored tokens per call
 XLSTM_TIMED = 3                  # timed forwards, after one warm-up
 XLSTM_DECODE = 8                 # greedy decode steps after the prefill
@@ -1130,14 +1150,16 @@ def _flash_past_limits(gen):
     return rows
 
 
-def _mlstm_past_limits(rng):
+def _mlstm_past_limits(rng, previous=None):
     """K3 past its old limits (chunk 256, dh 512): chunk 512 and 1024 at dh
-    64 and 384, dh 520, 768 and 1024 at chunk 64 and 256, and one past both,
-    two chunks each (so the states pass runs), f32 (``_scan_close``: the
-    rtol of max |h| only where the float64 scan shows the f32 bar below
-    float32's own rounding) and a 2-byte type, against the plain version at
+    64 and 384, dh 520, 768 and 1024 at chunk 64 and 256, one past both, and
+    dh 4096 and 4100 at chunk 64, two chunks each (so the states pass
+    runs), f32 (``_scan_close``: the rtol of max |h| only where the float64
+    scan shows the f32 bar below float32's own rounding) and a 2-byte
+    type, against the plain version at
     the same chunk; timed beside the bound (f32 CUDA-core rate; the 3xTF32
-    bound beside it). K3 has no library counterpart."""
+    bound beside it), and with ``previous`` (commit 774e907's K3) in turns
+    with it. K3 has no library counterpart."""
     rows = {}
     cases = [  # B, H, dh, chunk, 2-byte types
         (1, 2, 64, 512, (torch.bfloat16,)), (1, 2, 64, 1024, ()),
@@ -1146,6 +1168,9 @@ def _mlstm_past_limits(rng):
         (1, 2, 768, 64, ()), (1, 2, 768, 256, ()),
         (1, 2, 1024, 64, ()), (1, 2, 1024, 256, (torch.float16,)),
         (1, 2, 768, 512, ()),
+        # past dh 1280 (256 columns a CTA, q.C_prev's slices added in fresh
+        # accumulators): where one accumulator over dh drifted past the bar
+        (1, 1, 4096, 64, ()), (1, 1, 4100, 64, ()),
     ]
     for B, H, dh, chunk, low in cases:
         S = 2 * chunk
@@ -1169,7 +1194,7 @@ def _mlstm_past_limits(rng):
             else:
                 err, form = _assert_close(f"mlstm_scan past-limit {name}", got, want,
                                           TOLS[dtype]), "elementwise"
-            del got, want
+            del got
             _, needed = kernel_bench.mlstm_flops(B, H, S, dh, chunk)
             t = _past_limit_time(f"mlstm_scan {name}", fn,
                          lambda: mlstm_scan_ref(*xi, chunk=chunk), None,
@@ -1179,10 +1204,137 @@ def _mlstm_past_limits(rng):
                          why="no library call computes the mLSTM scan")
             t.update(check=form, bound_ms_3xtf32=kernel_bench
                      .mlstm_bound_3xtf32(B, H, S, dh, chunk),
-                     col_slices=p["col_slices"], key_slices=p["key_slices"],
-                     nt=p["nt"], states_bytes=4 * B * H * (S // chunk - 1)
-                     * dh * p["dhp"])
+                     cluster=p["cluster"], ctas=p["ctas"], cols=p["cols"],
+                     key_slices=p["key_slices"], nt=p["nt"],
+                     states_bytes=4 * B * H * (S // chunk - 1) * dh
+                     * p["dhp"])
+            t["previous_sm90"] = _against_previous(
+                f"mlstm_scan past-limit {name}", fn,
+                None if previous is None else
+                (lambda: previous(*xi, chunk=chunk)), TOLS[dtype],
+                K3_BASELINE, want=want, rtol_of_max=dtype == torch.float32)
+            del want
             rows[name] = t
+    return rows
+
+
+def _mlstm_wide(rng, previous=None):
+    """K3 at K3_WIDE_SHAPES, the cluster outputs pass's real widths: f32
+    through ``_scan_close`` (dh=1024 also bf16 and f16 at their bars), each
+    call launching the kernel once; one eager call and device ms
+    (CUDA-graph replays) of the scan and of each pass alone (``passes``, one
+    shared workspace) beside the 3xTF32 and f32-rate bounds (each product
+    pass beside its own 3xTF32 bound), the cluster size and the card's most
+    active such clusters; with ``previous`` (commit 774e907's K3, the
+    sliced outputs pass) the scan and the outputs pass in turns with it.
+    Then the scalar pass's share at chunk 1024 (dh=384). The inputs are
+    drawn on the card (``kernel_bench.mlstm_inputs``'s distributions)."""
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+
+    def inputs(B, H, S, dh):
+        q, k, v = (torch.randn(B, H, S, dh, generator=gen, device="cuda")
+                   for _ in range(3))
+        u = torch.rand(B, H, S, generator=gen, device="cuda")
+        lf = torch.log(0.5 + 0.49 * u)
+        li = 0.5 * torch.randn(B, H, S, generator=gen, device="cuda")
+        return q, k, v, lf, li
+
+    rows = {}
+    for B, H, S, dh, chunk in K3_WIDE_SHAPES:
+        x = inputs(B, H, S, dh)
+        name = f"B={B} H={H} S={S} dh={dh} chunk={chunk}"
+        fn = lambda: ml_ops.mlstm_scan(*x, chunk=chunk)      # noqa: E731
+        t = {"max_abs_err": {}, "check": None}
+        types = ((torch.float32, torch.bfloat16, torch.float16) if dh == 1024
+                 else (torch.float32,))
+        for dtype in types:
+            xi = x if dtype == torch.float32 else \
+                [u.to(dtype) for u in x[:3]] + list(x[3:])
+            before = ml_ops.mlstm_scan.launches
+            got = ml_ops.mlstm_scan(*xi, chunk=chunk)
+            if ml_ops.mlstm_scan.launches != before + 1:
+                raise AssertionError(f"mlstm_scan wide {name}: the wrapper did "
+                                     f"not launch the kernel once")
+            want = mlstm_scan_ref(*xi, chunk=chunk)
+            label = f"mlstm_scan wide {name} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                err, t["check"] = _scan_close(label, xi, chunk, got, want)
+            else:
+                err = _assert_close(label, got, want, TOLS[dtype])
+            t["max_abs_err"][str(dtype)[6:]] = err
+            del got, want, xi
+        ws = ml_ops.workspace(B, H, S, dh, chunk, x[0].device)
+        out = torch.empty_like(x[0])
+
+        def run(p, x=x, chunk=chunk, ws=ws, out=out):
+            return lambda: ml_ops._run_sm90(*x, chunk, ws=ws, out=out,
+                                            passes=p)
+        t["ms"] = _time_ms(fn, 5)
+        t["device_ms"] = _device_ms(run(7), 5, 5)
+        t["passes_device_ms"] = {n: _device_ms(run(p), 5, 5) for n, p in
+                                 (("scalars", 1), ("states", 2),
+                                  ("outputs", 4))}
+        _, needed = kernel_bench.mlstm_flops(B, H, S, dh, chunk)
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            kernel_bench.mlstm_bytes(B, H, S, dh), needed, F32_FLOPS_PER_S)
+        t["bound_ms_3xtf32"] = kernel_bench.mlstm_bound_3xtf32(B, H, S, dh,
+                                                               chunk)
+        t["passes_bound_ms_3xtf32"] = kernel_bench.mlstm_pass_bounds_3xtf32(
+            B, H, S, dh, chunk)
+        t.update(ml_ops.clusters(dh, chunk))
+        if previous is not None:
+            _assert_close(f"mlstm_scan wide {name}: this build vs commit "
+                          f"{K3_BASELINE}'s", fn(),
+                          previous(*x, chunk=chunk), F32_TOL,
+                          rtol_of_max=True)
+            for n, p in (("scan", 7), ("outputs", 4)):
+                mine, prev = _in_turns(run(p), lambda p=p: previous(
+                    *x, chunk=chunk, ws=ws, out=out, passes=p))
+                t[f"previous_{n}"] = {
+                    "source_commit": K3_BASELINE, "device_ms": mine,
+                    "previous_device_ms": prev,
+                    "ratio": sum(mine) / sum(prev)}
+        pb = t["passes_bound_ms_3xtf32"]
+        pd = t["passes_device_ms"]
+        prev_s = ("; commit {} in turns: scan {:.4f}, outputs {:.4f}".format(
+            K3_BASELINE, t["previous_scan"]["ratio"],
+            t["previous_outputs"]["ratio"]) if previous is not None else
+            "; commit 774e907's: not measured (no --baseline-src)")
+        print(f"[kernels] mlstm_scan wide {name} f32: {t['ms']:.4f} ms one "
+              f"eager call, device {t['device_ms']:.4f} ms (scalars "
+              f"{pd['scalars']:.4f}, states {pd['states']:.4f} ({pb['states'] / pd['states']:.3f} "
+              f"of its 3xTF32 bound), outputs {pd['outputs']:.4f} "
+              f"({pb['outputs'] / pd['outputs']:.3f})); bound "
+              f"{t['bound_ms_3xtf32']:.4f} ms 3xTF32 "
+              f"({t['bound_ms_3xtf32'] / t['device_ms']:.3f} of it) / "
+              f"{t['bound_ms']:.4f} f32 rate; {t['cluster']} CTAs a cluster, "
+              f"{t['ctas']} a row tile, at most {t['max_active_clusters']} "
+              f"clusters active{prev_s}; max|err| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in t["max_abs_err"].items())
+              + f" ({t['check']})")
+        rows[name] = t
+        del x, ws, out
+        torch.cuda.empty_cache()
+    # the scalar pass at chunk 1024 (chunk_long_kernel), against the scan
+    B, H, S, dh, chunk = 8, 4, 2048, 384, 1024
+    x = inputs(B, H, S, dh)
+    ws = ml_ops.workspace(B, H, S, dh, chunk, x[0].device)
+    out = torch.empty_like(x[0])
+    sc = {p: _device_ms(lambda p=p: ml_ops._run_sm90(
+        *x, chunk, ws=ws, out=out, passes=p), 5, 5) for p in (1, 7)}
+    rows["scalars B=8 H=4 S=2048 dh=384 chunk=1024"] = {
+        "scalars_device_ms": sc[1], "device_ms": sc[7],
+        "share": sc[1] / sc[7]}
+    for name, r in rows.items():
+        if "passes_device_ms" in r:
+            r["scalars_share"] = r["passes_device_ms"]["scalars"] / \
+                r["device_ms"]
+    print(f"[kernels] mlstm_scan scalar pass at chunk 1024 (dh=384): "
+          f"{sc[1]:.4f} of {sc[7]:.4f} ms device ({sc[1] / sc[7]:.3f}); at "
+          f"chunk 512: " + ", ".join(
+              f"{r['scalars_share']:.3f}" for n, r in rows.items()
+              if n.endswith("chunk=512")))
+    del x, ws, out
     return rows
 
 
@@ -1740,7 +1892,7 @@ def phase_mlstm_kernels(baselines):
             rec["previous_sm90"] = _against_previous(
                 f"mlstm_scan layer shape f32 chunk {chunk}", fn,
                 None if old is None else (lambda: old(*x, chunk=chunk)),
-                F32_TOL, rtol_of_max=True)
+                F32_TOL, K3_BASELINE, rtol_of_max=True)
         rec.update({f"max_abs_err{sfx}": err, f"check{sfx}": form,
                     f"ms{sfx}": ms, f"device_ms{sfx}": dev_ms,
                     f"passes_device_ms{sfx}": passes,
@@ -1786,6 +1938,11 @@ def phase_mlstm_kernels(baselines):
         bench[name] = {"ms": _time_ms(fn, 20), "device_ms": _device_ms(fn),
                        "previous_kernel": _k3_previous(baseline, xb, chunk,
                                                        fn())}
+        old = baselines.get("mlstm_scan_sm90")
+        bench[name]["previous_sm90"] = _against_previous(
+            f"mlstm_scan kernel bench {name}", fn,
+            None if old is None else (lambda: old(*xb, chunk=chunk)),
+            F32_TOL, K3_BASELINE, rtol_of_max=True)
         b = bench[name]
         print(f"[kernels] mlstm_scan kernel bench {name}: {b['ms']:.4f} ms "
               f"one eager call, device {b['device_ms']:.4f} ms; earlier "
@@ -1795,7 +1952,9 @@ def phase_mlstm_kernels(baselines):
             print(f"[kernels] note: at {name} the sm90 kernel is slower in "
                   f"device ms than the earlier kernel")
     rec["kernel_bench_shapes"] = bench
-    rec["past_limit_shapes"] = _mlstm_past_limits(rng)
+    old = baselines.get("mlstm_scan_sm90")
+    rec["past_limit_shapes"] = _mlstm_past_limits(rng, old)
+    rec["wide_shapes"] = _mlstm_wide(rng, old)
     return rec
 
 
@@ -4260,7 +4419,8 @@ def main(argv=None):
                          "src/repro_torch/csrc: the CUDA-core mlstm_scan.cu "
                          "(K3), flash_attention.cu (K2's f32 route) and "
                          "paged_attention.cu (K1) and commit 076818b's "
-                         "four *_sm90.cu sources, "
+                         "four *_sm90.cu sources (its K3 is commit "
+                         "774e907's, before the cluster outputs pass), "
                          "each timed beside the kernel that took its place "
                          "(benchmarks_torch/baselines.py)")
     args = ap.parse_args(argv)

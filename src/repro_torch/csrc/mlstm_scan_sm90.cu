@@ -60,10 +60,12 @@
 // (chunk_long_kernel). The states pass needs nothing new: it streams any
 // chunk in slices of 32 keys and tiles any dh, its C workspace B H (S/L -
 // 1) dh dhp floats with dhp = dh rounded up to 128 past 512 (at dh = 1024,
-// S/L = 4, B H = 2: 25 MB). The outputs pass becomes outputs_sliced_kernel:
-// a grid axis of output-column slices (64 nt columns each), and inside a
-// block the chunk's keys in slices of 256 through the same P tile; m_i is
-// known from the scalar pass, so the slices' sums add without a rescale.
+// S/L = 4, B H = 2: 25 MB). The outputs pass becomes outputs_cluster_kernel:
+// a thread-block cluster of up to 8 CTAs per 64 query rows, which split the
+// output columns (512 at most a CTA) and take q.k^T once, each over its own
+// columns, summed in rank order over distributed shared memory; the keys
+// go in slices of 128 through one P tile, and m_i is known from the scalar
+// pass, so the slices' sums add without a rescale (its comment below).
 // Shapes inside both limits keep the kernels above as they were.
 //
 // Passes 2 and 3 stream their operands through shared memory in slices of
@@ -76,7 +78,7 @@
 // three products per k-step into one accumulator over K = dh drift further
 // from float64 than the plain float32 scan; q.k^T, where that drift mattered
 // most, sums each 32-wide slice in fresh accumulators and adds the slice
-// rounded to nearest.
+// rounded to nearest, and so does the cluster pass's q.C_prev past dh 1280.
 //
 // What sets the pace is not the tensor cores: a build that kept one product
 // in three kept most of the time, and deeper pipelines did not help. It is
@@ -118,7 +120,7 @@ struct Args {
   long long sq[3], sk[3], sv[3], sf[3], si[3];  // (batch, head, seq) strides
   int BH, H, S, dh, L, NC;
   int dhp;          // the states' row stride: dh rounded up
-  int n_cs;         // the sliced outputs pass's column slices
+  int ncl, npr;     // the cluster outputs pass: CTAs a cluster, a row tile
   int vec;          // rows of q, k, v may be read 4 elements at a time
   float scale;
   float* F;         // (BH, S) cumsum of lf within each chunk
@@ -828,59 +830,248 @@ __global__ void __launch_bounds__(kThreads3, 1) outputs_kernel(const Args a,
     }
 }
 
-// Pass 3 past one block's reach (chunk > kMaxChunk or dh > kMaxDh): the same
-// arithmetic, in slices. A block owns 64 query rows of one (b, h, chunk)
-// and one slice of DHP = 64 NT output columns (the grid's column slices,
-// n_cs = dh / DHP rounded up); its keys go by in slices of kMaxChunk.
-// Per block: O = q.C_prev over the slice's columns and q.n, both over the
-// full dh in slices of 32 along d (q.n and the row sums are recomputed by
-// every column slice, the same bits in each); then per key slice S = q.k^T
-// over the full dh, P = e^(D - m_i) S into the same P tile as the
-// single-block pass (64 x 256 at most), its row sums added to a running
-// sum, and O += P.V over the slice's columns. m_i comes from the scalar
-// pass, so a key slice needs no running maximum or rescale: the sums add
-// as they are. Shared memory is the single-block pass's at dh = DHP and
-// chunk 256 or less, whatever the chunk and dh. Blocks: x = column slice +
-// n_cs x (the single-block pass's order).
+// ---- pass 3 past one block's reach: thread-block clusters ---------------------
+
+// Every thread of the cluster arrives, then waits: the arrival releases this
+// thread's shared-memory writes to the cluster, the wait acquires the
+// others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The address of the same shared-memory byte in CTA `rank` of the cluster,
+// and 16 bytes read there.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// An A operand (64 rows x K) split once, in fragment order: the four
+// registers a0..a3 of lane l for the 16-row block m and the 8-wide k step s
+// (rows 16 m + l / 4 and + 8, columns 8 s + l % 4 and + 4) lie together, as
+// one float4 at ((m K/8 + s) 32 + l) 4, in a hi and a lo array.
+__device__ __forceinline__ void a_load(const float* hi, const float* lo,
+                                       int idx, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  const float4 h = *reinterpret_cast<const float4*>(hi + idx);
+  const float4 l = *reinterpret_cast<const float4*>(lo + idx);
+  ah[0] = __float_as_uint(h.x);
+  ah[1] = __float_as_uint(h.y);
+  ah[2] = __float_as_uint(h.z);
+  ah[3] = __float_as_uint(h.w);
+  al[0] = __float_as_uint(l.x);
+  al[1] = __float_as_uint(l.y);
+  al[2] = __float_as_uint(l.z);
+  al[3] = __float_as_uint(l.w);
+}
+
+// O += A.B over one stage of KD along the contraction, for the cluster
+// pass: A (64 rows) split once, in fragment order (hi, lo), its k steps s8
+// .. s8 + kn - 1 of k8 (kn <= KD / 8: the rest are zeros of A); B a [k][e]
+// slice of row stride cs, split as it is read.
+// Warp (wm, wn) holds rows 32 wm .. 32 wm + 31 (two m tiles) and the unit
+// tiles wn, wn + 8, ... below u_n of the CTA's columns.
+template <int KD, int NT>
+__device__ __forceinline__ void cluster_products(
+    float (&o)[2][NT][4], const float* Ah, const float* Al, int k8, int s8,
+    const float* X, int cs, int wm, int wn, int lane, int u_n, int kn) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KD / 8; ++kk) {
+    if (kk >= kn) break;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      a_load(Ah, Al, (((2 * wm + m) * k8 + s8 + kk) * 32 + lane) * 4, ah[m],
+             al[m]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int nt = wn + kWarpsN3 * n;
+      if (nt < u_n) {
+        const float* p = X + (8 * kk + t4) * cs + 8 * nt + g;
+        uint32_t bh_[2], bl[2];
+        split(p[0], bh_[0], bl[0]);
+        split(p[4 * cs], bh_[1], bl[1]);
+        mma3(o[0][n], o[1][n], ah, al, bh_, bl);
+      }
+    }
+  }
+}
+
+constexpr int kMaxCluster = 8;      // CTAs a cluster (the portable limit)
+constexpr int kFreshDh = 1280;      // past it a CTA holds 256 columns at most
+constexpr int kFreshNt = 4;         // ... and adds q.C_prev's slices rounded
+constexpr int kKeys = 128;          // keys of a key slice (one P tile)
+constexpr int kSd = 64;             // S jobs: contraction slice per stage
+constexpr int kSl4 = kSd + 4;       // row stride of their [row][slice] tiles
+
+// P.V jobs' keys per stage: the whole key slice where a CTA holds 128
+// columns or fewer, 64 where it holds 256 or fewer, else 32 (what the
+// stages' shared memory holds): narrow heads leave the grid small, and
+// each job's latency then sets the pace.
+__host__ __device__ constexpr int cluster_vd(int nt) {
+  return nt <= 2 ? kKeys : nt <= 4 ? 64 : 32;
+}
+
+// The shared memory of outputs_cluster_kernel<T, NT>, in floats.
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cluster_stage(int nt) {
+  return cmax(cmax(kKs3 * (64 * nt + 8) + kKs3, (kRows + kKeys) * kSl4),
+              cluster_vd(nt) * (64 * nt + 8));
+}
+// q's hi (and lo) in fragment order: a 32-wide slice, or at nt = 1 (dh <=
+// 64) the row tile's whole q, split once for every job
+__host__ __device__ constexpr int cluster_qf(int nt) {
+  return nt == 1 ? kRows * 64 : kRows * kKs3;
+}
+__host__ __device__ constexpr int cluster_floats(int nt) {
+  return kStages3 * cluster_stage(nt) + 2 * cluster_qf(nt) +
+         2 * kRows * kKeys + 4 * kRows + 2 * kKeys + kWarpsN3 * kRows +
+         4 * kRows;
+}
+
+// Pass 3 past one block's reach (chunk > kMaxChunk or dh > kMaxDh): one
+// thread-block cluster of ncl = min(ceil(dh / kMaxDh), 8) CTAs per (b, h,
+// chunk, 64 query rows), past dh kFreshDh min(ceil(dh / 256), 8), the CTAs
+// consecutive in the grid's x.
+//
+// * Columns. dh is cut into 8-column units; the npr CTAs of a row tile (ncl,
+//   or past 8 CTAs groups of 8) take an even share of them each, at most 64
+//   (512 columns), so no CTA computes a column past dh but the last unit's.
+//   The 16 warps are 2 (32 rows each) x 8; column warp wn holds the unit
+//   tiles wn, wn + 8, ... of the CTA's share, NT of them at most (64 NT
+//   columns; NT = 1 only where dh <= 64).
+// * S once per cluster. Rank r takes the partial S = q.k^T over its own
+//   columns of q and k (an even share of dh's units over the ncl ranks), so
+//   k is read once per cluster; the partial builds up in the P tile, and
+//   after a cluster barrier every CTA reads all of them over distributed
+//   shared memory (mapa, ld.shared::cluster) and sums them in rank order 0,
+//   1, ..., ncl - 1: every CTA holds the same bits of S, so of P, its row
+//   sums and the denominator max(|den|, e^-m_i) it divides by. A second
+//   cluster barrier keeps the peers' reads ahead of P overwriting the
+//   partial. Past 8 CTAs each group of 8 takes S anew over all of dh. q.n,
+//   1/dh of q.C's work, is taken over all of dh by every CTA, in the same
+//   order.
+// * Split once, where it pays. For q.C_prev (most of the work) q is read
+//   a slice ahead into registers, scaled and split by the thread that read
+//   it into hi and lo tiles in fragment order (one more barrier a slice),
+//   so a warp loads its A fragments as two float4s and no warp splits q
+//   again; P is split once as it is written, the same way. C, k and v are
+//   split as they are read (by two row warps each). S's jobs take q and k
+//   raw, 64 columns a stage, and split q as they read it: there a second
+//   barrier a stage cost more than the splits. At dh <= 64 (NT = 1) the
+//   row tile's whole q fits: it is split once before the first job, and
+//   S's jobs and q.C's read it there (QO), so S's stages carry k alone.
+// * Accuracy. mma.sync adds with truncation, so one accumulator over all
+//   of dh drifts: at dh = 2048 q.C_prev's sum reached the float32 bar. A
+//   CTA of kFreshNt n tiles or fewer adds each 32-wide slice of q.C_prev
+//   in fresh accumulators, rounded to nearest, and past dh kFreshDh every
+//   CTA is one (256 columns at most).
+// * Zeros. Keys past a warp's last row weigh 0: S and P.V leave out the
+//   key tiles and k steps a warp's 32 rows do not see, and the P.V jobs of
+//   a short last key slice stop at its last key.
+// * Order. The keys in slices of kKeys (a P tile each): key slice 0's S,
+//   the exchange, q.C_prev over the CTA's columns (scaled by e^(F_i + m -
+//   m_i)), key slice 0's P.V; then each later key slice's S, exchange and
+//   P.V. m_i comes from the scalar pass, so the slices add without a
+//   rescale, and O is not live while the first S is taken.
+// * Grid. Chunk 0 (no state) first, so that it runs while the states pass
+//   ends. Up to chunk 256 (four row tiles) by (b, h, chunk), the row tiles
+//   of one chunk together, heaviest first: they read the same C_prev
+//   columns, so mostly from L2. Past it the row tiles' S and P.V work
+//   spreads over more keys, and the heaviest tiles of every chunk go
+//   first, as in outputs_kernel.
+// * Copies. Each stage's (row, 4-float chunk) pairs go over all 512
+//   threads: with a fixed chunk per thread, a narrow CTA left most threads
+//   idle at the barrier while a few issued every copy.
+//
+// What sets its pace (benchmarks_torch/mlstm_variants.py's probes on an
+// H100 at 700 W, B=8, H=4, S=2048): at dh = 1024 q.C_prev's products run
+// at about two clocks per mma.sync, that instruction's rate on the SM, and
+// the work around the products (copies, barriers, q's split, the scalars
+// of P) takes about as long again; the exchange about 1%. Splitting C and
+// v once would save at most what leaving their splits out saves, 6% of the
+// pass at dh = 1024. TF32 wgmma would need C_prev and v K-major and split
+// in shared memory; it is not tried. At dh = 64 the copies, barriers and
+// scalars outweigh the products (about 0.15 of 0.27 ms).
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads3, 1)
-    outputs_sliced_kernel(const Args a, int lp) {
-  constexpr int DHP = 64 * NT;        // this block's output columns
-  constexpr int NTW = DHP / (8 * kWarpsN3);      // output n tiles per warp
-  constexpr int KNT = kMaxChunk / (8 * kWarpsN3);  // key n tiles per warp
-  constexpr int TPR = kThreads3 / kRows;          // q.n: threads per row
-  constexpr int CS = DHP + 8;         // row stride of C and V slices [row][e]
+    outputs_cluster_kernel(const Args a) {
+  constexpr int CS = 64 * NT + 8;     // row stride of C and V slices [row][e]
+  constexpr int VD = cluster_vd(NT);  // keys of a P.V job
+  constexpr int STAGE = cluster_stage(NT);
+  constexpr int QF = cluster_qf(NT);  // q in fragment order
+  constexpr bool QO = NT == 1;        // q split once for the row tile
+  constexpr int PF = kRows * kKeys;   // a P tile in fragment order
   extern __shared__ __align__(16) float sm[];
-  const int PS = lp + 4;              // row stride of P [row][key]
-  const int stage =
-      max(kRows * kSl3 + lp * kSl3, kRows * kSl3 + kKs3 * CS + kKs3);
-  float* Ps = sm + kStages3 * stage;
-  float* Frow = Ps + kRows * PS;      // F_i, m_i, e^(F_i + m - m_i) of the rows
+  float* Qh = sm + kStages3 * STAGE;  // q's hi and lo
+  float* Ql = Qh + QF;
+  float* Ph = Ql + QF;                // P's hi and lo; Ph holds the partial S
+  float* Pl = Ph + PF;
+  float* Frow = Pl + PF;              // F_i, m_i, e^(F_i + m - m_i) of the rows
   float* Mrow = Frow + kRows;
   float* Sfrow = Mrow + kRows;
-  float* Fk = Sfrow + kRows;          // F_j, li_j of the key slice
-  float* lik = Fk + lp;
-  float* denp = lik + lp;             // row sums of P per column warp
-  float* qn_s = denp + kWarpsN3 * kRows;          // q_i.n
+  float* den_s = Sfrow + kRows;       // the rows' max(|den|, e^-m_i)
+  float* Fk = den_s + kRows;          // F_j, li_j of the key slice
+  float* lik = Fk + kKeys;
+  float* denp = lik + kKeys;          // row sums of P per column warp
+  float* qn_s = denp + kWarpsN3 * kRows;         // q_i.n by k step
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3, wm = w & 1, wn = w >> 1;
   const int L = a.L, NC = a.NC, dh = a.dh, dhp = a.dhp;
-  const unsigned xb = blockIdx.x / (unsigned)a.n_cs;
-  const int e0 = (int)(blockIdx.x - xb * (unsigned)a.n_cs) * DHP;
-  // as outputs_kernel: chunk 0 first, then the heaviest row tiles
+  const int ncl = a.ncl, npr = a.npr;
+  const unsigned tile = blockIdx.x / (unsigned)npr;
+  const int gx = (int)(blockIdx.x - tile * (unsigned)npr);  // CTA of the tile
+  const int rank = gx % ncl;           // its rank in the cluster
   const int n_rt = (L + kRows - 1) / kRows, n0 = n_rt * a.BH;
   int it, c, bh;
-  if ((int)xb < n0) {
+  if (n_rt > 4) {                      // past chunk 256: heaviest tiles first
+    if ((int)tile < n0) {
+      c = 0;
+      it = n_rt - 1 - (int)tile / a.BH;
+      bh = (int)tile % a.BH;
+    } else {
+      const int x = (int)tile - n0, per = (NC - 1) * a.BH;
+      it = n_rt - 1 - x / per;
+      c = 1 + (x % per) % (NC - 1);
+      bh = (x % per) / (NC - 1);
+    }
+  } else if ((int)tile < n0) {         // a chunk's row tiles together
     c = 0;
-    it = n_rt - 1 - (int)xb / a.BH;
-    bh = (int)xb % a.BH;
+    it = n_rt - 1 - (int)tile % n_rt;
+    bh = (int)tile / n_rt;
   } else {
-    const int x = (int)xb - n0, per = (NC - 1) * a.BH;
-    it = n_rt - 1 - x / per;
-    c = 1 + (x % per) % (NC - 1);
-    bh = (x % per) / (NC - 1);
+    const int x = (int)tile - n0, y = x / n_rt;
+    it = n_rt - 1 - x % n_rt;
+    c = 1 + y % (NC - 1);
+    bh = y / (NC - 1);
   }
+  const int U = (dh + 7) >> 3;         // 8-column units of dh
+  const int ou = U / npr, orem = U % npr;
+  const int u_n = ou + (gx < orem);    // this CTA's output unit tiles
+  const int e0 = 8 * (gx * ou + min(gx, orem));
+  const int su = U / ncl, srem = U % ncl;       // S: this rank's columns
+  const int sd0 = 8 * (rank * su + min(rank, srem));
+  const int sd1 = min(dh, sd0 + 8 * (su + (rank < srem)));
   const int b = bh / a.H, h = bh % a.H;
   const int i0 = it * kRows, Nv = min(i0 + kRows, L);
   const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
@@ -889,6 +1080,7 @@ __global__ void __launch_bounds__(kThreads3, 1)
   const float* lig = a.li + b * a.si[0] + h * a.si[1];
   const long long s0 = (long long)c * L;               // the chunk's first row
   const long long w0 = (long long)bh * a.S + s0;       // ... in the workspace
+  const long long st = (long long)bh * (NC - 1) + c - 1;  // state (c > 0)
   const float scale = a.scale;
   const bool vec = a.vec;
 
@@ -899,240 +1091,386 @@ __global__ void __launch_bounds__(kThreads3, 1)
     Mrow[tid] = ok ? a.Mi[w0 + i] : 0.f;
     Sfrow[tid] = ok ? a.Sf[w0 + i] : 0.f;
   }
+  for (int e = tid; e < kWarpsN3 * kRows; e += kThreads3) denp[e] = 0.f;
 
-  // jobs: nC1 slices of q and C (and n) over d; then per key slice nd
-  // slices of q and k over d and its V rows, 32 at a time (kMaxChunk / 32
-  // in every key slice but the last)
+  // Jobs, each a stage: nS slices of 64 of q and k over the rank's S
+  // columns (per key slice), nC1 slices of 32 of q and C_prev (and n) over
+  // all of dh, and the key slice's v rows, VD at a time. Order: key slice 0's S jobs, the q.C
+  // jobs, key slice 0's P.V jobs, then each later slice's S and P.V jobs.
+  // A job is (kind, ks, x): kind 0 S (key slice ks, d slice x), 1 q.C (d
+  // slice x), 2 P.V (key slice ks, its keys VD x ...), 3 none.
   const int nd = (dh + kKs3 - 1) / kKs3;
   const int nC1 = c > 0 ? nd : 0;
-  const int n_ks = (Nv + kMaxChunk - 1) / kMaxChunk;
-  const int per_ks = nd + kMaxChunk / kKs3;
-  const int last = Nv - (n_ks - 1) * kMaxChunk;        // keys of the last
-  const int n_jobs = nC1 + (n_ks - 1) * per_ks + nd + (last + kKs3 - 1) / kKs3;
-  const long long st = (long long)bh * (NC - 1) + c - 1;  // state (c > 0)
-
-  auto load_q = [&](float* Qs, int d0) {
-    for (int e = tid; e < kRows * (kKs3 / 4); e += kThreads3) {
-      const int r = e / (kKs3 / 4), ch = e % (kKs3 / 4), i = i0 + r;
-      const bool ok = i < L;
-      load4(Qs + r * kSl3 + 4 * ch, ok ? qg + (s0 + i) * a.sq[2] : qg,
-            d0 + 4 * ch, ok ? dh : 0, vec);
-    }
+  const int nS = (sd1 - sd0 + kSd - 1) / kSd;
+  const int n_ks = (Nv + kKeys - 1) / kKeys;
+  auto n_v = [&](int ks) {
+    return (min(kKeys, Nv - ks * kKeys) + VD - 1) / VD;
   };
-  auto issue = [&](int job) {
-    if (job < n_jobs) {
-      float* Qs = sm + (job % kStages3) * stage;
-      float* Xs = Qs + kRows * kSl3;
-      if (job == 0 && nC1) grid_wait();  // the states pass is done
-      if (job < nC1) {
-        const int d0 = kKs3 * job;
-        load_q(Qs, d0);
-        const float* Cg = a.Cst + st * dh * dhp;
-        for (int e = tid; e < kKs3 * (DHP / 4); e += kThreads3) {
-          const int r = e / (DHP / 4), ch = e % (DHP / 4), d = d0 + r;
-          const int col = e0 + 4 * ch;
-          const bool ok = d < dh && col < dhp;
-          cp16(Xs + r * CS + 4 * ch, ok ? Cg + (long long)d * dhp + col : Cg,
-               ok);
-        }
-        if (tid < kKs3)
-          cp4(Xs + kKs3 * CS + tid, a.nst + st * dhp + d0 + tid, true);
-      } else {
-        const int ks = (job - nC1) / per_ks, jr = (job - nC1) % per_ks;
-        const int j0s = ks * kMaxChunk;
-        const int nks = min(kMaxChunk, Nv - j0s);
-        if (jr < nd) {
-          load_q(Qs, kKs3 * jr);
-          const int nvp = (nks + 63) / 64 * 64;
-          for (int e = tid; e < nvp * (kKs3 / 4); e += kThreads3) {
-            const int r = e / (kKs3 / 4), ch = e % (kKs3 / 4);
-            const bool ok = r < nks;
-            load4(Xs + r * kSl3 + 4 * ch,
-                  ok ? kg + (s0 + j0s + r) * a.sk[2] : kg,
-                  kKs3 * jr + 4 * ch, ok ? dh : 0, vec);
-          }
-        } else {
-          const int j0 = j0s + kKs3 * (jr - nd);
-          for (int e = tid; e < kKs3 * (DHP / 4); e += kThreads3) {
-            const int r = e / (DHP / 4), ch = e % (DHP / 4), j = j0 + r;
-            const bool ok = j < Nv;
-            load4(Xs + r * CS + 4 * ch, ok ? vg + (s0 + j) * a.sv[2] : vg,
-                  e0 + 4 * ch, ok ? dh : 0, vec);
-          }
-        }
+  auto next = [&](int& kind, int& ks, int& x) {   // the job after
+    if (kind == 0) {
+      if (++x < nS) return;
+      kind = ks == 0 && nC1 > 0 ? 1 : 2;
+    } else if (kind == 1) {
+      if (++x < nC1) return;
+      kind = 2;
+    } else {
+      if (++x < n_v(ks)) return;
+      kind = ++ks < n_ks ? 0 : 3;
+    }
+    x = 0;
+  };
+  const int nch = 2 * u_n;             // 4-float chunks of the CTA's columns
+  constexpr int CH = 16 * NT;          // ... at most: the pairs (row, chunk)
+                                       // go over every thread
+  auto issue = [&](int stage, int kind, int ks, int x) {
+    float* X = sm + stage * STAGE;
+    if (kind == 0) {                   // q and k [row][d], the rank's columns
+      const int j0s = ks * kKeys, nks = min(kKeys, Nv - j0s);
+      const int d0 = sd0 + kSd * x;
+      for (int e = tid; e < (QO ? 0 : kRows * (kSd / 4)); e += kThreads3) {
+        const int r = e / (kSd / 4), c4 = e % (kSd / 4);
+        const bool ok = i0 + r < L;
+        load4(X + r * kSl4 + 4 * c4, ok ? qg + (s0 + i0 + r) * a.sq[2] : qg,
+              d0 + 4 * c4, ok ? sd1 : 0, vec);
+      }
+      float* Ks = X + kRows * kSl4;
+      for (int e = tid; e < ((nks + 7) & ~7) * (kSd / 4); e += kThreads3) {
+        const int r = e / (kSd / 4), c4 = e % (kSd / 4);
+        const bool ok = r < nks;
+        load4(Ks + r * kSl4 + 4 * c4,
+              ok ? kg + (s0 + j0s + r) * a.sk[2] : kg, d0 + 4 * c4,
+              ok ? sd1 : 0, vec);
+      }
+    } else if (kind == 1) {            // C_prev [d][e] and n, the CTA's columns
+      if (x == 0) grid_wait();         // the states pass is done
+      const int d0 = kKs3 * x;
+      const float* Cg = a.Cst + st * dh * dhp + e0;
+      for (int e = tid; e < kKs3 * CH; e += kThreads3) {
+        const int r = e / CH, c4 = e % CH;
+        const bool ok = d0 + r < dh;
+        if (c4 < nch)
+          cp16(X + r * CS + 4 * c4,
+               ok ? Cg + (long long)(d0 + r) * dhp + 4 * c4 : Cg, ok);
+      }
+      if (tid < kKs3)
+        cp4(X + kKs3 * CS + tid, a.nst + st * dhp + d0 + tid, true);
+    } else if (kind == 2) {            // v [key][e], the CTA's columns
+      const int j0 = ks * kKeys + VD * x;
+      for (int e = tid; e < VD * CH; e += kThreads3) {
+        const int r = e / CH, c4 = e % CH;
+        const bool ok = j0 + r < Nv;
+        if (c4 < nch)
+          load4(X + r * CS + 4 * c4, ok ? vg + (s0 + j0 + r) * a.sv[2] : vg,
+                e0 + 4 * c4, ok ? dh : 0, vec);
       }
     }
     cp_commit();
   };
+  // This thread's A fragment of a job's q slice (m tile tid / 128, k step
+  // (tid / 32) % 4, lane tid % 32: rows fr, fr + 8, columns fc, fc + 4),
+  // read into registers a job ahead; it goes to Qh and Ql as one float4
+  // each, at float 4 tid.
+  const int fr = 16 * (tid >> 7) + g, fc = 8 * ((tid >> 5) & 3) + t4;
+  float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto fetch_q = [&](int kind, int x) {
+    if (QO || kind != 1) return;
+    const int d0 = kKs3 * x;
+    const bool r0 = i0 + fr < L, r1 = i0 + fr + 8 < L;
+    const bool c0 = d0 + fc < dh, c1 = d0 + fc + 4 < dh;
+    const T* p0 = qg + (s0 + i0 + fr) * a.sq[2] + d0 + fc;
+    const T* p1 = p0 + 8 * a.sq[2];
+    qv = make_float4(r0 && c0 ? to_float(p0[0]) : 0.f,
+                     r1 && c0 ? to_float(p1[0]) : 0.f,
+                     r0 && c1 ? to_float(p0[4]) : 0.f,
+                     r1 && c1 ? to_float(p1[4]) : 0.f);
+  };
 
-  for (int job = 0; job < kStages3 - 1; ++job) issue(job);
-  const int r0 = 32 * wm + g;          // this thread's first fragment row
-  int job = 0;
-
-  // ---- O = q.C_prev over the slice, scaled by e^(F_i + m - m_i); q.n ----
-  float o[2][NTW][4] = {};
-  const int cb = wn * 8 * NTW;         // this warp's first output column
-  float qn = 0.f;
-  for (; job < nC1; ++job) {
-    cp_wait<kStages3 - 2>();
+  // The top of job (kind, ks, x), the job-th: its stage has landed and
+  // every warp is done with the job before; a q.C job's q slice goes to Qh
+  // and Ql, scaled and split once, and adds its part of q.n; the next job
+  // is issued and its q read ahead. Returns the job's stage.
+  float qn0 = 0.f, qn1 = 0.f;          // this thread's part of q.n, rows fr, + 8
+  auto begin = [&](int job, int kind, int ks, int x) {
+    cp_wait<0>();
     __syncthreads();
-    issue(job + kStages3 - 1);
-    const float* Qs = sm + (job % kStages3) * stage;
-    const float* Cs = Qs + kRows * kSl3;
+    const float* X = sm + (job % kStages3) * STAGE;
+    if (kind == 1 && QO) {             // q.n from q's hi + lo (exact)
+      const int f = ((((tid >> 7) * 8 + 4 * x + ((tid >> 5) & 3)) * 32) + lane)
+                    * 4;
+      const float4 h = *reinterpret_cast<const float4*>(Qh + f);
+      const float4 l = *reinterpret_cast<const float4*>(Ql + f);
+      const float e4[4] = {h.x + l.x, h.y + l.y, h.z + l.z, h.w + l.w};
+      const float* ns = X + kKs3 * CS;
+      qn0 = fmaf(e4[2], ns[fc + 4], fmaf(e4[0], ns[fc], qn0));
+      qn1 = fmaf(e4[3], ns[fc + 4], fmaf(e4[1], ns[fc], qn1));
+    } else if (kind == 1) {
+      const float e4[4] = {qv.x * scale, qv.y * scale, qv.z * scale,
+                           qv.w * scale};
+      uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int kk = 0; kk < kKs3; kk += 8) {
-      uint32_t ah[2][4], al[2][4];
-      a_frags(Qs, kSl3, r0, kk, t4, scale, ah, al);
+      for (int e = 0; e < 4; ++e) split(e4[e], hi[e], lo[e]);
+      *reinterpret_cast<uint4*>(Qh + 4 * tid) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(Ql + 4 * tid) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      const float* ns = X + kKs3 * CS;
+      qn0 = fmaf(e4[2], ns[fc + 4], fmaf(e4[0], ns[fc], qn0));
+      qn1 = fmaf(e4[3], ns[fc + 4], fmaf(e4[1], ns[fc], qn1));
+    }
+    int nk = kind, nks = ks, nx = x;
+    next(nk, nks, nx);
+    issue((job + 1) % kStages3, nk, nks, nx);
+    fetch_q(nk, nx);
+    if (kind == 1 && !QO) __syncthreads();   // q's hi and lo are in place
+    return X;
+  };
+
+  // ---- key slice ks: this rank's partial S, summed over the cluster; P ----
+  // Warp (wm, wn) takes rows 32 wm .. 32 wm + 31 and the slice's keys 16 wn
+  // .. 16 wn + 15 (two key tiles); q and k arrive raw, 64 columns a stage,
+  // and are split as they are read (one barrier a stage). Each 32 columns'
+  // sums start fresh and build up in Ph (this lane's 16 floats), which is
+  // free: the slice before read its P there before this slice's first
+  // barrier.
+  auto s_phase = [&](int ks, int& job) {
+    const int j0s = ks * kKeys, nks = min(kKeys, Nv - j0s);
+    for (int j = tid; j < kKeys; j += kThreads3) {
+      const bool ok = j0s + j < Nv;
+      Fk[j] = ok ? a.F[w0 + j0s + j] : 0.f;
+      lik[j] = ok ? lig[(s0 + j0s + j) * a.si[2]] : 0.f;
+    }
+    float* part = Ph + (w * 4 * 32 + lane) * 4;  // (m, n) at + 128 (2 m + n)
+    // the warp's last row as a key of the slice: later keys weigh 0
+    const int last = i0 + 32 * wm + 31 - j0s;
+    for (int x = 0; x < nS; ++x, ++job) {
+      const float* Qs = begin(job, 0, ks, x);     // q [row][d], k [key][d]
+      const float* Ks = Qs + kRows * kSl4;
 #pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-        const float* p = Cs + (kk + t4) * CS + cb + 8 * n + g;
-        uint32_t bh_[2], bl[2];
-        split(p[0], bh_[0], bl[0]);
-        split(p[4 * CS], bh_[1], bl[1]);
-        mma3(o[0][n], o[1][n], ah, al, bh_, bl);
+      for (int hf = 0; hf < kSd / kKs3; ++hf) {
+        float ps[2][2][4] = {};        // these 32 columns' sums, added rounded
+        if (16 * wn < nks && 16 * wn <= last) {
+#pragma unroll
+          for (int kk = 0; kk < kKs3 / 8; ++kk) {
+            const int col = kKs3 * hf + 8 * kk;
+            uint32_t ah[2][4], al[2][4], bh_[2][2], bl[2][2];
+            if constexpr (QO) {        // k step col / 8 of all 64 columns
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                a_load(Qh, Ql, (((2 * wm + m) * 8 + col / 8) * 32 + lane) * 4,
+                       ah[m], al[m]);
+            } else {
+              a_frags(Qs, kSl4, 32 * wm + g, col, t4, scale, ah, al);
+            }
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              const float* p = Ks + (16 * wn + 8 * n + g) * kSl4 + col + t4;
+              split(p[0], bh_[n][0], bl[n][0]);
+              split(p[4], bh_[n][1], bl[n][1]);
+            }
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              if (16 * wn + 8 * n < nks && 16 * wn + 8 * n <= last)
+                mma3(ps[0][n], ps[1][n], ah, al, bh_[n], bl[n]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            float4* q4 = reinterpret_cast<float4*>(part + (2 * m + n) * 128);
+            float4 v = x == 0 && hf == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                         : *q4;
+            v.x += ps[m][n][0];
+            v.y += ps[m][n][1];
+            v.z += ps[m][n][2];
+            v.w += ps[m][n][3];
+            *q4 = v;
+          }
       }
     }
-    constexpr int QN = kKs3 / TPR;     // columns of the slice per thread
-    const float* ns = Cs + kKs3 * CS + QN * (tid % TPR);
-    const float* qr = Qs + (tid / TPR) * kSl3 + QN * (tid % TPR);
+    if (ncl > 1) {
+      cluster_arrive();
+      cluster_wait();                  // every rank's partial is written
+    }
+    float S[2][2][4] = {};
+    const uint32_t src = smem_u32(part);
+    for (int r = 0; r < ncl; ++r) {    // in rank order, in every CTA
+      const uint32_t at = mapa(src, (uint32_t)r);
 #pragma unroll
-    for (int e = 0; e < QN; ++e) qn = fmaf(qr[e] * scale, ns[e], qn);
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float4 v = ld_cluster4(at + (2 * m + n) * 128 * 4);
+          S[m][n][0] += v.x;
+          S[m][n][1] += v.y;
+          S[m][n][2] += v.z;
+          S[m][n][3] += v.w;
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int il = 32 * wm + 16 * m + g + 8 * hh, i = i0 + il;
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = 16 * wn + 8 * n + 2 * t4 + e;
+            const float pv =
+                (j0s + jl <= i && i < L)
+                    ? expf(((Frow[il] - Fk[jl]) + lik[jl]) - Mrow[il]) *
+                          S[m][n][2 * hh + e]
+                    : 0.f;
+            S[m][n][2 * hh + e] = pv;
+            rs += pv;
+          }
+        rs += __shfl_xor_sync(kFull, rs, 1);
+        rs += __shfl_xor_sync(kFull, rs, 2);
+        if (t4 == 0) denp[wn * kRows + il] += rs;
+      }
+    if (ncl > 1) {
+      cluster_arrive();
+      cluster_wait();                  // no peer reads this CTA's partial now
+    } else {
+      __syncthreads();                 // no warp reads its partial now
+    }
+    // P to fragment order: lane (g, t4) holds keys 2 t4, 2 t4 + 1 of rows
+    // g and g + 8; its A fragment wants keys t4 and t4 + 4, which lanes
+    // (g, t4 / 2) and (g, t4 / 2 + 2) hold. Four shuffles of each parity,
+    // then one float4 of hi and one of lo.
+    const int src0 = (g << 2) | (t4 >> 1), src1 = src0 + 2, odd = t4 & 1;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float f[4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float e0 = __shfl_sync(kFull, S[m][n][2 * hh], src0);
+          const float e1 = __shfl_sync(kFull, S[m][n][2 * hh + 1], src0);
+          const float e2 = __shfl_sync(kFull, S[m][n][2 * hh], src1);
+          const float e3 = __shfl_sync(kFull, S[m][n][2 * hh + 1], src1);
+          f[hh] = odd ? e1 : e0;       // key t4, row g + 8 hh
+          f[hh + 2] = odd ? e3 : e2;   // key t4 + 4
+        }
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split(f[r], hi[r], lo[r]);
+        const int idx =
+            (((2 * wm + m) * (kKeys / 8) + 2 * wn + n) * 32 + lane) * 4;
+        *reinterpret_cast<uint4*>(Ph + idx) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(Pl + idx) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+  };
+
+  issue(0, 0, 0, 0);
+  if constexpr (QO) {                  // q scaled and split once (dh <= 64):
+    for (int f = tid; f < 4 * 8 * 32; f += kThreads3) {  // m tile, k step, lane
+      const int r = 16 * (f >> 8) + ((f & 31) >> 2);
+      const int d = 8 * ((f >> 5) & 7) + (f & 3);
+      const T* p0 = qg + (s0 + i0 + r) * a.sq[2];
+      const T* p1 = p0 + 8 * a.sq[2];
+      const bool r0 = i0 + r < L, r1 = i0 + r + 8 < L;
+      const bool c0 = d < dh, c1 = d + 4 < dh;
+      const float e4[4] = {r0 && c0 ? to_float(p0[d]) * scale : 0.f,
+                           r1 && c0 ? to_float(p1[d]) * scale : 0.f,
+                           r0 && c1 ? to_float(p0[d + 4]) * scale : 0.f,
+                           r1 && c1 ? to_float(p1[d + 4]) * scale : 0.f};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(e4[e], hi[e], lo[e]);
+      *reinterpret_cast<uint4*>(Qh + 4 * f) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(Ql + 4 * f) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }                                  // (the first job's barrier orders it)
   }
+  int job = 0;
+  s_phase(0, job);
+  // ---- O = q.C_prev over the CTA's columns, scaled by e^(F_i + m - m_i) ----
+  float o[2][NT][4] = {};              // this warp's output tiles
+  // one 32-wide slice of d; where a warp holds kFreshNt n tiles or fewer
+  // (every CTA past dh kFreshDh) in fresh accumulators, added rounded, so
+  // that the sum over dh does not drift with the accumulators' truncation
+  auto qc_products = [&](const float* X, int x) {
+    if constexpr (NT <= kFreshNt) {
+      float f[2][NT][4] = {};
+      cluster_products<kKs3>(f, Qh, Ql, QO ? 8 : kKs3 / 8, QO ? 4 * x : 0, X,
+                             CS, wm, wn, lane, u_n, kKs3 / 8);
 #pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    qn += __shfl_xor_sync(kFull, qn, off);
-  if (tid % TPR == 0) qn_s[tid / TPR] = qn;
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[m][n][e] += f[m][n][e];
+    } else {
+      cluster_products<kKs3>(o, Qh, Ql, kKs3 / 8, 0, X, CS, wm, wn, lane,
+                             u_n, kKs3 / 8);
+    }
+  };
+  for (int x = 0; x < nC1; ++x, ++job) qc_products(begin(job, 1, 0, x), x);
   if (nC1) {
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const float sf = Sfrow[r0 + 16 * m + 8 * hh];
+        const float sf = Sfrow[32 * wm + 16 * m + g + 8 * hh];
 #pragma unroll
-        for (int n = 0; n < NTW; ++n) {
+        for (int n = 0; n < NT; ++n) {
           o[m][n][2 * hh] *= sf;
           o[m][n][2 * hh + 1] *= sf;
         }
       }
   }
-
-  float rs[2][2] = {};                 // the rows' sums of P, all slices
+  // ---- O += P.V, key slice by key slice ------------------------------------
+  // Keys past the warp's last row, or past the chunk, weigh 0: their k
+  // steps are left out (kn).
+  const int seen = min(Nv, i0 + 32 * wm + 32);   // the keys the warp sees
   for (int ks = 0; ks < n_ks; ++ks) {
-    const int j0s = ks * kMaxChunk, nks = min(kMaxChunk, Nv - j0s);
-    const int nvp = (nks + 63) / 64 * 64;
-    const int nkt = nvp / (8 * kWarpsN3);          // key n tiles per warp
-    const int kb = wn * 8 * nkt;                   // this warp's first key
-    // the key slice's F_j and li_j (their last readers, the previous
-    // slice's P, are behind the barriers of its P.V jobs)
-    for (int j = tid; j < nvp; j += kThreads3) {
-      const bool ok = j < nks;
-      Fk[j] = ok ? a.F[w0 + j0s + j] : 0.f;
-      lik[j] = ok ? lig[(s0 + j0s + j) * a.si[2]] : 0.f;
-    }
-    // ---- S = q.k^T over the slice's keys, then P and its row sums -------
-    float sacc[2][KNT][4] = {};
-    for (int q = 0; q < nd; ++q, ++job) {
-      cp_wait<kStages3 - 2>();
-      __syncthreads();
-      issue(job + kStages3 - 1);
-      const float* Qs = sm + (job % kStages3) * stage;
-      const float* Ks = Qs + kRows * kSl3;
-      float ps[2][KNT][4] = {};        // this slice's sums, added rounded
-#pragma unroll
-      for (int kk = 0; kk < kKs3; kk += 8) {
-        uint32_t ah[2][4], al[2][4];
-        a_frags(Qs, kSl3, r0, kk, t4, scale, ah, al);
-#pragma unroll
-        for (int n = 0; n < KNT; ++n) {
-          if (n < nkt) {
-            const float* p = Ks + (kb + 8 * n + g) * kSl3 + kk + t4;
-            uint32_t bh_[2], bl[2];
-            split(p[0], bh_[0], bl[0]);
-            split(p[4], bh_[1], bl[1]);
-            mma3(ps[0][n], ps[1][n], ah, al, bh_, bl);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < KNT; ++n)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) sacc[m][n][r] += ps[m][n][r];
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < KNT; ++n) {
-        if (n >= nkt) continue;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int il = r0 + 16 * m + 8 * hh, i = i0 + il;
-          const int jl = kb + 8 * n + 2 * t4;
-          float p[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = jl + e;
-            p[e] = (j0s + j <= i && i < L)
-                       ? expf(((Frow[il] - Fk[j]) + lik[j]) - Mrow[il]) *
-                             sacc[m][n][2 * hh + e]
-                       : 0.f;
-            rs[m][hh] += p[e];
-          }
-          *reinterpret_cast<float2*>(Ps + il * PS + jl) =
-              make_float2(p[0], p[1]);
-        }
-      }
-    // ---- O += P.V over the slice's columns ------------------------------
-    const int nV = (nks + kKs3 - 1) / kKs3;
-    for (int v = 0; v < nV; ++v, ++job) {
-      cp_wait<kStages3 - 2>();
-      __syncthreads();
-      issue(job + kStages3 - 1);
-      const float* Vs = sm + (job % kStages3) * stage + kRows * kSl3;
-#pragma unroll
-      for (int kk = 0; kk < kKs3; kk += 8) {
-        uint32_t ah[2][4], al[2][4];
-        a_frags(Ps, PS, r0, kKs3 * v + kk, t4, 1.f, ah, al);
-#pragma unroll
-        for (int n = 0; n < NTW; ++n) {
-          const float* p = Vs + (kk + t4) * CS + cb + 8 * n + g;
-          uint32_t bh_[2], bl[2];
-          split(p[0], bh_[0], bl[0]);
-          split(p[4 * CS], bh_[1], bl[1]);
-          mma3(o[0][n], o[1][n], ah, al, bh_, bl);
-        }
-      }
+    if (ks > 0) s_phase(ks, job);
+    for (int x = 0; x < n_v(ks); ++x, ++job) {
+      const int kn = min(VD / 8, (seen - ks * kKeys - VD * x + 7) >> 3);
+      cluster_products<VD>(o, Ph, Pl, kKeys / 8, x * (VD / 8),
+                           begin(job, 2, ks, x), CS, wm, wn, lane, u_n, kn);
     }
   }
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float x = rs[m][hh];
-      x += __shfl_xor_sync(kFull, x, 1);
-      x += __shfl_xor_sync(kFull, x, 2);
-      if (t4 == 0) denp[wn * kRows + r0 + 16 * m + 8 * hh] = x;
-    }
-  __syncthreads();                     // denp and qn_s from every warp
 
-  // ---- h = O / max(|den|, e^-m_i) -----------------------------------------
+  // ---- h = O / max(|den|, e^-m_i) ------------------------------------------
+  qn0 += __shfl_xor_sync(kFull, qn0, 1);
+  qn0 += __shfl_xor_sync(kFull, qn0, 2);
+  qn1 += __shfl_xor_sync(kFull, qn1, 1);
+  qn1 += __shfl_xor_sync(kFull, qn1, 2);
+  if (t4 == 0) {                       // k step (tid / 32) % 4's part of q.n
+    qn_s[((tid >> 5) & 3) * kRows + fr] = qn0;
+    qn_s[((tid >> 5) & 3) * kRows + fr + 8] = qn1;
+  }
+  __syncthreads();                     // denp and qn_s from every warp
+  if (tid < kRows) {
+    float den = 0.f;
+    for (int x = 0; x < kWarpsN3; ++x) den += denp[x * kRows + tid];
+    const float qn = ((qn_s[tid] + qn_s[kRows + tid]) + qn_s[2 * kRows + tid])
+                     + qn_s[3 * kRows + tid];
+    den += qn * Sfrow[tid];
+    den_s[tid] = fmaxf(fabsf(den), expf(-Mrow[tid]));
+  }
+  __syncthreads();
   T* og = static_cast<T*>(a.o) + ((long long)bh * a.S + s0) * dh + e0;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int il = r0 + 16 * m + 8 * hh, i = i0 + il;
+      const int il = 32 * wm + 16 * m + g + 8 * hh, i = i0 + il;
       if (i >= L) continue;
-      float den = 0.f;
-#pragma unroll
-      for (int x = 0; x < kWarpsN3; ++x) den += denp[x * kRows + il];
-      den += qn_s[il] * Sfrow[il];
-      const float lim = fmaxf(fabsf(den), expf(-Mrow[il]));
+      const float lim = den_s[il];
       T* orow = og + (long long)i * dh;
 #pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-        const int e = cb + 8 * n + 2 * t4;
+      for (int n = 0; n < NT; ++n) {
+        const int nt = wn + kWarpsN3 * n, e = 8 * nt + 2 * t4;
+        if (nt >= u_n) continue;
         if (e0 + e < dh) store(orow + e, o[m][n][2 * hh] / lim);
         if (e0 + e + 1 < dh) store(orow + e + 1, o[m][n][2 * hh + 1] / lim);
       }
@@ -1178,12 +1516,13 @@ cudaError_t launch(K kernel, unsigned blocks, int threads, int smem,
 }
 
 // The tiling of a shape (ops.plan): `nt` the outputs pass's n tiles per
-// warp (its block holds 64 nt columns), `dhp` the states' row stride, `bn`
-// the states block's columns, `lp` the keys of a P tile, `n_cs` the outputs
-// pass's column slices, `sliced` whether the outputs pass is the sliced one
-// (chunk > kMaxChunk or dh > kMaxDh).
+// warp (the in-limit block holds 64 nt columns, a cluster CTA at most 64
+// nt), `dhp` the states' row stride, `bn` the states block's columns, `lp`
+// the keys of a P tile, `sliced` whether the outputs pass is the cluster one
+// (chunk > kMaxChunk or dh > kMaxDh), and there `ncl` the CTAs a cluster
+// and `npr` the CTAs a row tile (ncl, or groups of kMaxCluster).
 struct Plan {
-  int nt, dhp, bn, lp, n_cs;
+  int nt, dhp, bn, lp, ncl, npr;
   bool sliced;
 };
 
@@ -1196,11 +1535,66 @@ Plan make_plan(int dh, int chunk) {
     if (64 * n >= dh) least = n;
   p.dhp = dh > kMaxDh ? (dh + 127) / 128 * 128 : 64 * least;
   p.bn = p.dhp == 384 ? 96 : p.dhp >= 256 ? 128 : 64;
-  p.nt = !p.sliced ? least : dh <= 64 ? 1 : dh <= 256 ? 4 : 8;
-  p.n_cs = (dh + 64 * p.nt - 1) / (64 * p.nt);
-  const int keys = (chunk + 63) / 64 * 64;
-  p.lp = keys < kMaxChunk ? keys : kMaxChunk;
+  p.ncl = p.npr = 1;
+  p.nt = least;
+  p.lp = (chunk + 63) / 64 * 64 < kMaxChunk ? (chunk + 63) / 64 * 64
+                                            : kMaxChunk;
+  if (p.sliced) {
+    const int most = dh > kFreshDh ? 64 * kFreshNt : kMaxDh;  // columns
+    const int ctas = (dh + most - 1) / most;
+    p.ncl = ctas < kMaxCluster ? ctas : kMaxCluster;
+    p.npr = (ctas + p.ncl - 1) / p.ncl * p.ncl;
+    const int units = (dh + 7) / 8, share = (units + p.npr - 1) / p.npr;
+    const int tiles8 = (share + kWarpsN3 - 1) / kWarpsN3;  // a column warp's
+    p.nt = tiles8 == 1 ? 1 : (tiles8 + 1) / 2 * 2;   // 1 (dh <= 64), 2 .. 8
+    p.lp = kKeys;
+  }
   return p;
+}
+
+int cluster_smem_bytes(int nt) { return 4 * cluster_floats(nt); }
+
+// The cluster outputs pass's kernel for n tiles per warp `nt`.
+template <typename T>
+void (*cluster_kernel(int nt))(Args) {
+  return nt == 1 ? outputs_cluster_kernel<T, 1>
+         : nt == 2 ? outputs_cluster_kernel<T, 2>
+         : nt == 4 ? outputs_cluster_kernel<T, 4>
+         : nt == 6 ? outputs_cluster_kernel<T, 6>
+                   : outputs_cluster_kernel<T, 8>;
+}
+
+// A launch of the cluster outputs pass over `blocks` CTAs in clusters of
+// ncl along x, a programmatic dependent launch where after_previous; with
+// max_active, no launch: the most such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters).
+template <typename T>
+cudaError_t launch_cluster(const Args& a, int nt, unsigned blocks,
+                           cudaStream_t s, bool after_previous,
+                           int* max_active = nullptr) {
+  void (*kernel)(Args) = cluster_kernel<T>(nt);
+  const int smem = cluster_smem_bytes(nt);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads3);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = after_previous ? 2 : 1;
+  if (max_active)
+    return cudaOccupancyMaxActiveClusters(max_active, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
@@ -1227,11 +1621,8 @@ cudaError_t run(const Args& a, const Plan& pl, int smem2, int smem3,
   }
   if ((passes & 4) && pl.sliced) {
     const unsigned blocks =
-        (unsigned)((a.L + kRows - 1) / kRows) * a.NC * a.BH * pl.n_cs;
-    auto k = nt == 1 ? outputs_sliced_kernel<T, 1>
-             : nt == 4 ? outputs_sliced_kernel<T, 4>
-                       : outputs_sliced_kernel<T, 8>;
-    err = launch(k, blocks, kThreads3, smem3, s, a, lp, states);
+        (unsigned)((a.L + kRows - 1) / kRows) * a.NC * a.BH * pl.npr;
+    err = launch_cluster<T>(a, nt, blocks, s, states);
   } else if (passes & 4) {
     const unsigned blocks =
         (unsigned)((a.L + kRows - 1) / kRows) * a.NC * a.BH;
@@ -1255,19 +1646,16 @@ bool aligned(const void* p, long long n) {
 // and v is contiguous); out is a contiguous (B, H, S, dh) tensor. lf and li
 // are float32; dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and
 // out). The float32 workspace: scal (4, B*H, S), chunks (3, B*H, S/chunk +
-// 1), and where S/chunk > 1 nst (B*H, S/chunk - 1, 64 nt) and cst (B*H, S/chunk - 1, dh,
-// 64 nt). The plan (nt: output n tiles per warp, the least of 1, 2, 4, 6, 8
-// with 64 nt >= dh; bn: state columns per block, 128 where 64 nt is a
-// multiple of 128 from 256 up, else 64; smem2, smem3: the dynamic shared
+// 1), and where S/chunk > 1 nst (B*H, S/chunk - 1, dhp) and cst (B*H,
+// S/chunk - 1, dh, dhp). The plan (make_plan: nt, the outputs pass's n tiles
+// per warp; bn, the states block's columns; smem2, smem3: the dynamic shared
 // memory of passes 2 and 3) comes from ops.plan and is checked here. passes:
 // a mask of the passes to run (1 scalars, 2 states, 4 outputs; 7 for the
 // function). scale is dh^-1/2. Launches on `stream` of `device` and returns
 // the CUDA error (0 when every launch was accepted); shapes and plans it
 // does not take return cudaErrorInvalidValue without launching. Past chunk
-// 256 or dh 512 (make_plan's `sliced`) the plan's nt is 1, 4 or 8 (dh <=
-// 64, <= 256, above), the states' stride dh rounded up to 128 past dh 512,
-// and the outputs pass runs in dh / (64 nt) column slices; any chunk that
-// divides S and any dh, up to 2^31 - 1 blocks a pass.
+// 256 or dh 512 (make_plan's `sliced`) the outputs pass runs in clusters;
+// any chunk that divides S and any dh, up to 2^31 - 1 blocks a pass.
 extern "C" int mlstm_scan_sm90_launch(
     const void* q, const void* k, const void* v, const void* lf,
     const void* li, void* out, const long long* strides, float* scal,
@@ -1281,8 +1669,10 @@ extern "C" int mlstm_scan_sm90_launch(
   const Plan pl = make_plan(dh, chunk);
   const long long dt = pl.dhp / kDT, bh = (long long)B * H;
   if (nt != pl.nt || bn != pl.bn || smem2 != states_smem_bytes(bn) ||
-      smem3 != outputs_smem_bytes(64 * pl.nt, pl.lp) || smem3 > 232448 ||
-      (long long)((chunk + 63) / 64) * (S / chunk) * bh * pl.n_cs >
+      smem3 != (pl.sliced ? cluster_smem_bytes(pl.nt)
+                          : outputs_smem_bytes(64 * pl.nt, pl.lp)) ||
+      smem3 > 232448 ||
+      (long long)((chunk + 63) / 64) * (S / chunk) * bh * pl.npr >
           0x7fffffffLL ||
       dt * (pl.dhp / pl.bn) * bh > 0x7fffffffLL ||
       (long long)(S / chunk) * bh > 0x7fffffffLL ||
@@ -1316,7 +1706,8 @@ extern "C" int mlstm_scan_sm90_launch(
   a.L = chunk;
   a.NC = S / chunk;
   a.dhp = pl.dhp;
-  a.n_cs = pl.n_cs;
+  a.ncl = pl.ncl;
+  a.npr = pl.npr;
   a.vec = vec;
   a.scale = scale;
   const long long n = (long long)B * H * S;
@@ -1338,4 +1729,24 @@ extern "C" int mlstm_scan_sm90_launch(
   else
     err = run<__half>(a, pl, smem2, smem3, passes, s);
   return (int)err;
+}
+
+// The cluster outputs pass at (dh, chunk) past one block's reach, float32
+// instance, on `device`: the CTAs a cluster, the CTAs a row tile, the n
+// tiles per warp, and the most such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters). Returns the CUDA error.
+extern "C" int mlstm_scan_sm90_clusters(int dh, int chunk, int device,
+                                        int* cluster, int* ctas, int* nt,
+                                        int* max_active) {
+  const Plan pl = make_plan(dh, chunk);
+  if (dh <= 0 || chunk <= 0 || !pl.sliced) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  *cluster = pl.ncl;
+  *ctas = pl.npr;
+  *nt = pl.nt;
+  Args a = {};
+  a.ncl = pl.ncl;
+  return (int)launch_cluster<float>(a, pl.nt, (unsigned)pl.ncl, 0, false,
+                                    max_active);
 }

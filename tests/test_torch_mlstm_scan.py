@@ -2,9 +2,10 @@
 against the JAX Pallas kernel (interpret mode) and its oracle; the
 wrapper's refusals; a plain emulation of the sm90 kernel's arithmetic
 (``_sm90_emulate``: the scalar pass, the chunk-local states and their
-combine, the output pass, 3xTF32 products) against both, and the kernel's
-tiling (``ops.plan``). The CUDA kernel is held against the plain version on
-the card by chip_smoke.py."""
+combine, the output pass and its cluster form past chunk 256 or dh 512,
+3xTF32 products) against both, the kernel's tiling (``ops.plan``) and
+``benchmarks_torch/mlstm_variants.py``'s edits. The CUDA kernel is held
+against the plain version on the card by chip_smoke.py."""
 import re
 
 import pytest
@@ -202,15 +203,40 @@ def test_kernel_bench_3xtf32_bound_at_the_layer_shape():
 
 # ---- the sm90 kernel's arithmetic, in plain PyTorch -------------------------
 
-def _sm90_emulate(q, k, v, lf, li, chunk, keys=None, cols=None):
+def _rank_sum(parts):
+    """The partials summed in the order given, as a CTA of the cluster pass
+    adds the ranks' partial S it reads: ((p0 + p1) + p2) + ..."""
+    total = torch.zeros_like(parts[0])
+    for part in parts:
+        total = total + part
+    return total
+
+
+def _cluster_scores(qs, kc, cluster, rotated=False):
+    """S = q.k^T as each of the ``cluster`` CTAs of the cluster pass holds
+    it: rank r's partial over its own columns (``ops.cluster_columns``),
+    the partials summed in rank order 0, 1, ... by every CTA (or, with
+    ``rotated``, from the CTA's own partial on, as a CTA that began with
+    what it had would sum them). One S per CTA."""
+    parts = [mm3(qs[..., a:b], kc[..., a:b].transpose(-1, -2))
+             for a, b in ops.cluster_columns(qs.shape[-1], cluster)]
+    return [_rank_sum(parts[r:] + parts[:r] if rotated else parts)
+            for r in range(cluster)]
+
+
+def _sm90_emulate(q, k, v, lf, li, chunk, keys=None, ctas=None,
+                  cluster=None):
     """What csrc/mlstm_scan_sm90.cu computes, pass by pass. Returns h in q's
     dtype and the scalars (m entering each chunk, the row stabilizers m_i
-    and the rows' intra-chunk maxima). With ``keys`` and ``cols`` the
-    outputs pass is the sliced one (outputs_sliced_kernel): per slice of
-    ``cols`` output columns, q.C_prev over those columns, then the chunk's
-    keys in slices of ``keys``, each S = q.k^T over the full dh, P with the
-    scalar pass's m_i (no rescale), its row sums added to a running sum and
-    P.V over the columns."""
+    and the rows' intra-chunk maxima). With ``keys``, ``ctas`` and
+    ``cluster`` the outputs pass is the cluster one
+    (outputs_cluster_kernel): the ``ctas`` CTAs of a row tile split the
+    output columns (``ops.cluster_columns``); the chunk's keys go in slices
+    of ``keys``, each S the rank-order sum of the ``cluster`` ranks'
+    partials over their own columns of q and k (``_cluster_scores``; every
+    group of ``cluster`` CTAs takes the same S), P with the scalar pass's
+    m_i (no rescale), its row sums added over the key slices; q.n over all
+    of dh in every CTA; q.C_prev and P.V over each CTA's columns."""
     B, H, S, dh = q.shape
     L, nc = chunk, S // chunk
     qs = (q.float() * dh ** -0.5).reshape(B, H, nc, L, dh)
@@ -257,20 +283,21 @@ def _sm90_emulate(q, k, v, lf, li, chunk, keys=None, cols=None):
             O = mm3(qs[:, :, c], Cs[c]) * Sf[:, :, c, :, None] \
                 + mm3(P, vc[:, :, c])
         else:
-            den = torch.zeros(B, H, L)
+            cols = [slice(a, b) for a, b in ops.cluster_columns(dh, ctas)]
             O = torch.zeros(B, H, L, dh)
-            for e0 in range(0, dh, cols):
-                ce = slice(e0, min(dh, e0 + cols))
-                Oc = mm3(qs[:, :, c], Cs[c][..., ce]) * Sf[:, :, c, :, None]
-                dc = torch.zeros(B, H, L)
-                for j0 in range(0, L, keys):
-                    kj = slice(j0, min(L, j0 + keys))
-                    P = w[..., kj] * mm3(qs[:, :, c],
-                                         kc[:, :, c, kj].transpose(-1, -2))
-                    dc = dc + P.sum(-1)
-                    Oc = Oc + mm3(P, vc[:, :, c, kj, ce])
-                O[..., ce] = Oc
-                den = dc + qn          # the same in every column slice
+            for ce in cols:
+                O[..., ce] = mm3(qs[:, :, c], Cs[c][..., ce]) \
+                    * Sf[:, :, c, :, None]
+            den = torch.zeros(B, H, L)
+            for j0 in range(0, L, keys):
+                kj = slice(j0, min(L, j0 + keys))
+                S_ = _cluster_scores(qs[:, :, c], kc[:, :, c, kj],
+                                     cluster)[0]
+                P = w[..., kj] * S_
+                den = den + P.sum(-1)
+                for ce in cols:
+                    O[..., ce] = O[..., ce] + mm3(P, vc[:, :, c, kj, ce])
+            den = den + qn
         hs.append(O / torch.maximum(den.abs(), torch.exp(-Mi[:, :, c]))
                   [..., None])
     h = torch.stack(hs, 2).reshape(B, H, S, dh).to(q.dtype)
@@ -408,15 +435,18 @@ def test_workspace_shapes_and_the_cpu_route():
 
 def test_wrapper_refuses_past_the_kernels_limits():
     """Past the old limits (chunk 257, dh 513) the wrapper's checks pass and
-    the plan takes the sliced routes, the states' stride rounded up to 128
-    and one column slice per 512 columns; the CPU path computes the shape;
-    a device with no kernel still raises."""
+    the plan takes the cluster route, the states' stride rounded up to 128
+    and one CTA per 512 columns (264 and 249 columns here, 33 and 32
+    units), the keys in slices of 128; the CPU path computes the shape; a
+    device with no kernel still raises."""
     p = ops.plan(514, ops.BLOCK_DH + 1, 257)
-    assert p["sliced"] and (p["nt"], p["dhp"], p["bn"]) == (8, 640, 128)
-    assert (p["col_slices"], p["key_slices"], p["lp"]) == (2, 2, 256)
+    assert p["sliced"] and (p["nt"], p["dhp"], p["bn"]) == (6, 640, 128)
+    assert (p["cluster"], p["ctas"], p["cols"], p["padded"]) == (2, 2, 264, 7)
+    assert (p["key_slices"], p["lp"]) == (3, ops.CLUSTER_KEYS)
+    assert ops.cluster_columns(513, 2) == [(0, 264), (264, 513)]
     p = ops.plan(514, 8, 257)
     assert p["sliced"] and (p["nt"], p["dhp"], p["bn"]) == (1, 64, 64)
-    assert (p["col_slices"], p["key_slices"]) == (1, 2)
+    assert (p["cluster"], p["ctas"], p["key_slices"]) == (1, 1, 3)
     gates = torch.zeros(1, 1, 514)
     long = torch.zeros(1, 1, 514, 8)
     assert ops.mlstm_scan(long, long, long, gates, gates,
@@ -430,22 +460,28 @@ def test_wrapper_refuses_past_the_kernels_limits():
 
 
 SLICED_CASES = [
-    # B, H, nc, dh, chunk, keys, cols, dtype
-    (1, 2, 2, 16, 64, 16, 8, "float32"),      # 4 key slices, 2 col slices
-    (1, 1, 1, 40, 48, 16, 16, "float32"),     # ragged slices, one chunk
-    (2, 1, 3, 24, 32, 8, 16, "float32"),
-    (1, 2, 2, 32, 64, 32, 32, "bfloat16"),
-    (1, 1, 2, 16, 48, 16, 8, "float16"),
+    # B, H, nc, dh, chunk, keys, ctas, cluster, dtype
+    (1, 2, 2, 16, 64, 16, 2, 2, "float32"),    # 4 key slices, 2 CTAs of 8
+    (1, 1, 1, 40, 48, 16, 3, 3, "float32"),    # ragged: 16, 16, 8; one chunk
+    (2, 1, 3, 24, 32, 8, 3, 3, "float32"),
+    (1, 2, 2, 40, 32, 16, 5, 5, "float32"),    # five ranks of 8 columns
+    (1, 2, 2, 32, 64, 32, 4, 2, "bfloat16"),   # two groups of 2 take S anew
+    (1, 1, 2, 16, 48, 16, 2, 2, "float16"),
+    (1, 2, 2, 24, 48, 32, 3, 3, "float16"),    # ragged key slices
 ]
 
 
-@pytest.mark.parametrize("B,H,nc,dh,chunk,keys,cols,dtype", SLICED_CASES)
+@pytest.mark.parametrize("B,H,nc,dh,chunk,keys,ctas,cluster,dtype",
+                         SLICED_CASES)
 def test_sm90_sliced_outputs_match_the_pallas_kernel(B, H, nc, dh, chunk,
-                                                     keys, cols, dtype):
-    """The sliced outputs pass (column slices of ``cols``, key slices of
-    ``keys``, as the card's kernel runs past chunk 256 or dh 512) against
-    the Pallas kernel in interpret mode and the single-block emulation, at
-    slice widths of 8-32 so that dh and chunk <= 64 take several slices."""
+                                                     keys, ctas, cluster,
+                                                     dtype):
+    """The cluster outputs pass (``ctas`` CTAs splitting the output
+    columns, S the rank-order sum of ``cluster`` ranks' partials, key
+    slices of ``keys``, as the card's kernel runs past chunk 256 or dh
+    512) against the Pallas kernel in interpret mode and the single-block
+    emulation, at slice widths of 8-32 so that dh and chunk <= 64 take
+    several CTAs and key slices."""
     S = nc * chunk
     x = _inputs(np.random.RandomState(dh * 11 + S), B, H, S, dh)
     jx, tx = _jax(x), _torch(x)
@@ -456,7 +492,8 @@ def test_sm90_sliced_outputs_match_the_pallas_kernel(B, H, nc, dh, chunk,
         tx[:3] = [t.to(tdt) for t in tx[:3]]
     kernel = np.asarray(jmlstm_scan(*jx, chunk=chunk, interpret=True)
                         .astype(jnp.float32))
-    got, _ = _sm90_emulate(*tx, chunk, keys=keys, cols=cols)
+    got, _ = _sm90_emulate(*tx, chunk, keys=keys, ctas=ctas,
+                           cluster=cluster)
     whole, _ = _sm90_emulate(*tx, chunk)
     np.testing.assert_allclose(got.float().numpy(), kernel, **tol)
     np.testing.assert_allclose(got.float().numpy(), whole.float().numpy(),
@@ -464,7 +501,7 @@ def test_sm90_sliced_outputs_match_the_pallas_kernel(B, H, nc, dh, chunk,
 
 
 def test_a_long_chunk_is_one_chunk_in_key_slices():
-    """The sliced route computes a chunk of 64 as one chunk (its keys in
+    """The cluster route computes a chunk of 64 as one chunk (its keys in
     slices of 32, the stabilizer m_i from the scalar pass), as the Pallas
     kernel takes chunk=64, including where the floor of the denominator
     binds (m_i at -40). Splitting it into two chunks of 32 would be another
@@ -476,7 +513,7 @@ def test_a_long_chunk_is_one_chunk_in_key_slices():
     x[4] = (rng.randn(1, 2, 128) * 2.0 - 42.0).astype(np.float32)
     x[4][0, 1, 40] = 9.0             # a large input gate mid-chunk
     kernel = np.asarray(jmlstm_scan(*_jax(x), chunk=64, interpret=True))
-    got, sc = _sm90_emulate(*_torch(x), 64, keys=32, cols=8)
+    got, sc = _sm90_emulate(*_torch(x), 64, keys=32, ctas=2, cluster=2)
     assert bool((sc["m_i"] == MMIN).any()) and bool((sc["m_i"] > MMIN).any())
     np.testing.assert_allclose(got.numpy(), kernel, **F32_TOL)
     one = mlstm_scan_ref(*_torch(x), chunk=64).numpy()
@@ -485,28 +522,195 @@ def test_a_long_chunk_is_one_chunk_in_key_slices():
     np.testing.assert_allclose(two, one, **F32_TOL)
 
 
-def test_plan_and_the_kernel_source_agree():
-    """Build-free: the wrapper's block limits and sliced tiles are the
-    source's (kMaxChunk, kMaxDh, make_plan's nt and stride rule and its
-    launch switch), and the source has no shape limit left but a grid's
-    2^31 - 1 blocks."""
+@pytest.mark.parametrize("dh,cluster", [(40, 3), (64, 4), (24, 2)])
+def test_cluster_scores_and_den_are_the_same_bits_in_every_cta(dh, cluster):
+    """Every CTA of a cluster sums the ranks' partial S in rank order 0, 1,
+    ..., n - 1, so every CTA holds the same bits of S, of P and of the
+    denominator it divides by. Build-free, the kernel's exchange is pinned:
+    in s_phase each CTA starts from zeros and adds the partial of rank r =
+    0 .. ncl - 1 read at mapa(src, r), an order its own rank does not
+    enter. That order matters: a CTA that began with its own partial (the
+    rotated order) would hold other bits on these inputs with three
+    partials or more (two partials commute exactly)."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "mlstm_scan_sm90.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (kMaxChunk|kMaxDh) = (\d+);",
-                             src))
+    phase = src[src.index("auto s_phase = [&](int ks, int& job) {"):]
+    phase = phase[:phase.index("// P to fragment order")]
+    loop = re.search(r"float S\[2\]\[2\]\[4\] = \{\};\n"
+                     r"    const uint32_t src = smem_u32\(part\);\n"
+                     r"    for \(int r = 0; r < ncl; \+\+r\) \{.*?\n    \}\n",
+                     phase, re.S)
+    assert loop, "the rank-order exchange is not in s_phase"
+    body = loop.group(0)
+    assert "const uint32_t at = mapa(src, (uint32_t)r);" in body
+    code = re.sub(r"//[^\n]*", "", body)          # the comments aside
+    assert code.count("ld_cluster4(at + ") == 1 and "rank" not in code
+    assert all(f"S[m][n][{e}] += v.{c};" in body
+               for e, c in enumerate("xyzw"))
+    q, k, _, lf, li = _torch(_inputs(np.random.RandomState(dh), 1, 1, 64,
+                                     dh))
+    qs = q[0, 0] * dh ** -0.5
+    F = torch.cumsum(lf[0, 0].double(), 0).float()
+    w = torch.where(torch.ones(64, 64, dtype=torch.bool).tril(),
+                    torch.exp((F[:, None] - F[None, :]) + li[0, 0][None, :]
+                              - 1.0), torch.tensor(0.0))
+    parts = [mm3(qs[:, a:b], k[0, 0][:, a:b].T)
+             for a, b in ops.cluster_columns(dh, cluster)]
+    every = _cluster_scores(qs, k[0, 0], cluster)
+    assert len(every) == cluster > 1
+    assert all(torch.equal(s, _rank_sum(parts)) for s in every)
+    rotated = _cluster_scores(qs, k[0, 0], cluster, rotated=True)
+    dens = [(w * s).sum(-1) for s in rotated]
+    if cluster > 2:
+        assert any(not torch.equal(s, every[0]) for s in rotated[1:])
+        assert any(not torch.equal(d, (w * every[0]).sum(-1))
+                   for d in dens[1:])
+    else:
+        assert all(torch.equal(s, every[0]) for s in rotated)
+
+
+@pytest.mark.parametrize("dh", [1, 8, 40, 64, 65, 128])
+@pytest.mark.parametrize("chunk", [257, 512, 1024])
+def test_narrow_heads_take_the_64_column_instance(dh, chunk):
+    """Past chunk 256 a head of 64 columns or fewer runs on the cluster
+    pass's 64-column instance (nt = 1, one CTA a cluster), whose row tile's
+    q, split once, fits beside the stages; wider heads take nt >= 2."""
+    p = ops.plan(2 * chunk, dh, chunk)
+    assert p["sliced"] and (p["cluster"], p["ctas"]) == (1, 1)
+    assert p["nt"] == (1 if dh <= 64 else 2)
+    assert p["smem_outputs"] == ops.cluster_smem(p["nt"]) <= ops.MAX_SMEM
+    if dh <= 64:      # q's hi and lo hold all 64 columns of the row tile
+        assert ops.cluster_smem(1) == 4 * (
+            ops.OUT_STAGES * ops.cluster_stage(1) + 2 * ops.ROWS * 64
+            + 2 * ops.ROWS * ops.CLUSTER_KEYS + 4 * ops.ROWS
+            + 2 * ops.CLUSTER_KEYS + 8 * ops.ROWS + 4 * ops.ROWS)
+
+
+@pytest.mark.parametrize("dh", [1280, 1288, 1536, 2048, 4096, 4100, 8192])
+def test_past_dh_1280_every_cta_adds_q_c_in_fresh_accumulators(dh):
+    """Past dh ``FRESH_DH`` a CTA holds 256 columns at most, so every CTA
+    is an instance of ``FRESH_TILES`` n tiles or fewer, which adds each
+    32-wide slice of q.C_prev in fresh accumulators (one accumulator over
+    all of dh drifted past the float32 bar); up to it the plan is the
+    512-column rule."""
+    p = ops.plan(128, dh, 64)
+    if dh <= ops.FRESH_DH:
+        assert p["nt"] == 8 and p["ctas"] == -(-dh // ops.BLOCK_DH)
+        return
+    assert p["nt"] <= ops.FRESH_TILES and p["cols"] <= 256
+    assert p["ctas"] == -(-(-(-dh // 256)) // p["cluster"]) * p["cluster"]
+    assert p["cluster"] == min(-(-dh // 256), ops.MAX_CLUSTER)
+
+
+def test_plan_and_the_kernel_source_agree():
+    """Build-free: the wrapper's block limits, cluster size, key slice and
+    cluster tiles are the source's (kMaxChunk, kMaxDh, kMaxCluster, kKeys,
+    kFreshDh, kFreshNt, make_plan's rule and the cluster kernel's
+    instances), the sliced kernel is gone, and past the limits the plan
+    takes every dh to 8192 in clusters of ceil(dh / 512) CTAs, or past dh
+    1280 ceil(dh / 256) (groups of 8 past 8), the columns shared evenly in
+    8-column units, so that no CTA computes more than 7 columns past dh (at
+    most 63 was the bar) and none more than 512; past dh 1280 every CTA is
+    one that adds q.C_prev's slices in fresh accumulators."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "mlstm_scan_sm90.cu").read_text()
+    consts = dict(re.findall(
+        r"constexpr int (kMaxChunk|kMaxDh|kMaxCluster|kKeys|kFreshDh|kFreshNt)"
+        r" = (\d+);", src))
     assert consts == {"kMaxChunk": str(ops.BLOCK_CHUNK),
-                      "kMaxDh": str(ops.BLOCK_DH)}
-    inst = {int(n) for n in re.findall(r"outputs_sliced_kernel<T, (\d+)>",
+                      "kMaxDh": str(ops.BLOCK_DH),
+                      "kMaxCluster": str(ops.MAX_CLUSTER),
+                      "kKeys": str(ops.CLUSTER_KEYS),
+                      "kFreshDh": str(ops.FRESH_DH),
+                      "kFreshNt": str(ops.FRESH_TILES)}
+    inst = {int(n) for n in re.findall(r"outputs_cluster_kernel<T, (\d+)>",
                                        src)}
-    assert inst == set(ops.SLICED_TILES)
-    assert "dh <= 64 ? 1 : dh <= 256 ? 4 : 8" in src
-    assert "(dh + 127) / 128 * 128" in src
+    assert inst == set(ops.CLUSTER_TILES)
+    assert "outputs_sliced_kernel" not in src
+    assert "    if constexpr (NT <= kFreshNt) {" in src
+    for text in ("const int most = dh > kFreshDh ? 64 * kFreshNt : kMaxDh;",
+                 "const int ctas = (dh + most - 1) / most;",
+                 "p.ncl = ctas < kMaxCluster ? ctas : kMaxCluster;",
+                 "p.npr = (ctas + p.ncl - 1) / p.ncl * p.ncl;",
+                 "const int tiles8 = (share + kWarpsN3 - 1) / kWarpsN3;",
+                 "p.nt = tiles8 == 1 ? 1 : (tiles8 + 1) / 2 * 2;",
+                 "(dh + 127) / 128 * 128"):
+        assert text in src
     assert "dh > kMaxDh || chunk <= 0" not in src     # the old refusal
-    for dh in (1, 64, 65, 256, 257, 512, 513, 520, 768, 1024, 4096):
+    for dh in (1, 8, 64, 65, 256, 257, 512, 513, 520, 768, 1000, 1024, 1280,
+               2047, 4096, 4097, 6000, 8192):
         for chunk in (1, 64, 256, 257, 512, 1024):
             p = ops.plan(4 * chunk, dh, chunk)
-            assert p["nt"] in (ops.SLICED_TILES if p["sliced"]
-                               else ops.OUTPUT_TILES)
-            assert p["col_slices"] * 64 * p["nt"] >= dh
             assert p["dhp"] >= dh and p["dhp"] % p["bn"] == 0
             assert p["smem_outputs"] <= ops.MAX_SMEM
+            if not p["sliced"]:
+                assert p["nt"] in ops.OUTPUT_TILES and 64 * p["nt"] >= dh
+                continue
+            need = -(-dh // (256 if dh > 1280 else ops.BLOCK_DH))
+            assert dh <= 1280 or p["nt"] <= ops.FRESH_TILES
+            assert p["cluster"] == min(need, ops.MAX_CLUSTER)
+            assert p["ctas"] == -(-need // p["cluster"]) * p["cluster"]
+            assert p["groups"] == 1 or p["cluster"] == ops.MAX_CLUSTER
+            cols = ops.cluster_columns(dh, p["ctas"])
+            assert [a for a, _ in cols[1:]] == [b for _, b in cols[:-1]]
+            assert cols[0][0] == 0 and cols[-1][1] == dh
+            widths = [b - a for a, b in cols]
+            units = [-(-w // 8) for w in widths]   # even: one unit apart
+            assert max(units) - min(units) <= 1
+            assert max(widths) <= p["cols"] <= ops.BLOCK_DH
+            # the CTA's columns are its warps' unit tiles: the least nt
+            assert p["nt"] in ops.CLUSTER_TILES
+            assert 64 * (p["nt"] - 2) < p["cols"] <= 64 * p["nt"]
+            # computed past dh: the last unit's ragged part only
+            assert p["padded"] == 8 * -(-dh // 8) - dh <= 63
+            s_cols = [b - a for a, b in ops.cluster_columns(dh,
+                                                            p["cluster"])]
+            assert max(s_cols) <= ops.BLOCK_DH * p["groups"]
+            assert p["key_slices"] == -(-chunk // ops.CLUSTER_KEYS)
+
+
+def test_mlstm_variants_edits_match_the_kernel_source(monkeypatch):
+    """benchmarks_torch/mlstm_variants.py's variants of the cluster outputs
+    pass still apply to csrc/mlstm_scan_sm90.cu as it is (build-free):
+    each edit matches once, each variant differs from the source, a stale
+    edit raises, and the plan of the 256-column variant fits the source's
+    shared-memory rule."""
+    from benchmarks_torch import mlstm_variants as mv
+    texts = mv.variant_sources(list(mv.VARIANTS))
+    assert set(texts) == {mv.SRC, *mv.VARIANTS}
+    for name, text in texts.items():
+        if name != mv.SRC:
+            assert text != texts[mv.SRC], name
+    assert set(mv.PROBES) <= set(mv.VARIANTS)
+    p = mv.PLANS["k3_cols256"](2048, 1024, 256)
+    assert (p["cluster"], p["ctas"], p["nt"]) == (4, 4, 4)
+    assert p["smem_outputs"] == ops.cluster_smem(4) <= ops.MAX_SMEM
+    monkeypatch.setitem(mv.VARIANTS, "stale", [("no such text", "")])
+    with pytest.raises(ValueError, match="no longer matches"):
+        mv.variant_sources(["stale"])
+
+
+def test_mlstm_variants_refuses_to_run_without_a_card(monkeypatch):
+    from benchmarks_torch import mlstm_variants as mv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        mv.main([])
+
+
+@pytest.mark.parametrize("S,dh,chunk", [(2048, 1024, 256), (1024, 384, 512),
+                                        (512, 8, 256)])
+def test_baselines_sliced_plan_is_the_774e907_rule(S, dh, chunk):
+    """benchmarks_torch/baselines.py launches commit 774e907's K3 past the
+    old limits with that commit's plan (column slices of 64 nt, nt 1, 4 or
+    8, P tiles of up to 256 keys, its shared memory); inside them the plan
+    as it is."""
+    from benchmarks_torch import baselines
+    p = baselines.sliced_plan(S, dh, chunk)
+    if not ops.plan(S, dh, chunk)["sliced"]:
+        assert p == ops.plan(S, dh, chunk)
+        return
+    nt = 1 if dh <= 64 else 4 if dh <= 256 else 8
+    assert (p["nt"], p["lp"]) == (nt, min(-(-chunk // 64) * 64, 256))
+    assert p["col_slices"] == -(-dh // (64 * nt))
+    assert p["smem_outputs"] == ops.outputs_smem(64 * nt, p["lp"]) <= \
+        ops.MAX_SMEM
