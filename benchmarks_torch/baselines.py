@@ -23,9 +23,12 @@ in place of ff92dab's. Commit 076818b's four sm90 sources (before the
 cluster routes: K2's float32 route past d = 256 and K1's wide route past d
 = 2048 recomputing the scores per output slice) are the yardsticks of
 those two routes, and of every route that kept its code since; unpack them
-in place of ff92dab's. Their C entries take the arguments the current
-wrappers pass (K1's with the register route's group tiles, or with the
-mma route's where the source has that route).
+in place of ff92dab's. Commit 08dd01d's ``flash_attention_sm90.cu``
+(byte-identical to 076818b's: before K2's 2-byte cluster route past d =
+256 and its new own loads) is the yardstick of the 2-byte route;
+chip_smoke.py labels its turns with 08dd01d. Their C entries take the
+arguments the current wrappers pass (K1's with the register route's group
+tiles, or with the mma route's where the source has that route).
 
 To time them beside the current kernels on one card, unpack commits that
 have them with ``git archive`` into one git-ignored directory and pass it,
@@ -39,11 +42,21 @@ e.g.
   git archive 9676424 src/repro_torch/csrc/paged_attention_sm90.cu | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
 
-or, for the routes as they stood before the cluster routes,
+or, for the routes as they stood before the cluster routes (K2's 2-byte
+source as at 08dd01d),
 
   mkdir -p build/base
   git archive 076818b src/repro_torch/csrc | tar -x -C build/base
+  git archive 08dd01d src/repro_torch/csrc/flash_attention_sm90.cu | tar -x -C build/base
   python3 chip_smoke.py --baseline-src build/base
+
+A directory may hold any subset: only the sources found are built and
+timed, the other records say "not measured". For the 2-byte route alone
+(its turns against 08dd01d, and no K1 or K3 turns: the shorter run),
+
+  mkdir -p build/base2
+  git archive 08dd01d src/repro_torch/csrc/flash_attention_sm90.cu | tar -x -C build/base2
+  python3 chip_smoke.py --baseline-src build/base2
 
 ``load(dir)`` builds every one of those sources it finds under
 ``dir/src/repro_torch/csrc/`` with the port's nvcc flags into

@@ -1,8 +1,11 @@
-"""Variants of the two cluster routes, timed in turns against the sources as
-they are: what K2's float32 route past d = 256 and K1's wide route past d =
-2048 spend their time on, and the designs they were chosen over.
+"""Variants of the cluster routes and of K2's own loads, timed in turns
+against the sources as they are: what K2's routes past d = 256 (float32
+and 2-byte) and K1's wide route past d = 2048 spend their time on, how
+K2's 2-byte own loads read a layout TMA cannot, and the designs they were
+chosen over.
 
   python3 benchmarks_torch/wide_variants.py [--variants a,b,...]
+      [--baseline-src DIR]
 
 Each variant is a source of ``csrc/`` with a few textual edits
 (``VARIANTS``), built with the port's nvcc flags beside the source itself
@@ -29,6 +32,36 @@ so it does where a build that is not a probe misses the float32 bar (atol
   CTA's own partial S for every rank (the exchange's barriers stay, its
   reads of the peers' shared memory go), ``k2_no_exchange`` drops the
   barriers too, ``k2_no_products`` leaves S's products out.
+* K2, bfloat16 and float16 (``csrc/flash_attention_sm90.cu``), at d = 512,
+  1280 and 2304 (FLASH_SHAPES, causal), d = 4096 (16 CTAs a cluster, the
+  most) and at SigLIP-so400m's d = 72 (B=8,
+  H=16, S=729, no mask) contiguous (TMA) and as views of rows of 73, 74
+  and 76 elements (the own loads' 2-, 4- and 8-byte units), and d = 100
+  (B=4, H=16, S=1024, no mask) as views of rows of 101 and contiguous
+  (rows of 200 bytes: the 8-byte unit past whole rows); each build's
+  route and CTAs a cluster printed at d > 256. Past d = 256, the designs
+  not taken: ``k2b_stream`` streams q and K for every 256-column output
+  slice at every d > 256 (the design before the cluster route, with the
+  new loads); ``k2b_cluster8`` caps the cluster at the portable 8 CTAs, so
+  that d = 2304 (9 slices) streams; ``k2b_one_phase`` has every CTA read
+  every CTA's whole partial S at every cluster size (the source: past 2
+  CTAs each sums the units it owns, then gathers the sums);
+  ``k2b_cluster_scope`` orders the exchange as the PTX memory model asks
+  across CTAs, a release at cluster scope on each remote arrive and an
+  acquire at cluster scope on each wait (the source: mbarrier's default
+  CTA scope); ``k2b_cluster_spread`` does so with the n remote arrives
+  spread over n threads (the source: one thread arrives n times); the
+  probe ``k2b_cluster_acquire`` takes only the acquire; the probe ``k2b_no_exchange`` leaves the exchange out (wrong on
+  purpose). The own loads: ``k2b_single_half`` keeps one half row's words
+  in flight a producer thread at d <= 128 too (the source: two there, its
+  producers at 56 registers);
+  ``k2b_pair_regs40`` keeps the two half rows in flight at 40 producer
+  registers, its consumers at 232 (the source: 56 and 224);
+  ``k2b_half_rows`` takes no whole rows (the source: where a row's live
+  bytes fit 10 words, d <= 73, whole rows at every unit; else half rows,
+  in pairs at d <= 128). With ``--baseline-src DIR`` (a checkout's
+  ``src/repro_torch/csrc`` under DIR, as chip_smoke.py takes it) that
+  checkout's 2-byte source is timed in turns too, as ``baseline``.
 * K1, d = 16,384 g = 8 float32 and d = 2056 g = 1 float32 (B=2 and 4,
   page 16, 8 slots, random lengths from seed 0): ``k1_one_block_a_row``
   launches the combine kernel one block a (b, q head) as the other routes
@@ -74,7 +107,68 @@ _TWO_PARTS = ("  static constexpr bool kTwoParts = C::kSmem + 2 * kPart <= "
 _ATTR = ("      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);\n"
          "  if (err != cudaSuccess) return err;\n")
 F32 = "flash_attention_f32_sm90"
+SM90 = "flash_attention_sm90"
+_ROUTE = ("  return d <= kSlice ? kPlain : d <= kSlice * kMaxCluster ? "
+          "kCluster : kStream;")
+_WHOLE = ("      C::kPair && a.unit != 16 && min(2 * a.d, C::NC * kChunkBytes) "
+          "<= 146;")
+# the 2-byte exchange's barriers at cluster scope: the acquiring waits
+# (mbar_wait_cluster, in place of mbar_wait in `exchange`), the releasing
+# remote arrives, and the n arrives spread over n threads
+_REMOTE_ARRIVE = (
+    "  asm volatile(\"mbarrier.arrive.shared::cluster.b64 _, [%0];\\n\" "
+    "::\"r\"(addr)\n               : \"memory\");\n}\n")
+_WAIT_FN = """__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\\n.reg .pred p;\\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\\n"
+        "selp.u32 %0, 1, 0, p;\\n}\\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+"""
+_ACQUIRE = [
+    (_REMOTE_ARRIVE, _REMOTE_ARRIVE + _WAIT_FN),
+    ("  if (it > 0) mbar_wait(empty, (it - 1) & 1);\n",
+     "  if (it > 0) mbar_wait_cluster(empty, (it - 1) & 1);\n"),
+    ("  mbar_wait(full, it & 1);\n", "  mbar_wait_cluster(full, it & 1);\n"),
+    ("    mbar_wait(summed, it & 1);\n",
+     "    mbar_wait_cluster(summed, it & 1);\n")]
+_RELEASE = ("mbarrier.arrive.shared::cluster.b64",
+            "mbarrier.arrive.release.cluster.shared::cluster.b64")
+_SPREAD = ("    if (t == 0)\n"
+           "      for (int r = 0; r < n; ++r) mbar_arrive_cluster(mapa(b, "
+           "(uint32_t)r));\n",
+           "    if (t < n) mbar_arrive_cluster(mapa(b, (uint32_t)t));\n")
 VARIANTS = {
+    # 2-byte K2 past d = 256: the designs not taken
+    "k2b_stream": (SM90, [(_ROUTE, "  return d <= kSlice ? kPlain : "
+                                   "kStream;")]),
+    "k2b_cluster8": (SM90, [("constexpr int kMaxCluster = 16;",
+                             "constexpr int kMaxCluster = 8;")]),
+    "k2b_one_phase": (SM90, [("  if (n <= 2) {\n    for (int r = 0;",
+                              "  if (true) {\n    for (int r = 0;")]),
+    "k2b_cluster_scope": (SM90, _ACQUIRE + [_RELEASE]),
+    "k2b_cluster_spread": (SM90, _ACQUIRE + [_RELEASE, _SPREAD]),
+    "k2b_cluster_acquire": (SM90, _ACQUIRE),
+    "k2b_no_exchange": (SM90, [("      if constexpr (kClu)\n        exchange",
+                                "      if constexpr (false)\n        exchange")]),
+    # the own loads: the designs not taken
+    "k2b_single_half": (SM90, [
+        ("  static constexpr bool kPair = R == kPlain && D <= 128;",
+         "  static constexpr bool kPair = false;")]),
+    "k2b_half_rows": (SM90, [(_WHOLE, "      false;")]),
+    "k2b_pair_regs40": (SM90, [
+        ("  static constexpr int kProdRegs = kPair ? 56 : 40;",
+         "  static constexpr int kProdRegs = 40;"),
+        ("  static constexpr int kConsRegs = kPair ? 224 : 232;",
+         "  static constexpr int kConsRegs = 232;")]),
     "k2_cols128": (F32, [(_WIDTH, "  (void)reach;\n  return kWideCols;")]),
     "k2_cols256": (F32, [(_WIDTH,
                           "  (void)reach;\n  return 2 * kWideCols;")]),
@@ -99,9 +193,34 @@ VARIANTS = {
     "k1_one_block_a_row": ("paged_attention_sm90", [
         ("(unsigned)(chunks < 65535 ? chunks : 65535)", "1u")]),
 }
-PROBES = ("k2_no_remote", "k2_no_exchange", "k2_no_products")
+PROBES = ("k2_no_remote", "k2_no_exchange", "k2_no_products",
+          "k2b_no_exchange")
 # K2's shapes: (B, H, S, d), causal; the probes run at the first only
 K2_SHAPES = ((1, 8, 2048, 512), (1, 4, 1024, 1280), (1, 2, 512, 2304))
+# the 2-byte route's: (name, B, H, S, d, causal, row padding), and the
+# variants each one times (the source and the baseline at every shape)
+SM90_SHAPES = (
+    ("d=512 B=1 H=8 S=2048 causal", 1, 8, 2048, 512, True, 0),
+    ("d=1280 B=1 H=4 S=1024 causal", 1, 4, 1024, 1280, True, 0),
+    ("d=2304 B=1 H=2 S=512 causal", 1, 2, 512, 2304, True, 0),
+    ("d=4096 B=1 H=2 S=512 causal", 1, 2, 512, 4096, True, 0),
+    ("siglip d=72 B=8 H=16 S=729 (TMA)", 8, 16, 729, 72, False, 0),
+    ("siglip d=72 rows of 73 (unit 2)", 8, 16, 729, 72, False, 1),
+    ("siglip d=72 rows of 74 (unit 4)", 8, 16, 729, 72, False, 2),
+    ("siglip d=72 rows of 76 (unit 8)", 8, 16, 729, 72, False, 4),
+    ("d=100 B=4 H=16 S=1024 rows of 101 (unit 2)", 4, 16, 1024, 100, False,
+     1),
+    ("d=100 B=4 H=16 S=1024 (unit 8)", 4, 16, 1024, 100, False, 0))
+SM90_AT = {"k2b_stream": lambda d, pad: d > 256,
+           "k2b_cluster8": lambda d, pad: d > 2048,
+           "k2b_one_phase": lambda d, pad: d > 512,
+           "k2b_cluster_scope": lambda d, pad: d > 256,
+           "k2b_cluster_spread": lambda d, pad: d > 256,
+           "k2b_cluster_acquire": lambda d, pad: d > 256,
+           "k2b_no_exchange": lambda d, pad: d > 256,
+           "k2b_single_half": lambda d, pad: pad > 0 and d > 73,
+           "k2b_pair_regs40": lambda d, pad: pad > 0 and d > 73,
+           "k2b_half_rows": lambda d, pad: pad > 0 and d <= 73}
 
 
 def variant_sources(names) -> dict:
@@ -125,6 +244,8 @@ def variant_sources(names) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--baseline-src", default=None, metavar="DIR",
+                    help="time this checkout's 2-byte K2 source in turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
@@ -144,6 +265,10 @@ def main(argv=None) -> None:
     for name, (src, text) in texts.items():
         paths[name] = OUT / f"{src}_{name}.cu"
         paths[name].write_text(text)
+    if args.baseline_src:
+        texts["baseline"] = (SM90, None)
+        paths["baseline"] = (Path(args.baseline_src) / "src" / "repro_torch"
+                             / "csrc" / f"{SM90}.cu")
     failed = {}
     libs = baselines._libraries(paths, failed)
     for n, log in failed.items():
@@ -166,6 +291,17 @@ def main(argv=None) -> None:
             return f"occupancy query failed with CUDA error {err}"
         cols, n, active = (v.value for v in vals)
         return f"{cols} columns, {n} CTAs a cluster, at most {active} active"
+
+    def sm90_plan(lib, d):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = lib.flash_attention_sm90_clusters(
+            ctypes.c_int(d), ctypes.c_int(torch.cuda.current_device()),
+            *(ctypes.byref(v) for v in vals))
+        if err:
+            return f"occupancy query failed with CUDA error {err}"
+        route, n, active = (v.value for v in vals)
+        return (f"route {('plain', 'cluster', 'stream')[route]}, {n} CTAs a "
+                f"cluster, at most {active} active")
 
     # K2, float32, causal
     k2 = {n: (lib, baselines._flash_attention_sm90(F32)(lib))
@@ -195,6 +331,42 @@ def main(argv=None) -> None:
         print(f"K2 f32 d={d} B={B} H={H} S={S} causal: " + ", ".join(
             f"{n} {ms[n]:.4f} ms ({notes[n]})" for n in runs), flush=True)
         del x, want
+
+    # K2, bfloat16 and float16: the cluster route and the own loads
+    k2b = {n: (lib, baselines._flash_attention_sm90(SM90)(lib))
+           for n, lib in libs.items() if texts[n][0] == SM90}
+    for name, B, H, S, d, causal, pad in SM90_SHAPES if k2b else ():
+        for dtype, tol in ((torch.bfloat16, (2e-3, 2e-2)),
+                           (torch.float16, (1e-3, 2e-3))):
+            rows = torch.randn(3, B, S, H, d + pad, generator=gen,
+                               device="cuda").to(dtype)[..., :d]
+            x = [t.transpose(1, 2) for t in rows]
+            if not pad:
+                x = [t.contiguous() for t in x]
+            want = attention_ref(*x, causal=causal)
+            runs, notes = {}, {}
+            for n, (lib, f) in k2b.items():
+                if n in SM90_AT and not SM90_AT[n](d, pad):
+                    continue
+                try:
+                    err = (f(*x, causal=causal) - want).float().abs()
+                except RuntimeError as e:
+                    print(f"K2 {name}: {n} left out: {e}", flush=True)
+                    bad.append(f"{n} at {name} (no launch)")
+                    continue
+                ok = bool((err <= tol[0] + tol[1] * want.float().abs()).all())
+                if not ok and n != "baseline" and n not in PROBES:
+                    bad.append(f"{n} at {name} {dtype}")
+                plan = ""
+                if d > 256 and n != "baseline":
+                    plan = f"{sm90_plan(lib, d)}, "
+                notes[n] = (f"{plan}max|err| {float(err.max()):.1e}"
+                            + ("" if ok else ", MISSES the bar"))
+                runs[n] = lambda f=f: f(*x, causal=causal)
+            ms = in_turns(runs)
+            print(f"K2 {str(dtype)[6:]} {name}: " + ", ".join(
+                f"{n} {ms[n]:.4f} ms ({notes[n]})" for n in runs), flush=True)
+            del x, rows, want
 
     # K1's wide route: the wide kernel and the combine kernel apart
     def paged(B, Hq, Hkv, d, n_slots):

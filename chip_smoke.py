@@ -71,7 +71,13 @@ Phases (any failure exits non-zero):
              beside them (device ms). FLASH_SHAPES times d=256, d=512,
              d=1280, d=2304 and SigLIP-so400m's d=72 (by TMA and by the
              own loads) on every route, in turns with 076818b's where
-             given; the f32 route past d = 256 (its cluster route: d in
+             given (the 2-byte source: 08dd01d's, byte-identical to
+             076818b's); the 2-byte route past d = 256 (its cluster route:
+             one CTA a 256-column slice in a cluster of up to 16, S summed
+             once over distributed shared memory) with its cluster size
+             and the card's most active such clusters printed, and each
+             case's own-load unit; the f32 route past d = 256 (its
+             cluster route: d in
              slices of 128 columns, or 256 at 1024 < d <= 2048, over a
              cluster of CTAs, S summed once over distributed shared
              memory; d=2304 past one cluster's reach) with its cluster
@@ -483,6 +489,9 @@ def _in_turns(fn, other):
 # and K1's wide route
 SM90_BASELINE = "076818b"
 K1_BASELINE = SM90_BASELINE
+# the 2-byte K2 source's: commit 08dd01d's, before its cluster route past d
+# = 256 and its new own loads (byte-identical to 076818b's)
+K2_BASELINE = "08dd01d"
 
 
 def _paged_inputs(gen, B, Hq, Hkv, d, page, n_slots, P, lengths, dtype):
@@ -1423,6 +1432,15 @@ def phase_flash_kernels(baseline):
               causal=False, softcap=50.0)
         errs[f"(h) rows that see no key d=320 {name}"] = _check_no_key_rows(
             gen, 256, 64, 32, dtype, tol, d=320)
+        # the 2-byte route's widest cluster (16 CTAs, past the portable 8)
+        # and its streaming route past it, by TMA (rows of 8,320 bytes) and
+        # by the own loads (rows of 8,200: the 8-byte unit)
+        if dtype != torch.float32:
+            for d in (4096, 4100, 4160):
+                plan = fa_ops.sm90_wide_plan(d)
+                check(f"(h) d={d} {plan['route']} route, {plan['cluster']} "
+                      f"CTAs a cluster, GQA causal Sq=Sk=130 {name}",
+                      _flash_inputs(gen, 1, 2, 1, 130, 130, d, dtype), tol)
     # the f32 route's other loads: rows off 16-byte alignment, d = 37
     flat = torch.randn(2 * 100 * 64 + 1, generator=gen, device="cuda")
     q = _flash_inputs(gen, 1, 4, 2, 100, 100, 64, torch.float32)[0]
@@ -1432,27 +1450,40 @@ def phase_flash_kernels(baseline):
     check("(f) d=37 Sq=130 Sk=70 causal f32",
           _flash_inputs(gen, 1, 2, 1, 130, 70, 37, torch.float32), F32_TOL)
     # (i) the 2-byte route at head dims off 16 (TMA or the own loads),
-    # bases 2 bytes off 16-byte alignment and strides TMA cannot step
+    # bases 2 bytes off 16-byte alignment and strides TMA cannot step; with
+    # a baseline, each case timed in turns with 08dd01d's source
+    turns_i = {}
+
+    def check_i(name, x, tol, **kw):
+        check(name, x, tol, **kw)
+        old = baseline.get("flash_attention_sm90")
+        if old is not None:
+            turns_i[name] = _against_previous(
+                f"flash_attention {name}",
+                lambda: fa_ops.flash_attention(*x, **kw),
+                lambda: old(*x, **kw), tol, commit=K2_BASELINE,
+                want=attention_ref(*x, **kw))
+
     for dtype in (torch.bfloat16, torch.float16):
         name, tol = str(dtype)[6:], TOLS[dtype]
         for d in (37, 40, 72, 100):
-            check(f"(i) d={d} Sq=130 Sk=70 causal {name}",
-                  _flash_inputs(gen, 1, 4, 2, 130, 70, d, dtype), tol)
+            check_i(f"(i) d={d} Sq=130 Sk=70 causal {name}",
+                    _flash_inputs(gen, 1, 4, 2, 130, 70, d, dtype), tol)
             n = 2 * 256 * d
             flat = torch.randn(3 * n + 1, generator=gen,
                                device="cuda").to(dtype)[1:]
-            check(f"(i) d={d} q, k, v 2 bytes off alignment window 50 "
-                  f"{name}", [flat[i * n:(i + 1) * n].view(1, 2, 256, d)
-                              for i in range(3)], tol, window=50)
+            check_i(f"(i) d={d} q, k, v 2 bytes off alignment window 50 "
+                    f"{name}", [flat[i * n:(i + 1) * n].view(1, 2, 256, d)
+                                for i in range(3)], tol, window=50)
             rows = torch.randn(3, 2, 192, 3, d + 1, generator=gen,
                                device="cuda").to(dtype)[..., :d]
-            check(f"(i) d={d} (B,S,H,d) views of rows of d+1 softcap 30 "
-                  f"{name}", [t.transpose(1, 2) for t in rows], tol,
-                  softcap=30.0)
+            check_i(f"(i) d={d} (B,S,H,d) views of rows of d+1 softcap 30 "
+                    f"{name}", [t.transpose(1, 2) for t in rows], tol,
+                    softcap=30.0)
         rows = torch.randn(3, 1, 150, 2, 331, generator=gen,
                            device="cuda").to(dtype)[..., :330]
-        check(f"(i) d=330 views of rows of 331 (own loads, sliced) {name}",
-              [t.transpose(1, 2) for t in rows], tol)
+        check_i(f"(i) d=330 views of rows of 331 (own loads, cluster) "
+                f"{name}", [t.transpose(1, 2) for t in rows], tol)
     print("[kernels] flash_attention max|err| " + "; ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
     print("[kernels] flash_attention cases by unit (2-byte route: 16 TMA, "
@@ -1462,6 +1493,12 @@ def phase_flash_kernels(baseline):
     if not {8, 4, 2} <= set(units.values()):
         raise AssertionError(f"flash_attention: an own-load unit never "
                              f"ran: {sorted(set(units.values()))}")
+    if turns_i:
+        ratios = [r["ratio"] for r in turns_i.values()]
+        print(f"[kernels] flash_attention (i) against commit {K2_BASELINE}'s "
+              f"source in turns: {len(ratios)} cases, device-time ratios "
+              f"{min(ratios):.4f}-{max(ratios):.4f}, "
+              f"{sum(r < 1 for r in ratios)} of them faster")
 
     # (a) the forward's shape: Qwen1.5-4B attention at S=4096
     B, H, S, d = FWD_B, 20, FWD_S, 128
@@ -1482,7 +1519,8 @@ def phase_flash_kernels(baseline):
     library_ms = _time_ms(lambda: sdpa(*x, is_causal=True), 20)
     prev_bf16 = _against_previous(
         "flash_attention forward shape bf16", fn,
-        _previous(baseline, "flash_attention_sm90", x), BF16_TOL)
+        _previous(baseline, "flash_attention_sm90", x), BF16_TOL,
+        commit=K2_BASELINE)
     elt = x[0].element_size()
     n_bytes = 4 * B * H * S * d * elt             # q, k, v in; out
     n_flops = kernel_bench.flash_flops(B, H, S, d)
@@ -1523,7 +1561,8 @@ def phase_flash_kernels(baseline):
            "source": "src/repro_torch/csrc/flash_attention_sm90.cu"}
     f16["previous_sm90"] = _against_previous(
         "flash_attention forward shape f16", fh,
-        _previous(baseline, "flash_attention_sm90", xh), F16_TOL)
+        _previous(baseline, "flash_attention_sm90", xh), F16_TOL,
+        commit=K2_BASELINE)
     del xh
     print(f"[kernels] flash_attention forward shape f16 (one P.V product): "
           f"{f16['ms']:.4f} ms eager, {f16['device_ms']:.4f} ms device "
@@ -1594,6 +1633,8 @@ def phase_flash_kernels(baseline):
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": library_ms, "routes": routes,
            "shapes": _flash_other_shapes(gen, baseline),
+           "layouts_ratio_vs_previous": {n: r["ratio"] for n, r in
+                                         turns_i.items()} or None,
            "past_limit_shapes": _flash_past_limits(gen)}
     prev_s = ("not measured (no --baseline-src)" if prev is None else
               f"{prev['ms']:.4f} ms eager, {prev['device_ms']:.4f} ms device")
@@ -1678,11 +1719,21 @@ def _flash_other_shapes(gen, baseline):
                       f"a cluster, at most {r['max_active_clusters']} such "
                       f"clusters active at once (cudaOccupancyMaxActive"
                       f"Clusters)")
+            elif d > 256:
+                r.update(fa_ops.sm90_wide_plan(d))
+                r["max_active_clusters"] = fa_ops.sm90_clusters(d)[
+                    "max_active_clusters"]
+                print(f"[kernels] flash_attention {key}: the {r['route']} "
+                      f"route, {r['slices']} slices of {r['cols']} columns, "
+                      f"{r['cluster']} CTAs a cluster, at most "
+                      f"{r['max_active_clusters']} such clusters active at "
+                      f"once (cudaOccupancyMaxActiveClusters)")
             r["previous"] = _against_previous(
                 f"flash_attention {key}", fn, None if baseline.get(
                     fa_ops.SOURCES[dtype]) is None else (
                     lambda: baseline[fa_ops.SOURCES[dtype]](
-                        *x, causal=causal)), TOLS[dtype], want=want)
+                        *x, causal=causal)), TOLS[dtype], want=want,
+                commit=None if f32 else K2_BASELINE)
             out[key] = r
             lib_s = ("none" if pad else
                      f"{r['library_device_ms']:.4f} ms device")

@@ -24,14 +24,13 @@
 // so the 2-byte tensor-core rate bounds it. The design feeds the tensor cores:
 //
 // * One block per (b*Hq + h, 128-row q tile), heaviest causal tiles first:
-//   x = b*Hq + h, and the grid's y and z (65,535 each) hold one index, t +
-//   n_qt * slice = y + ny * z, ny = min(n_qt * slices, 65535) (t counts q
-//   tiles from the last); blocks past the end exit at once. The blocks run
-//   in a (B*Hq, n_qt, slices) grid's order, at any Sq (grid_of,
-//   ops.flash_grid, ops.flash_block).
+//   x = b*Hq + h, and the grid's y and z (65,535 each) hold one index,
+//   y + ny * z: t + n_qt * slice, or slice + n_sl * t on the cluster route
+//   (t counts q tiles from the last); blocks past the end exit at once. Any
+//   Sq (grid_of, ops.flash_grid, ops.flash_block).
 //   384 threads: a producer warpgroup (its registers cut to 24 by setmaxnreg;
-//   40 where it loads on its own) and two consumer warpgroups (240
-//   registers; 232), each owning 64 q rows.
+//   40 or 56 where it loads on its own) and two consumer warpgroups (240
+//   registers; 232 or 224), each owning 64 q rows.
 // * TMA. Host-built 4-D tensor maps over (d, S, H, B) read the strided views
 //   as they are, in 64-column boxes with the 128-byte swizzle; rows and keys
 //   out of bounds arrive as zeros. q is loaded once; K and V tiles (128 keys
@@ -41,12 +40,27 @@
 // * Own loads. TMA needs a 16-byte aligned base and strides that are
 //   multiples of 16 bytes. Where a tensor breaks that (a view off alignment,
 //   a row of d = 37 or 100 elements), the producer warpgroup's 128 threads
-//   fill the same boxes in the same swizzled layout by plain loads of the
-//   widest unit (8, 4 or 2 bytes) that every base, stride and row allows
-//   (`unit`, ops._sm90_unit), zeros past d and past the sequence; then a
-//   proxy fence (wgmma reads shared memory through the async proxy) and one
-//   arrive each on the stage's full barrier (128 arrivals, not one
-//   expect_tx). The consumers do not know which filled a stage.
+//   fill the same boxes in the same swizzled layout, zeros past d and past
+//   the sequence, by the widest unit (8, 4 or 2 bytes) that every base,
+//   stride and row allows (`unit`, ops._sm90_unit). The stage's full
+//   barrier takes one arrive from each of them (128, not one expect_tx).
+//   Every unit takes the same loader:
+//   - Where a row's live bytes fit 10 aligned 16-byte words (d <= 73), a
+//     thread takes a whole row: those words (only those) at once, realigned
+//     in registers by funnel shifts into 16-byte stores to the swizzled
+//     slots, one round trip a row (own_rows_whole).
+//   - Else a thread takes half a row (64 bytes of a box row) the same way:
+//     the aligned 16-byte words that hold its live bytes (at most 5; only
+//     those, so each holds a byte of the tensor) by read-only vector loads,
+//     all in flight at once, then the stores. At d <= 128 a thread keeps
+//     two half rows in flight (its producers then hold 56 registers, its
+//     consumers 224).
+//   Then a proxy fence (wgmma reads shared memory through the async proxy)
+//   and the arrive. Every fill writes its zeros (skipping the columns past
+//   d on later fills of a stage ran slower). The old loader stored one
+//   2-byte word at a time behind a "memory" clobber, so a thread had one
+//   load in flight; cp.async of 4 and of 8 bytes lost to the realigned
+//   loads (benchmarks_torch/wide_variants.py; PERF.md).
 // * S = Q.K^T: wgmma m64n{BK}k16, both operands from shared memory (K is
 //   K-major as stored), f32 accumulators in registers. The softmax runs on
 //   the accumulator fragment in log2 units (ex2): row max and sum across the
@@ -71,25 +85,44 @@
 // * Epilogue: O / max(l, 1e-30) to the input's type, plain stores into q's
 //   layout (pairs where out's base, strides and d allow 4-byte stores); rows
 //   past Sq and columns past d are not written.
-// * d > 256 (`kWide`). The O accumulator takes D/2 f32 registers a thread,
-//   and q with its K/V ring fills shared memory already at d = 256, so the
-//   grid's slice index cuts the output into slices of 256 columns. A block
-//   streams q and K in 64-column chunks through a 4-stage ring (a 128 x 64 q
-//   chunk beside a 64 x 64 K chunk per stage) and sums S over the chunks,
-//   then applies P to its own 256 columns of V (a 2-stage ring of 64 x 256
-//   tiles). S is recomputed once per slice: 1.5x the function's operations
-//   at d = 512. The tiles are d = 256's (128 q rows, 64 keys); the
-//   warpgroups do not take turns.
+// * d > 256. The O accumulator takes D/2 f32 registers a thread, and q with
+//   its K/V ring fills shared memory already at d = 256, so d is cut into
+//   slices of 256 columns (kSlice).
+//   - 256 < d <= 4096 (`kCluster`): a thread-block cluster of one CTA a
+//     slice (n = ceil(d / 256) CTAs, at most kMaxCluster = 16; past 8 the
+//     non-portable sizes) takes one (b*Hq + h, q tile), CTA r slice r. Each
+//     CTA is the d = 256 CTA on its own columns of q (resident), K and V:
+//     the same tiles, rings, producers and warpgroup turns. Its products
+//     give a partial S over its columns, which each consumer warpgroup
+//     writes to shared memory (64 rows x 64 keys, f32) and sums with the
+//     other CTAs' over distributed shared memory (mapa,
+//     ld.shared::cluster), in rank order 0, 1, ..., n - 1, so every CTA
+//     holds the same bits of S and so the same m, l and P (`exchange`: at
+//     n <= 2 each thread reads every CTA's units of its fragment; past that
+//     each CTA sums the units it owns and then reads the others' sums, two
+//     rounds of remote loads instead of n). mbarriers per warpgroup, which
+//     each CTA's elected thread arrives on remotely, order the writes and
+//     reads (full, summed, and empty before the next tile's partial). S is
+//     computed once per q tile; each CTA applies P to its own 256 columns
+//     of V. The cluster is the fast part of the grid's (slice, q tile)
+//     index over y and z, y's extent a multiple of n (grid_of). The
+//     producers take no part in the exchange and run ahead as at d = 256.
+//   - d > 4096 (`kStream`; one cluster would need more than 16 CTAs): the
+//     grid's slice index cuts the output, and a block streams q and K in
+//     64-column chunks through a 4-stage ring (a 128 x 64 q chunk beside a
+//     64 x 64 K chunk per stage), sums S over the chunks, then applies P to
+//     its own 256 columns of V (a 2-stage ring of 64 x 256 tiles): S is
+//     recomputed once per slice. The warpgroups do not take turns.
 //
 // Two things ptxas punishes here: an S accumulator carried across loop
 // iterations makes it serialize every wgmma (warning C7515), so S is fresh
-// in each iteration (the wide kernel's chunk loop carries it, and waits for
-// each chunk anyway); and branches on kernel parameters inside the unrolled
-// score loop (softcap, masks) cost more than the arithmetic, so each is a
-// loop of its own over the fragment.
+// in each iteration (the streaming kernel's chunk loop carries it, and waits
+// for each chunk anyway); and branches on kernel parameters inside the
+// unrolled score loop (softcap, masks) cost more than the arithmetic, so
+// each is a loop of its own over the fragment.
 //
 // Not here yet: overlapping a warpgroup's softmax with its own next Q.K^T
-// (FA3's intra-warpgroup pipelining), a persistent grid, clusters, fp8.
+// (FA3's intra-warpgroup pipelining), a persistent grid, fp8.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -108,7 +141,11 @@ constexpr int kProducers = 128;   // the producer warpgroup's threads
 constexpr int kChunk = 64;        // d columns per TMA box (128 bytes)
 constexpr int kChunkBytes = kChunk * 2;
 constexpr int kSlice = 256;       // output columns per block where d > 256
+constexpr int kMaxCluster = 16;   // CTAs a cluster (past 8 non-portable)
 constexpr float kMasked = -1e30f;
+
+// The three routes: d <= 256, 256 < d <= kSlice * kMaxCluster, past that.
+enum Route { kPlain, kCluster, kStream };
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
@@ -122,29 +159,46 @@ struct Args {
   int Hq, g, Sq, Sk, d, causal, window, n_qt;
   int unit;             // 16: TMA; 8, 4 or 2: own loads of that many bytes
   int pairs;            // out takes 4-byte stores of two values
+  int n_sl;             // d > 256: slices of kSlice columns
   float scale, softcap;
 };
 
 // D: d rounded up to a multiple of 64 (the columns past d are 0), or the
-// output slice (256) where d > 256 (kWide). Byte offsets into shared memory.
-template <int D, bool kWide>
+// slice (256) where d > 256. Byte offsets into shared memory.
+template <int D, int R>
 struct Cfg {
+  static constexpr bool kStr = R == kStream;
   static constexpr int BK = D <= 128 ? 128 : 64;  // keys per tile
   static constexpr int NC = D / kChunk;           // 64-column chunks of O
-  static constexpr int kKStages = kWide ? 4 : 2;  // K (wide: q and K) ring
+  static constexpr int kKStages = kStr ? 4 : 2;   // K (stream: q and K) ring
   static constexpr int kVStages = 2;              // V ring
-  static constexpr int kQBytes = kWide ? 0 : kBQ * D * 2;
-  // one K tile, or (wide) a 64-column chunk of q's tile and of K's
-  static constexpr int kKTileBytes = BK * (kWide ? kChunk : D) * 2;
+  static constexpr int kQBytes = kStr ? 0 : kBQ * D * 2;
+  // one K tile, or (stream) a 64-column chunk of q's tile and of K's
+  static constexpr int kKTileBytes = BK * (kStr ? kChunk : D) * 2;
   static constexpr int kKStageBytes =
-      (kWide ? kBQ * kChunkBytes : 0) + kKTileBytes;
+      (kStr ? kBQ * kChunkBytes : 0) + kKTileBytes;
   static constexpr int kVTileBytes = BK * D * 2;
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kKStages * kKStageBytes;
-  static constexpr int kBarOff = kVOff + kVStages * kVTileBytes;
+  // kCluster: each consumer warpgroup's partial S (64 rows x BK keys, f32;
+  // thread t's 16-byte unit u at u * 2048 + t * 16)
+  static constexpr int kPartBytes = R == kCluster ? kRows * BK * 4 : 0;
+  static constexpr int kPartOff = kVOff + kVStages * kVTileBytes;
+  static constexpr int kBarOff = kPartOff + 2 * kPartBytes;
+  // kCluster: a full, a summed and an empty barrier for each warpgroup's
+  // partial
+  static constexpr int kBars =
+      1 + 2 * kKStages + 2 * kVStages + (R == kCluster ? 6 : 0);
   // + 1024 to align the base to the swizzle atom
-  static constexpr int kSmem =
-      kBarOff + 8 * (1 + 2 * kKStages + 2 * kVStages) + 1024;
+  static constexpr int kSmem = kBarOff + 8 * kBars + 1024;
+  static_assert(kSmem <= 232448, "shared memory a block may hold");
+  // the own loads' registers: producers 56 and consumers 224 where two half
+  // rows stay in flight a producer thread (d <= 128), else 40 and 232;
+  // either way 128 x P + 256 x C = 384 x 168, what the block holds
+  static constexpr bool kPair = R == kPlain && D <= 128;
+  static constexpr int kProdRegs = kPair ? 56 : 40;
+  static constexpr int kConsRegs = kPair ? 224 : 232;
+  static_assert(128 * kProdRegs + 256 * kConsRegs == 384 * 168, "registers");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -198,40 +252,221 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-template <int U>
-using Word = typename std::conditional<
-    U == 8, uint64_t,
-    typename std::conditional<U == 4, uint32_t, uint16_t>::type>::type;
+// The own loads fill a box of `rows` rows x 64 columns laid out as TMA's
+// 128-byte swizzle lays it out: byte b of row r at
+// r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15)). src is the box's
+// first element, rs the row stride in bytes, n the rows that exist, lim the
+// bytes of a row before d (a multiple of the unit; <= 0 or >= 128 where the
+// box is past d or inside it); zeros elsewhere, on every fill.
 
-__device__ __forceinline__ void st_shared(uint32_t a, uint16_t w) {
-  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a), "h"(w) : "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t a, uint32_t w) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(w) : "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t a, uint64_t w) {
-  asm volatile("st.shared.b64 [%0], %1;\n" ::"r"(a), "l"(w) : "memory");
+__device__ __forceinline__ void st_shared4(uint32_t a, uint32_t x, uint32_t y,
+                                           uint32_t z, uint32_t w) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(x),
+               "r"(y), "r"(z), "r"(w));
 }
 
-// A box of `rows` rows x 64 columns, laid out as TMA's 128-byte swizzle lays
-// it out (16-byte unit u of row r at r * 128 + ((u ^ (r & 7)) << 4)), by the
-// producer warpgroup's own loads of U bytes: src is the box's first element,
-// rs the row stride in bytes, n the rows that exist, lim the bytes of a row
-// before d (a multiple of U; <= 0 or >= 128 where the box is past d or
-// inside it). Zeros elsewhere.
-template <int U>
-__device__ __forceinline__ void own_box(uint32_t dst, const uint8_t* src,
-                                        long long rs, int rows, int n,
-                                        int lim, int pt) {
-  constexpr int kPer = kChunkBytes / U;
-  for (int i = pt; i < rows * kPer; i += kProducers) {
-    const int r = i / kPer, cb = (i - r * kPer) * U;
-    Word<U> w = 0;
-    if (r < n && cb < lim)
-      w = *reinterpret_cast<const Word<U>*>(src + r * rs + cb);
-    st_shared(dst + r * kChunkBytes + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15)),
-              w);
+// Half h of box row r (box bytes 64h .. 64h + 63, `live` of them live,
+// even) from L, the 5 aligned 16-byte words that hold them, the first at
+// byte `off` (even) of L: lane off / 4 is moved to the front in place (L[i]
+// reads lanes >= i), then out lane m (bytes 4m .. 4m + 3) is lanes m, m + 1
+// shifted by the rest of the offset, zeros at and past the live bytes;
+// its four 16-byte units go to their swizzled slots of the box at `box`.
+__device__ __forceinline__ void store_half(uint32_t (&L)[20], int off,
+                                           int live, int h, uint32_t box,
+                                           int r) {
+  const int q = off >> 2;
+#pragma unroll
+  for (int i = 0; i < 17; ++i)
+    L[i] = q == 0 ? L[i] : q == 1 ? L[i + 1] : q == 2 ? L[i + 2] : L[i + 3];
+  const int sh = (off & 3) * 8;
+  const uint32_t row = box + r * kChunkBytes;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = 4 * h + j;
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 4 * j + e;
+      const uint32_t x = __funnelshift_r(L[m], L[m + 1], sh);
+      o[e] = 4 * m >= live ? 0u : 4 * m + 2 == live ? x & 0xffffu : x;
+    }
+    st_shared4(row + ((u ^ (r & 7)) << 4), o[0], o[1], o[2], o[3]);
   }
+}
+
+// Half h of row r of a box: its live bytes and the offset of their first,
+// and the aligned 16-byte words that hold them (at most 5, only those) read
+// into L.
+__device__ __forceinline__ void load_half(uint32_t (&L)[20], int& off,
+                                          int& live, const uint8_t* src,
+                                          long long rs, int r, int h, int n,
+                                          int lim) {
+  live = r < n ? max(0, min(lim - 64 * h, 64)) : 0;
+  const uint8_t* p = src + r * rs + 64 * h;
+  off = (int)(reinterpret_cast<uintptr_t>(p) & 15);
+  const uint4* w = reinterpret_cast<const uint4*>(p - off);
+  const int nw = live > 0 ? (off + live + 15) >> 4 : 0;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (j < nw) x = __ldg(w + j);
+    L[4 * j] = x.x;
+    L[4 * j + 1] = x.y;
+    L[4 * j + 2] = x.z;
+    L[4 * j + 3] = x.w;
+  }
+}
+
+// nb boxes of `rows` rows (box b: columns 64b .. 64b + 63 of src's rows,
+// at dst + b * box_bytes) by 16-byte loads realigned in registers (any
+// unit): the fill's half rows k = b * 2 rows + h * rows + r are
+// taken by thread pt as k = pt, pt + 128, ..., each read by load_half and
+// realigned by store_half; kPair: two of them (k, k + 128) in flight at
+// once.
+template <bool kPair>
+__device__ __forceinline__ void own_fill_realign(uint32_t dst,
+                                                 uint32_t box_bytes, int nb,
+                                                 const uint8_t* src,
+                                                 long long rs, int rows,
+                                                 int n, int lim, int pt) {
+  constexpr int kStep = (kPair ? 2 : 1) * kProducers;
+  const int all = nb * rows * 2;
+  auto at = [&](int k, int& b, int& r, int& h) {
+    b = k / (2 * rows);
+    const int i = k - b * 2 * rows;
+    h = i >= rows;
+    r = i - h * rows;
+  };
+  for (int k = pt; k < all; k += kStep) {
+    uint32_t L[20];
+    int off, live, b, r, h;
+    at(k, b, r, h);
+    load_half(L, off, live, src + b * kChunkBytes, rs, r, h, n,
+              lim - b * kChunkBytes);
+    if (kPair && k + kProducers < all) {
+      uint32_t M[20];
+      int off2, live2, b2, r2, h2;
+      at(k + kProducers, b2, r2, h2);
+      load_half(M, off2, live2, src + b2 * kChunkBytes, rs, r2, h2, n,
+                lim - b2 * kChunkBytes);
+      store_half(L, off, live, h, dst + b * box_bytes, r);
+      store_half(M, off2, live2, h2, dst + b2 * box_bytes, r2);
+    } else {
+      store_half(L, off, live, h, dst + b * box_bytes, r);
+    }
+  }
+}
+
+// Lane i of the lanes L holds, moved q (runtime, 0..3) lanes down; lanes past
+// the N held read as 0.
+template <int N>
+__device__ __forceinline__ uint32_t lane_q(const uint32_t (&L)[N], int i,
+                                           int q) {
+  auto at = [&](int k) { return k < N ? L[k] : 0u; };
+  return q == 0 ? at(i) : q == 1 ? at(i + 1) : q == 2 ? at(i + 2) : at(i + 3);
+}
+
+// Whole rows (nb <= 2 boxes of `rows` rows, as own_fill_realign takes them)
+// where a row's live bytes and their offset fit 10 aligned 16-byte words
+// (at most 146 live bytes): thread pt takes rows pt, pt + 128, ..., reads
+// the words that hold a row's live bytes (only those) at once and emits
+// its 2 nb half rows from them, one round trip a row.
+template <int NB>
+__device__ __forceinline__ void own_rows_whole(uint32_t dst,
+                                               uint32_t box_bytes,
+                                               const uint8_t* src,
+                                               long long rs, int rows, int n,
+                                               int lim, int pt) {
+  for (int r = pt; r < rows; r += kProducers) {
+    const uint8_t* p = src + r * rs;
+    const int off = (int)(reinterpret_cast<uintptr_t>(p) & 15);
+    const int all = r < n ? max(0, min(lim, 128 * NB)) : 0;
+    const uint4* w = reinterpret_cast<const uint4*>(p - off);
+    const int nw = all > 0 ? (off + all + 15) >> 4 : 0;  // at most 10
+    uint32_t L[40];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (j < nw) x = __ldg(w + j);
+      L[4 * j] = x.x;
+      L[4 * j + 1] = x.y;
+      L[4 * j + 2] = x.z;
+      L[4 * j + 3] = x.w;
+    }
+    const int q = off >> 2, sh = (off & 3) * 8;
+#pragma unroll
+    for (int hb = 0; hb < 2 * NB; ++hb) {
+      const int live = max(0, min(all - 64 * hb, 64));
+      const uint32_t row = dst + (hb >> 1) * box_bytes + r * kChunkBytes;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 4 * j + e, i = 16 * hb + m;
+          const uint32_t x =
+              __funnelshift_r(lane_q(L, i, q), lane_q(L, i + 1, q), sh);
+          o[e] = 4 * m >= live ? 0u : 4 * m + 2 == live ? x & 0xffffu : x;
+        }
+        const int u = 4 * (hb & 1) + j;
+        st_shared4(row + ((u ^ (r & 7)) << 4), o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
+}
+
+// Thread-block clusters (kCluster). barrier.cluster: every non-exited
+// thread of the cluster arrives (release), then waits (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The address of the same shared-memory byte in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// An arrive on a barrier of any CTA of the cluster (`addr` from mapa),
+// with mbarrier.arrive's own CTA-scope release; the waits acquire at CTA
+// scope too. What the exchange orders by it lies in shared memory, read and
+// written only in place: a warpgroup's stores to its own buffer are
+// performed before its named barrier returns, and its elected thread
+// arrives after that, so a peer that sees the phase reads them over
+// distributed shared memory; a peer's reads have returned before its arrive
+// on empty. This relies on the hardware: the PTX memory model orders
+// threads of different CTAs only at cluster scope. Its forms cost too much
+// here (NVIDIA H100 80GB HBM3, 700.00 W; benchmarks_torch/wide_variants.py;
+// PERF.md §6): a release at cluster scope on each remote arrive
+// took the route 1.4x as long at d = 512 and 3.3x at d = 4096 (16 CTAs),
+// and 1.12-1.17x with the n arrives spread over n threads, slower at d =
+// 512 than the streaming route it replaced (acquiring at cluster scope
+// costs nothing).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared4f(uint32_t a, float x, float y,
+                                            float z, float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(x),
+               "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+// The 128 threads of consumer warpgroup cw (named barrier 3 + cw).
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + cw) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
@@ -508,42 +743,152 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                            1024));
 }
 
-// Fills the rings: q once (not kWide), then per key tile K (kWide: q's and
-// K's 64-column chunks) and V, by TMA (one thread) or by the producer
+// kCluster: the exchange of one key tile's partial S between the n CTAs of
+// the cluster, in each consumer warpgroup (cw; t its thread). The
+// warpgroup's partial (sc, 64 rows x BK keys) goes to its buffer `part`
+// (this thread's first 16-byte unit; unit u at u * 2048), and sc comes back
+// as the sum of the n CTAs' partials in rank order, 0, 1, ..., n - 1: the
+// same bits in every CTA. bar: this warpgroup's three barriers, each n
+// arrivals a phase (one from each CTA's elected thread): full (every CTA's
+// partial is written), summed (every CTA's own units are summed) and empty
+// (every CTA has read this one's buffer, which tile it + 1 may then
+// overwrite).
+// - n <= 2: each thread reads its units from every CTA and sums them.
+// - n > 2: CTA me owns the units u with u % n == me; it sums each of them
+//   over the n CTAs (its loads of one unit in flight together) and writes
+//   the sum in place, then reads every other unit's sum from its owner:
+//   about 2 rounds of remote loads a tile instead of n (4 ranks' or 4
+//   units' loads in flight at once, which keeps the warpgroup's registers
+//   unspilled).
+template <int BK>
+__device__ __forceinline__ void exchange(float (&sc)[BK / 2], uint32_t part,
+                                         uint32_t bar, int it, int n, int me,
+                                         int cw, int t) {
+  constexpr int kU = BK / 8;                    // a thread's 16-byte units
+  constexpr uint32_t kStep = kProducers * 16;   // bytes from unit to unit
+  constexpr int kBatch = 4;                     // ranks' loads in flight
+  const uint32_t full = bar, summed = bar + 8, empty = bar + 16;
+  auto signal = [&](uint32_t b) {  // this warpgroup's writes or reads done
+    wg_sync(cw);
+    if (t == 0)
+      for (int r = 0; r < n; ++r) mbar_arrive_cluster(mapa(b, (uint32_t)r));
+  };
+  if (it > 0) mbar_wait(empty, (it - 1) & 1);
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+    st_shared4f(part + u * kStep, sc[4 * u], sc[4 * u + 1], sc[4 * u + 2],
+                sc[4 * u + 3]);
+  signal(full);
+  mbar_wait(full, it & 1);
+  if (n <= 2) {
+    for (int r = 0; r < n; ++r) {
+      const uint32_t src = mapa(part, (uint32_t)r);
+      float4 v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) v[u] = ld_cluster4(src + u * kStep);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const float x[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sc[4 * u + c] = r == 0 ? x[c] : sc[4 * u + c] + x[c];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (u % n != me) continue;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int r0 = 0; r0 < n; r0 += kBatch) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          if (r0 + j < n)
+            v[j] = ld_cluster4(mapa(part + u * kStep, (uint32_t)(r0 + j)));
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (r0 + j >= n) break;
+          const float x[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[c] = r0 + j == 0 ? x[c] : acc[c] + x[c];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[4 * u + c] = acc[c];
+      st_shared4f(part + u * kStep, acc[0], acc[1], acc[2], acc[3]);
+    }
+    signal(summed);
+    mbar_wait(summed, it & 1);
+#pragma unroll
+    for (int u0 = 0; u0 < kU; u0 += kU / 2) {  // half the units at a time
+      float4 v[kU / 2];
+#pragma unroll
+      for (int u = u0; u < u0 + kU / 2; ++u)
+        if (u % n != me)
+          v[u - u0] = ld_cluster4(mapa(part + u * kStep, (uint32_t)(u % n)));
+#pragma unroll
+      for (int u = u0; u < u0 + kU / 2; ++u)
+        if (u % n != me) {
+          sc[4 * u] = v[u - u0].x;
+          sc[4 * u + 1] = v[u - u0].y;
+          sc[4 * u + 2] = v[u - u0].z;
+          sc[4 * u + 3] = v[u - u0].w;
+        }
+    }
+  }
+  signal(empty);
+}
+
+// Fills the rings: q once (not kStream), then per key tile K (kStream: q's
+// and K's 64-column chunks) and V, by TMA (one thread) or by the producer
 // warpgroup's own loads (all 128; `pt` the thread). A stage's full barrier
 // takes one expect_tx arrive (TMA) or an arrive from every producer thread
-// after its stores.
-template <typename T, int D, bool kWide, bool kTma>
+// after its stores. q, K and V from column col0 (kCluster: the CTA's
+// slice; kStream: q and K from 0).
+template <typename T, int D, int R, bool kTma>
 __device__ __forceinline__ void produce(const Args& a, uint32_t base,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, int b, int h,
                                         int hk, int q0, int k_first,
                                         int n_tiles, int col0, int pt) {
-  using C = Cfg<D, kWide>;
+  using C = Cfg<D, R>;
   constexpr int BK = C::BK;
+  constexpr bool kStr = R == kStream;
   const uint32_t q_full = base + C::kBarOff;
   const uint32_t k_full = q_full + 8;
   const uint32_t v_full = k_full + 8 * C::kKStages;
   const uint32_t k_empty = v_full + 8 * C::kVStages;
   const uint32_t v_empty = k_empty + 8 * C::kKStages;
-  // a box of 64 columns from column c and `rows` rows from row r of q (0),
-  // k (1) or v (2) into dst
-  auto box = [&](int t, uint32_t dst, uint32_t bar, int c, int r, int rows) {
+  // the own loads: whole rows where a row's live bytes fit 10 words (d <=
+  // 128 only, every fill from column 0), whatever the unit
+  const bool whole =
+      C::kPair && a.unit != 16 && min(2 * a.d, C::NC * kChunkBytes) <= 146;
+  // `rows` rows from row r of q (0), k (1) or v (2), nb boxes of 64 columns
+  // from column c, box i at dst + i * rows * 128
+  auto fill = [&](int t, uint32_t dst, uint32_t bar, int nb, int c, int r,
+                  int rows) {
     const int hh = t == 0 ? h : hk;
+    const uint32_t box_bytes = rows * kChunkBytes;
     if constexpr (kTma) {
-      tma_load(dst, t == 0 ? tq : t == 1 ? tk : tv, bar, c, r, hh, b);
+      for (int i = 0; i < nb; ++i)
+        tma_load(dst + i * box_bytes, t == 0 ? tq : t == 1 ? tk : tv, bar,
+                 c + i * kChunk, r, hh, b);
     } else {
       const long long* st = a.st[t];
       const uint8_t* src = static_cast<const uint8_t*>(a.src[t]) +
                            2 * (b * st[0] + hh * st[1] + r * st[2] + c);
       const int n = (t == 0 ? a.Sq : a.Sk) - r, lim = 2 * (a.d - c);
-      if (a.unit == 8)
-        own_box<8>(dst, src, 2 * st[2], rows, n, lim, pt);
-      else if (a.unit == 4)
-        own_box<4>(dst, src, 2 * st[2], rows, n, lim, pt);
-      else
-        own_box<2>(dst, src, 2 * st[2], rows, n, lim, pt);
+      const long long rs = 2 * st[2];
+      if constexpr (C::kPair) {
+        if (whole) {
+          own_rows_whole<C::NC>(dst, box_bytes, src, rs, rows, n, lim, pt);
+          return;
+        }
+      }
+      own_fill_realign<C::kPair>(dst, box_bytes, nb, src, rs, rows, n, lim,
+                                 pt);
     }
   };
   auto begin = [&](uint32_t bar, uint32_t bytes) {
@@ -555,15 +900,14 @@ __device__ __forceinline__ void produce(const Args& a, uint32_t base,
       mbar_arrive(bar);
     }
   };
-  if constexpr (!kWide) {
+  if constexpr (!kStr) {
     begin(q_full, C::kQBytes);
     for (int c = 0; c < kBQ / kRows; ++c)
-      for (int kb = 0; kb < C::NC; ++kb)
-        box(0, base + (c * C::NC + kb) * kRows * kChunkBytes, q_full,
-            kb * kChunk, q0 + c * kRows, kRows);
+      fill(0, base + c * C::NC * kRows * kChunkBytes, q_full, C::NC, col0,
+           q0 + c * kRows, kRows);
     end(q_full);
   }
-  const int nc = kWide ? (a.d + kChunk - 1) / kChunk : 1;
+  const int nc = kStr ? (a.d + kChunk - 1) / kChunk : 1;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = k_first + it * BK;
     for (int c = 0; c < nc; ++c) {
@@ -571,15 +915,14 @@ __device__ __forceinline__ void produce(const Args& a, uint32_t base,
       const uint32_t stage = base + C::kKOff + s * C::kKStageBytes;
       mbar_wait(k_empty + 8 * s, ((n / C::kKStages) & 1) ^ 1);
       begin(k_full + 8 * s, C::kKStageBytes);
-      if constexpr (kWide) {
+      if constexpr (kStr) {
         for (int r = 0; r < kBQ / kRows; ++r)
-          box(0, stage + r * kRows * kChunkBytes, k_full + 8 * s, c * kChunk,
-              q0 + r * kRows, kRows);
-        box(1, stage + kBQ * kChunkBytes, k_full + 8 * s, c * kChunk, k0, BK);
+          fill(0, stage + r * kRows * kChunkBytes, k_full + 8 * s, 1,
+               c * kChunk, q0 + r * kRows, kRows);
+        fill(1, stage + kBQ * kChunkBytes, k_full + 8 * s, 1, c * kChunk, k0,
+             BK);
       } else {
-        for (int kb = 0; kb < C::NC; ++kb)
-          box(1, stage + kb * BK * kChunkBytes, k_full + 8 * s, kb * kChunk,
-              k0, BK);
+        fill(1, stage, k_full + 8 * s, C::NC, col0, k0, BK);
       }
       end(k_full + 8 * s);
     }
@@ -587,9 +930,7 @@ __device__ __forceinline__ void produce(const Args& a, uint32_t base,
     const uint32_t stage = base + C::kVOff + s * C::kVTileBytes;
     mbar_wait(v_empty + 8 * s, ((it / C::kVStages) & 1) ^ 1);
     begin(v_full + 8 * s, C::kVTileBytes);
-    for (int kb = 0; kb < C::NC; ++kb)
-      box(2, stage + kb * BK * kChunkBytes, v_full + 8 * s,
-          col0 + kb * kChunk, k0, BK);
+    fill(2, stage, v_full + 8 * s, C::NC, col0, k0, BK);
     end(v_full + 8 * s);
   }
 }
@@ -597,15 +938,21 @@ __device__ __forceinline__ void produce(const Args& a, uint32_t base,
 // kTma: the producers fill the rings by TMA (one thread), else by their own
 // loads (all 128), an instance of its own so that the TMA instance carries
 // none of that code: the own loads need more than 24 registers, so that
-// instance gives its producers 40 and its consumers 232.
-template <typename T, int D, bool kWide, bool kTma>
+// instance gives its producers 40 and its consumers 232 (56 and 224 where
+// two half rows stay in flight, Cfg::kPair). Either way the block keeps the
+// 384 x 168 registers it was launched with: consumers can only grow by what
+// the producers gave up (128 x 24 + 256 x 240 = 64,512), or setmaxnreg.inc
+// waits for ever.
+template <typename T, int D, int R, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                             __grid_constant__ const CUtensorMap tk,
                             __grid_constant__ const CUtensorMap tv,
                             const Args a) {
-  using C = Cfg<D, kWide>;
+  using C = Cfg<D, R>;
   constexpr int BK = C::BK;
+  constexpr bool kStr = R == kStream;
+  constexpr bool kClu = R == kCluster;
   // float16 takes P as one product, bfloat16 as two (P_hi, P_lo)
   constexpr int kParts = kHalf<T> ? 1 : 2;
   extern __shared__ uint8_t smem_raw[];
@@ -615,17 +962,24 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const uint32_t v_full = k_full + 8 * C::kKStages;    // + 8 s
   const uint32_t k_empty = v_full + 8 * C::kVStages;   // + 8 s
   const uint32_t v_empty = k_empty + 8 * C::kKStages;  // + 8 s
+  // kCluster: each consumer warpgroup's exchange barriers, + 24 cw
+  const uint32_t x_bars = v_empty + 8 * C::kVStages;
 
-  // the block's q tile and output slice from (y, z): t + n_qt * slice
+  // the block's q tile and output slice from (y, z): kStream t + n_qt *
+  // slice; kCluster slice + n_sl * t (a cluster: the slices of one tile)
   const unsigned lin = blockIdx.y + gridDim.y * blockIdx.z;
   const unsigned n_qt = (unsigned)a.n_qt;
-  if (lin >= n_qt * (kWide ? (unsigned)((a.d + kSlice - 1) / kSlice) : 1u))
-    return;  // past the last tile: the grid's rounding
+  const unsigned n_sl = R == kPlain ? 1u : (unsigned)a.n_sl;
+  if (lin >= n_qt * n_sl) return;  // past the last tile: the grid's rounding
   const int bh = blockIdx.x;
   const int b = bh / a.Hq, h = bh % a.Hq, hk = h / a.g;
-  const int qt = kWide ? (int)(lin % n_qt) : (int)lin;
+  const int qt = kStr ? (int)(lin % n_qt)
+                 : kClu ? (int)(lin / n_sl)
+                        : (int)lin;
   const int q0 = (a.n_qt - 1 - qt) * kBQ;  // heaviest tiles first
-  const int col0 = kWide ? (int)(lin / n_qt) * kSlice : 0;
+  const int col0 = kStr ? (int)(lin / n_qt) * kSlice
+                   : kClu ? (int)(lin % n_sl) * kSlice
+                          : 0;
   // the key tiles any row of this q tile can see
   const int q_last = min(q0 + kBQ, a.Sq) - 1;
   const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
@@ -644,22 +998,36 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       mbar_init(v_full + 8 * s, fills);
       mbar_init(v_empty + 8 * s, 2 * 128);
     }
+    if constexpr (kClu)  // one elected arrive from every CTA
+      for (int i = 0; i < 6; ++i) mbar_init(x_bars + 8 * i, n_sl);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // every CTA's barriers are initialised before any remote arrive
+  if constexpr (kClu) {
+    cluster_arrive();
+    cluster_wait();
+  }
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTma ? 24 : 40)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     kTma ? 24 : C::kProdRegs)
                  : "memory");
     if (!kTma || threadIdx.x == 0)
-      produce<T, D, kWide, kTma>(a, base, &tq, &tk, &tv, b, h, hk, q0,
-                                 k_first, n_tiles, col0, threadIdx.x);
+      produce<T, D, R, kTma>(a, base, &tq, &tk, &tv, b, h, hk, q0, k_first,
+                             n_tiles, col0, threadIdx.x);
+    if constexpr (kClu) {  // every thread takes the cluster's last barrier
+      __syncwarp();
+      cluster_arrive();
+      cluster_wait();
+    }
     return;
   }
 
   // consumer warpgroup cw owns q rows qc0 .. qc0 + 63
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTma ? 240 : 232)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                   kTma ? 240 : C::kConsRegs)
                : "memory");
   const int cw = wg - 1;
   const int t = threadIdx.x % 128;
@@ -669,7 +1037,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   const int row0 = qc0 + 16 * warp + lane / 4;
   const int col = 2 * (lane % 4);
   const uint32_t q_smem = base + cw * C::NC * kRows * kChunkBytes;
-  const int nc = kWide ? (a.d + kChunk - 1) / kChunk : 1;
+  const int nc = kStr ? (a.d + kChunk - 1) / kChunk : 1;
   // scores are kept in log2 units: y = log2(e) * score. The parameters the
   // score loops use are read into registers once.
   const int Sk = a.Sk, window = a.window;
@@ -687,7 +1055,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
   // time (a loop-carried one makes ptxas serialize every wgmma). A turn
   // spans P.V(it - 1) and S(it): warpgroup 0 takes the first, and each
   // warpgroup passes the turn once per turn it took.
-  if constexpr (!kWide) {
+  if constexpr (!kStr) {
     mbar_wait(q_full, 0);
     if (cw == 1 && n_tiles > 0) turn_pass(cw);
   }
@@ -696,7 +1064,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     const uint32_t phase_v = (it / C::kVStages) & 1;
     const int k0 = k_first + it * BK;
     float sc[BK / 2];
-    if constexpr (kWide) {
+    if constexpr (kStr) {
       // S over d, a chunk of q and K per stage
       for (int c = 0; c < nc; ++c) {
         const int n = it * nc + c, s = n % C::kKStages;
@@ -728,6 +1096,10 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
       fence_regs(sc);
       fence_regs(o);
       mbar_arrive(k_empty + 8 * s);
+      // the partial S over this CTA's columns to the sum over d
+      if constexpr (kClu)
+        exchange<BK>(sc, base + C::kPartOff + cw * C::kPartBytes + t * 16,
+                     x_bars + 24 * cw, it, (int)n_sl, col0 / kSlice, cw, t);
     }
     if (it > 0) mbar_arrive(v_empty + 8 * ((it - 1) % C::kVStages));
 
@@ -806,7 +1178,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
     for (int q = 0; q < kParts; ++q) fence_frags(p[q]);
     mbar_wait(v_full + 8 * sv, phase_v);
-    if constexpr (!kWide) turn_wait(cw);
+    if constexpr (!kStr) turn_wait(cw);
     wgmma_fence();
 #pragma unroll
     for (int q = 0; q < kParts; ++q)
@@ -814,9 +1186,15 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     wgmma_commit();
   }
   // the last turn: warpgroup 1 has none left to take
-  if (!kWide && cw == 0 && n_tiles > 0) turn_pass(cw);
+  if (!kStr && cw == 0 && n_tiles > 0) turn_pass(cw);
   wgmma_wait_all();
   fence_regs(o);
+  // no peer reads this CTA's shared memory once this wait returns (the
+  // producers take it when they are done)
+  if constexpr (kClu) {
+    cluster_arrive();
+    cluster_wait();
+  }
 
   // epilogue: rows past Sq and columns past d are not written
   T* out = static_cast<T*>(a.o) + b * a.so[0] + h * a.so[1] + col0;
@@ -847,10 +1225,17 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // The grid for n_bh = B*Hq blocks in x and n_lin = n_qt * slices (q tile,
-// slice) indices over y and z (see the kernel's head comment).
-dim3 grid_of(long long n_bh, long long n_lin) {
-  const long long ny = n_lin < 65535 ? n_lin : 65535;
+// slice) indices over y and z (see the kernel's head comment): y + ny * z,
+// ny = n_lin up to 65535, else 65535 rounded down to a multiple of `step`
+// (the cluster's y extent).
+dim3 grid_of(long long n_bh, long long n_lin, int step) {
+  const long long ny = n_lin < 65535 ? n_lin : 65535 - 65535 % step;
   return dim3((unsigned)n_bh, (unsigned)ny, (unsigned)((n_lin + ny - 1) / ny));
+}
+
+// The route at head dim d (ops.sm90_route).
+Route route_of(int d) {
+  return d <= kSlice ? kPlain : d <= kSlice * kMaxCluster ? kCluster : kStream;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -899,24 +1284,50 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <typename T, int D, bool kWide, bool kTma>
+// A launch of instance <T, D, R, kTma>; kCluster in clusters of (1, n_sl,
+// 1) by cudaLaunchKernelEx. With max_active, no launch: the most such
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+template <typename T, int D, int R, bool kTma>
 int launch_k(const CUtensorMap& tq, const CUtensorMap& tk,
              const CUtensorMap& tv, int B, const Args& a,
-             cudaStream_t stream) {
-  constexpr int bytes = Cfg<D, kWide>::kSmem;
+             cudaStream_t stream, int* max_active = nullptr) {
+  constexpr int bytes = Cfg<D, R>::kSmem;
+  auto* kernel = &flash_attention_sm90_kernel<T, D, R, kTma>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<T, D, kWide, kTma>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
+  const int step = R == kCluster ? a.n_sl : 1;
   const dim3 grid = grid_of(
-      B * a.Hq, (long long)a.n_qt *
-                    (kWide ? (a.d + kSlice - 1) / kSlice : 1));
-  flash_attention_sm90_kernel<T, D, kWide, kTma>
-      <<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
+      B * a.Hq, (long long)a.n_qt * (R == kPlain ? 1 : a.n_sl), step);
+  if (R != kCluster) {
+    kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, a);
+    return (int)cudaGetLastError();
+  }
+  if (step > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = (unsigned)step;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (max_active)
+    return (int)cudaOccupancyMaxActiveClusters(max_active, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kWide>
+template <typename T, int D, int R>
 int launch(const long long* st, int B, int Hkv, const Args& a,
            cudaStream_t stream) {
   // the maps are unused (left zero) where the producers load on their own
@@ -927,7 +1338,7 @@ int launch(const long long* st, int B, int Hkv, const Args& a,
     const CUtensorMapDataType type = kHalf<T>
                                          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    constexpr int BK = Cfg<D, kWide>::BK;
+    constexpr int BK = Cfg<D, R>::BK;
     const int Sk = a.Sk > 0 ? a.Sk : 1;
     CUresult r = encode(fn, &tq, type, a.src[0], a.d, a.Sq, a.Hq, B, st,
                         kRows);
@@ -936,18 +1347,20 @@ int launch(const long long* st, int B, int Hkv, const Args& a,
     if (r == CUDA_SUCCESS)
       r = encode(fn, &tv, type, a.src[2], a.d, Sk, Hkv, B, st + 6, BK);
     if (r != CUDA_SUCCESS) return -(int)r;
-    return launch_k<T, D, kWide, true>(tq, tk, tv, B, a, stream);
+    return launch_k<T, D, R, true>(tq, tk, tv, B, a, stream);
   }
-  return launch_k<T, D, kWide, false>(tq, tk, tv, B, a, stream);
+  return launch_k<T, D, R, false>(tq, tk, tv, B, a, stream);
 }
 
 template <typename T>
 int launch_t(const long long* st, int B, int Hkv, const Args& a,
              cudaStream_t s) {
-  if (a.d > 256) return launch<T, 256, true>(st, B, Hkv, a, s);
-  if (a.d <= 64) return launch<T, 64, false>(st, B, Hkv, a, s);
-  if (a.d <= 128) return launch<T, 128, false>(st, B, Hkv, a, s);
-  return launch<T, 256, false>(st, B, Hkv, a, s);
+  const Route r = route_of(a.d);
+  if (r == kStream) return launch<T, 256, kStream>(st, B, Hkv, a, s);
+  if (r == kCluster) return launch<T, 256, kCluster>(st, B, Hkv, a, s);
+  if (a.d <= 64) return launch<T, 64, kPlain>(st, B, Hkv, a, s);
+  if (a.d <= 128) return launch<T, 128, kPlain>(st, B, Hkv, a, s);
+  return launch<T, 256, kPlain>(st, B, Hkv, a, s);
 }
 
 }  // namespace
@@ -961,9 +1374,9 @@ int launch_t(const long long* st, int B, int Hkv, const Args& a,
 // that many bytes, which needs the bases, those strides and d * 2 bytes to
 // be multiples of it. Any d >= 1 and Sq >= 1: B Hq up to 2^31 - 1 (the
 // grid's x) and q tiles of 128 rows times slices of 256 columns past d =
-// 256 up to 65,535^2 (its y and z). Launches on `stream` of `device` and
-// returns 0
-// when the launch was accepted, a CUDA error, or -CUresult when a tensor
+// 256 up to 65,535^2 (its y and z; 256 < d <= 4096 y a whole number of
+// clusters). Launches on `stream` of `device` and returns 0 when the
+// launch was accepted, a CUDA error, or -CUresult when a tensor
 // map could not be encoded; arguments it does not take return
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
@@ -976,9 +1389,10 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            void* stream) {
   const long long n_qt = ((long long)Sq + kBQ - 1) / kBQ;
   const long long n_sl = d > kSlice ? ((long long)d + kSlice - 1) / kSlice : 1;
+  const int step = d > 0 && route_of(d) == kCluster ? (int)n_sl : 1;
   bool ok = B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk >= 0 &&
             d > 0 && window >= 0 && (long long)B * Hq <= 0x7fffffffLL &&
-            n_qt * n_sl <= 65535LL * 65535 &&
+            n_qt * n_sl <= (65535LL - 65535 % step) * 65535 &&
             (dtype == 1 || dtype == 2) &&
             (unit == 16 || unit == 8 || unit == 4 || unit == 2) &&
             (unit == 16 || (2 * d) % unit == 0);
@@ -1013,6 +1427,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   a.causal = causal != 0;
   a.window = window;
   a.n_qt = (int)n_qt;
+  a.n_sl = (int)n_sl;
   a.scale = scale;
   a.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1022,13 +1437,38 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
 
 // The launch configuration for head_dim d >= 1, either type: q rows per
 // block, keys per tile and dynamic shared memory bytes, for the callers'
-// checks and reports (d > 256: per 256-column slice of the output).
+// checks and reports (d > 256: of a CTA of one 256-column slice).
 extern "C" void flash_attention_sm90_config(int d, int* block_q, int* block_k,
                                             int* smem_bytes) {
+  const Route r = route_of(d);
   *block_q = kBQ;
-  *block_k = d <= 128 ? Cfg<128, false>::BK : Cfg<256, false>::BK;
-  *smem_bytes = d <= 64    ? Cfg<64, false>::kSmem
-                : d <= 128 ? Cfg<128, false>::kSmem
-                : d <= 256 ? Cfg<256, false>::kSmem
-                           : Cfg<256, true>::kSmem;
+  *block_k = d <= 128 ? Cfg<128, kPlain>::BK : Cfg<256, kPlain>::BK;
+  *smem_bytes = r == kCluster  ? Cfg<256, kCluster>::kSmem
+                : r == kStream ? Cfg<256, kStream>::kSmem
+                : d <= 64      ? Cfg<64, kPlain>::kSmem
+                : d <= 128     ? Cfg<128, kPlain>::kSmem
+                               : Cfg<256, kPlain>::kSmem;
+}
+
+// The route at head dim d >= 1 (0 d <= 256, 1 the cluster route, 2 the
+// streaming route) and its CTAs a cluster (1 but on the cluster route); on
+// the cluster route, with `device` >= 0, the most such clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters, TMA's instance, bfloat16),
+// else 0. Returns the CUDA error.
+extern "C" int flash_attention_sm90_clusters(int d, int device, int* route,
+                                             int* cluster, int* max_active) {
+  if (d <= 0) return (int)cudaErrorInvalidValue;
+  *route = (int)route_of(d);
+  *cluster = *route == kCluster ? (d + kSlice - 1) / kSlice : 1;
+  *max_active = 0;
+  if (*route != kCluster || device < 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Args a = {};
+  a.Hq = 1;
+  a.n_qt = 1;
+  a.n_sl = *cluster;
+  const CUtensorMap none = {};
+  return launch_k<__nv_bfloat16, 256, kCluster, true>(none, none, none, 1, a,
+                                                       0, max_active);
 }

@@ -5,7 +5,9 @@ one of two hand-written kernels, chosen by dtype, or the call raises:
 
 * bfloat16 and float16 -> ``csrc/flash_attention_sm90.cu``: wgmma products
   fed by TMA where its layout rule holds (``_sm90_layout_ok``), else by the
-  producer warpgroup's own loads (``_sm90_unit``);
+  producer warpgroup's own loads (``_sm90_unit``: the aligned 16-byte words
+  of a row realigned in registers, whole rows where they fit, else half
+  rows, at every unit);
 * float32 -> ``csrc/flash_attention_f32_sm90.cu``: every product as three
   TF32 tensor-core products (3xTF32: the float32 tolerance rules out a
   single TF32 product, not the split one).
@@ -14,13 +16,14 @@ Both take any head_dim, any sequence length and any layout whose last
 dimension is contiguous: a block's batch x head is the grid's x, and its
 (q tile, slice) one index spread over the grid's y and z (``flash_grid``,
 ``flash_block``), so the grid's 65,535 blocks a dimension bound no q
-length. Past d = 256 the 2-byte kernel cuts the output into slices of
-``SLICE_COLS`` columns, each recomputing S; the float32 kernel cuts d into
-slices (``f32_wide_cols``: 128 columns, or 256 where only then one
-cluster covers d) taken by the CTAs of a thread-block cluster
-(``f32_wide_plan``),
-which sum their partial S over distributed shared memory, so S is computed
-once per cluster.
+length. Past d = 256 both kernels cut d into slices taken by the CTAs of a
+thread-block cluster, which sum their partial S over distributed shared
+memory, so S is computed once per cluster: the 2-byte kernel in slices of
+``SLICE_COLS`` columns, one cluster of up to ``SM90_CLUSTER_MAX`` CTAs
+(``sm90_wide_plan``; past that reach it streams q and K for every slice,
+``sm90_route``), the float32 kernel in slices of ``f32_wide_cols`` (128
+columns, or 256 where only then one cluster covers d) in clusters of up to
+``CLUSTER_MAX`` (``f32_wide_plan``).
 
 ``flash_attention.launches`` counts the launches of both kernels,
 ``flash_attention.launches_bf16`` and ``flash_attention.launches_f16`` those
@@ -47,9 +50,10 @@ SOURCES = {torch.float32: "flash_attention_f32_sm90",
            torch.bfloat16: "flash_attention_sm90",
            torch.float16: "flash_attention_sm90"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-SLICE_COLS = 256        # output columns per block past d = 256 (2-byte)
+SLICE_COLS = 256        # the 2-byte route's columns per CTA past d = 256
+SM90_CLUSTER_MAX = 16   # the 2-byte route's CTAs a cluster (9-16 non-portable)
 F32_WIDE_COLS = 128     # the float32 route's columns per CTA past d = 256
-CLUSTER_MAX = 8         # CTAs a cluster (the portable limit)
+CLUSTER_MAX = 8         # the float32 route's CTAs a cluster (portable)
 GRID_YZ = 65535         # blocks the grid's y (and z) dimension holds
 
 
@@ -113,10 +117,36 @@ def f32_wide_plan(d: int, cols: Optional[int] = None,
     return n_sl, ncl, -(-n_sl // ncl) * ncl
 
 
+def sm90_route(d: int) -> str:
+    """The 2-byte kernel's route at head dim ``d``: "plain" (d <= 256, one
+    CTA), "cluster" (past it, one cluster of ``SLICE_COLS``-column slices,
+    up to ``SM90_CLUSTER_MAX`` of them) or "stream" (past that reach: each
+    CTA streams q and K over d for its own output slice; the source's
+    ``route_of``)."""
+    if d <= SLICE_COLS:
+        return "plain"
+    return "cluster" if d <= SLICE_COLS * SM90_CLUSTER_MAX else "stream"
+
+
+def sm90_wide_plan(d: int) -> dict:
+    """The 2-byte kernel past d = 256: its route, columns per CTA, slices
+    and CTAs a cluster (the slices on the cluster route, where each CTA
+    owns one and S is summed once over all; 1 on the streaming route,
+    where each CTA recomputes S for its slice)."""
+    n_sl = -(-d // SLICE_COLS)
+    route = sm90_route(d)
+    return {"route": route, "cols": SLICE_COLS, "slices": n_sl,
+            "cluster": n_sl if route == "cluster" else 1}
+
+
 def flash_cluster(dtype: torch.dtype, d: int) -> int:
     """CTAs a cluster along the grid's y: the float32 route's past d = 256,
-    else 1."""
-    return f32_wide_plan(d)[1] if dtype == torch.float32 and d > 256 else 1
+    the 2-byte route's past d = 256 up to its cluster's reach, else 1."""
+    if d <= 256:
+        return 1
+    if dtype == torch.float32:
+        return f32_wide_plan(d)[1]
+    return sm90_wide_plan(d)["cluster"]
 
 
 def flash_grid(dtype: torch.dtype, B: int, Hq: int, Sq: int,
@@ -126,9 +156,9 @@ def flash_grid(dtype: torch.dtype, B: int, Hq: int, Sq: int,
     n_qt * slices (tile, slice) indices over y + ny * z, ny = that up to
     ``GRID_YZ``, else ``GRID_YZ`` rounded down to a multiple of the cluster
     (``flash_cluster``), so the cluster dims (1, cluster, 1) divide the
-    grid (the sources' ``grid_of``). Slices: ``SLICE_COLS`` output columns
-    past d = 256 on the 2-byte route; ``f32_wide_plan``'s padded slices on
-    the float32 route."""
+    grid (the sources' ``grid_of``). Slices: ``SLICE_COLS`` columns past d
+    = 256 on the 2-byte route (a whole cluster, unpadded);
+    ``f32_wide_plan``'s padded slices on the float32 route."""
     n_qt = -(-Sq // q_rows_per_block(dtype, d))
     if dtype == torch.float32:
         n_sl = f32_wide_plan(d)[2] if d > 256 else 1
@@ -145,9 +175,9 @@ def flash_block(x: int, y: int, z: int, ny: int, n_qt: int,
     """The (b * Hq + h, q tile, slice) of block (x, y, z), as the kernels
     decode it, or None for a block past the last index (the grid's
     rounding; it exits at once). lin = y + ny * z; index t holds q tile
-    n_qt - 1 - t. Without a cluster (``cluster`` 1: the 2-byte route, and
-    float32 to d = 256) lin = t + n_qt * slice; in clusters (the float32
-    route past d = 256) lin = slice + n_sl * t, so a cluster's CTAs
+    n_qt - 1 - t. Without a cluster (``cluster`` 1: d <= 256 and the 2-byte
+    streaming route) lin = t + n_qt * slice; in clusters (both routes past
+    d = 256, ``flash_cluster``) lin = slice + n_sl * t, so a cluster's CTAs
     (``cluster`` consecutive y) are consecutive slices of one q tile, and a
     CTA's rank in it is its slice % cluster. A (x, y, z) grid runs x
     fastest, then y and z: the heaviest causal tiles first."""
@@ -159,12 +189,9 @@ def flash_block(x: int, y: int, z: int, ny: int, n_qt: int,
     return x, n_qt - 1 - lin % n_qt, lin // n_qt
 
 
-def f32_clusters(d: int, device: int = 0) -> dict:
-    """The float32 route at d > 256 on ``device``: its slice width, CTAs a
-    cluster, and the most such clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; builds the kernel)."""
+def _clusters(dtype: torch.dtype, d: int, device: int, keys) -> dict:
     from repro_torch.kernels import _build
-    name = SOURCES[torch.float32]
+    name = SOURCES[dtype]
     vals = [ctypes.c_int() for _ in range(3)]
     err = getattr(_build.load(name), f"{name}_clusters")(
         ctypes.c_int(d), ctypes.c_int(device),
@@ -172,8 +199,24 @@ def f32_clusters(d: int, device: int = 0) -> dict:
     if err:
         raise RuntimeError(f"flash_attention: cluster occupancy query failed "
                            f"with CUDA error {err}")
-    return dict(zip(("cols", "cluster", "max_active_clusters"),
-                    (x.value for x in vals)))
+    return dict(zip(keys, (x.value for x in vals)))
+
+
+def f32_clusters(d: int, device: int = 0) -> dict:
+    """The float32 route at d > 256 on ``device``: its slice width, CTAs a
+    cluster, and the most such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; builds the kernel)."""
+    return _clusters(torch.float32, d, device,
+                     ("cols", "cluster", "max_active_clusters"))
+
+
+def sm90_clusters(d: int, device: int = 0) -> dict:
+    """The 2-byte route at head dim ``d`` on ``device``: its route (0
+    plain, 1 cluster, 2 stream, as ``sm90_route``), CTAs a cluster, and on
+    the cluster route the most such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, else 0; builds the kernel)."""
+    return _clusters(torch.bfloat16, d, device,
+                     ("route", "cluster", "max_active_clusters"))
 
 
 def _aligned(t: torch.Tensor, unit: int) -> bool:

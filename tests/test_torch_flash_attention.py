@@ -165,23 +165,35 @@ def test_head_dim_320_matches_pallas_kernel(dtype):
 
 # --- the 2-byte tensor-core kernel: its arithmetic, tiling, loads, route ----
 
-def _chunked_qk(q, kt, mm, chunked):
-    """S = Q.K^T; past d = 256 (``chunked``) summed over 64-column chunks of
-    d, in order, as the kernels' wide tiling streams them."""
-    if not chunked:
-        return mm(q, kt.transpose(-1, -2))
+def _chunked_qk(q, kt, mm, route):
+    """S = Q.K^T as the 2-byte kernel sums it on ``route``
+    (``ops.sm90_route``): "plain" one product; "stream" summed over
+    64-column chunks of d, in order, as that route streams them; "cluster"
+    each CTA's partial over its 256-column slice (its 64-column chunks in
+    order), the partials summed in rank order, as every CTA sums them."""
+    def chunks(lo, hi):
+        s = mm(q[..., lo:lo + 64], kt[..., lo:lo + 64].transpose(-1, -2))
+        for c in range(lo + 64, hi, 64):
+            s = s + mm(q[..., c:c + 64], kt[..., c:c + 64].transpose(-1, -2))
+        return s
     d = q.shape[-1]
-    s = mm(q[..., :64], kt[..., :64].transpose(-1, -2))
-    for c in range(64, d, 64):
-        s = s + mm(q[..., c:c + 64], kt[..., c:c + 64].transpose(-1, -2))
+    if route == "plain":
+        return mm(q, kt.transpose(-1, -2))
+    if route == "stream":
+        return chunks(0, d)
+    cols = ops.SLICE_COLS
+    s = chunks(0, min(d, cols))
+    for c0 in range(cols, d, cols):
+        s = s + chunks(c0, min(d, c0 + cols))
     return s
 
 
 def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
                   parts=None):
     """csrc/flash_attention_sm90.cu's arithmetic in plain PyTorch: 2-byte
-    q.k^T summed in f32 (past d = 256 over 64-column chunks: the output's
-    256-column slices change no other arithmetic), then scaled; key tiles
+    q.k^T summed in f32 (past d = 256 as ``_chunked_qk`` sums it on the
+    route ``ops.sm90_route`` takes: the output's 256-column slices change
+    no other arithmetic), then scaled; key tiles
     of 128 (64 at d > 128); a float32 online softmax from -1e30; P.V as
     two bf16 products for bfloat16, P_hi = bf16(p) and P_lo = bf16(p -
     P_hi), and one product of P = f16(p) for float16 (``parts`` overrides
@@ -198,7 +210,8 @@ def _sm90_emulate(q, k, v, *, causal=True, window=0, softcap=0.0,
     acc = torch.zeros((B, Hq, Sq, d))
     for k0 in range(0, Sk, block_k):
         kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        s = _chunked_qk(q.float(), kt, torch.matmul, d > 256) / math.sqrt(d)
+        s = _chunked_qk(q.float(), kt, torch.matmul,
+                        ops.sm90_route(d)) / math.sqrt(d)
         if softcap:
             s = softcap * torch.tanh(s / softcap)
         k_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
@@ -287,16 +300,19 @@ def test_sm90_f16_takes_p_in_one_product():
     assert worst[1] < 0.4 and worst[2] < 0.4
 
 
-WIDE_CASES = [  # d > 256: 64-column chunks of S, 256-column slices of O
+WIDE_CASES = [  # d > 256: S summed over slices of d, 256-column slices of O
     (1, 4, 2, 128, 128, 288, True, 0, 0.0),
     (1, 2, 2, 128, 192, 320, False, 0, 50.0),
     (1, 2, 1, 192, 192, 512, True, 64, 0.0),
 ]
+# the 2-byte route past one cluster's reach (d > 4096): S streamed in
+# 64-column chunks for every output slice
+SM90_STREAM_CASES = [(1, 2, 1, 128, 128, 4100, True, 0, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d,causal,window,softcap",
-                         WIDE_CASES)
+                         WIDE_CASES + SM90_STREAM_CASES)
 def test_sm90_wide_tiling_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
                                                 causal, window, softcap,
                                                 dtype):
@@ -307,20 +323,118 @@ def test_sm90_wide_tiling_matches_pallas_kernel(B, Hq, Hkv, Sq, Sk, d,
                                **DTYPES[dtype][2])
 
 
-def _own_box(slab, r0, rows, c0, d, unit):
-    """csrc/flash_attention_sm90.cu's own_box in numpy: rows [r0, r0 +
-    rows) and columns [c0, c0 + 64) of a (n, stride) 2-byte slab (its
-    first d columns live) into a box laid out as TMA's 128-byte swizzle
-    lays it out, ``unit`` bytes at a time, zeros past d and past row n."""
-    raw = slab.view(np.uint8)
-    n, lim, per = slab.shape[0] - r0, 2 * (d - c0), 128 // unit
-    box = np.full(rows * 128, 0xAB, np.uint8)   # no byte may stay unwritten
-    for i in range(rows * per):
-        r, cb = i // per, (i % per) * unit
-        w = (raw[r0 + r, 2 * c0 + cb:2 * c0 + cb + unit]
-             if r < n and cb < lim else np.zeros(unit, np.uint8))
-        off = r * 128 + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15))
-        box[off:off + unit] = w
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d,causal,softcap", [(1280, True, 0.0),
+                                              (2304, False, 30.0)])
+def test_wide_head_dims_match_pallas_kernel(d, causal, softcap, dtype):
+    """d = 1280 and 2304 (chip_smoke.py's FLASH_SHAPES widths; the 2-byte
+    cluster route in 5 and 9 CTAs) at small S: the plain version (the
+    wrapper on CPU tensors) and the 2-byte kernel's arithmetic, S summed
+    once over the CTAs' slices in rank order, against the Pallas kernel in
+    interpret mode."""
+    jdt, tdt, tol = DTYPES[dtype]
+    x = _qkv(13, 1, 2, 1, 128, 128, d)
+    kw = dict(causal=causal, softcap=softcap)
+    want = _pallas(x, dtype, **kw)
+    assert ops.sm90_wide_plan(d)["cluster"] == -(-d // 256)
+    np.testing.assert_allclose(_port(x, tdt, **kw), want, **tol)
+    np.testing.assert_allclose(_port(x, tdt, fn=_sm90_emulate, **kw), want,
+                               **tol)
+
+
+@pytest.mark.parametrize("d", [512, 1280, 2304, 4096])
+def test_sm90_cluster_scores_are_the_same_bits_in_every_cta(d):
+    """On the 2-byte cluster route every CTA sums the n partial S (each
+    over its own 256 columns) in rank order 0, 1, ..., n - 1, so every CTA
+    holds the same bits of S, m, l and P: held here on 2-byte inputs with
+    f32 products, against the order a CTA starting from its own partial
+    would take, which differs in some bits past two partials; the source
+    sums from rank 0 for every CTA."""
+    q, k, _ = (torch.from_numpy(a).bfloat16().float()
+               for a in _qkv(14, 1, 1, 1, 128, 64, d))
+    parts, n_sl, n, nslp = _cluster_partials(
+        q, k, torch.matmul, ops.SLICE_COLS, ops.SM90_CLUSTER_MAX)
+    assert n == n_sl == nslp == ops.sm90_wide_plan(d)["cluster"]
+    every = _cluster_scores(parts, nslp)
+    assert all(torch.equal(s, every[0]) for s in every)
+    if n > 2:
+        rotated = _cluster_scores(parts, nslp, rotated=True)
+        assert any(not torch.equal(s, every[0]) for s in rotated[1:])
+    src = (Path(ops.__file__).parents[2] / "csrc"
+           / "flash_attention_sm90.cu").read_text()
+    assert "for (int r = 0; r < n; ++r) {" in src
+    assert "sc[4 * u + c] = r == 0 ? x[c] : sc[4 * u + c] + x[c];" in src
+
+
+def _own_box(mem, start, rs, rows, n, lim, unit, box=None, span=None,
+             whole=False):
+    """csrc/flash_attention_sm90.cu's own loads in numpy: a box of ``rows``
+    rows x 64 columns laid out as TMA's 128-byte swizzle lays it out, from
+    the flat bytes ``mem`` (index = address), the box's first element at
+    byte ``start``, rows ``rs`` bytes apart, ``n`` rows that exist, ``lim``
+    bytes of a row before d; zeros elsewhere, on every fill. Every unit
+    (8, 4 or 2 bytes) the same way (``own_fill_realign``): half a row (64
+    bytes) at a time, the aligned 16-byte words holding its live bytes
+    read at once (only those: each must hold a byte of ``span``, the
+    tensor's bytes; ``load_half``), funnel-shifted by the start's offset
+    into four 16-byte units, bytes past the live ones zeroed (lane off / 4
+    moved to the front in place, then each out lane from lanes m and m +
+    1; ``store_half``); or, ``whole`` (``own_rows_whole``, where the live
+    bytes fit 10 words), a row's words read once and each half's out lane
+    m taken from lanes 16 h + m + off / 4 and the next. ``box``: the
+    buffer it fills (a new one, of bytes no fill may leave, if None)."""
+    box = np.full(rows * 128, 0xAB, np.uint8) if box is None else box
+    swz = lambda r, b: r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15))
+    if whole:
+        for r in range(rows):
+            p = start + r * rs
+            off, every = p & 15, max(0, min(lim, 128)) if r < n else 0
+            nw = (off + every + 15) >> 4 if every > 0 else 0
+            assert nw <= 10
+            words = np.zeros(160, np.uint8)
+            for j in range(nw):
+                a = p - off + 16 * j
+                assert span[0] < a + 16 and a < span[1], "a word off the tensor"
+                words[16 * j:16 * j + 16] = mem[a:a + 16]
+            L = np.concatenate([words.view(np.uint32).astype(np.uint64),
+                                np.zeros(8, np.uint64)])
+            q, sh = off >> 2, (off & 3) * 8
+            for h in range(2):
+                live = max(0, min(every - 64 * h, 64))
+                for m in range(16):
+                    i = 16 * h + m + q
+                    x = int(((L[i + 1] << 32 | L[i]) >> sh) & 0xffffffff)
+                    x = 0 if 4 * m >= live else \
+                        x & 0xffff if 4 * m + 2 == live else x
+                    u, b = 4 * h + m // 4, 4 * (m % 4)
+                    box[swz(r, 16 * u) + b:swz(r, 16 * u) + b + 4] = \
+                        np.array([x], np.uint32).view(np.uint8)
+        return box
+    for r in range(rows):
+        for h in range(2):
+            live = max(0, min(lim - 64 * h, 64)) if r < n else 0
+            p = start + r * rs + 64 * h
+            off = p & 15
+            nw = (off + live + 15) >> 4 if live > 0 else 0
+            words = np.zeros(80, np.uint8)
+            for j in range(nw):
+                a = p - off + 16 * j
+                assert span[0] < a + 16 and a < span[1], "a word off the tensor"
+                words[16 * j:16 * j + 16] = mem[a:a + 16]
+            L = words.view(np.uint32).astype(np.uint64)
+            q, sh = off >> 2, (off & 3) * 8
+            for i in range(17):                 # lane q to the front
+                L[i] = L[i + q]
+            o = [int(((L[m + 1] << 32 | L[m]) >> sh) & 0xffffffff)
+                 for m in range(16)]
+            o = [0 if 4 * m >= live else
+                 o[m] & 0xffff if 4 * m + 2 == live else o[m]
+                 for m in range(16)]
+            out = np.array(o, np.uint32).view(np.uint8)
+            for j in range(4):
+                u = 4 * h + j
+                box[swz(r, 16 * u):swz(r, 16 * u) + 16] = \
+                    out[16 * j:16 * j + 16]
     return box
 
 
@@ -334,25 +448,59 @@ def _unswizzle(box, rows):
     return out.view(np.uint16)
 
 
-@pytest.mark.parametrize("d,unit", [(37, 2), (40, 2), (40, 4), (40, 8),
-                                    (72, 8), (100, 8)])
-def test_own_loads_fill_the_box_tma_would_fill(d, unit):
+# (d, unit, whole): every unit a row of d elements allows, half a row at a
+# time and, where d's rows fit 10 words (d <= 73), whole rows; the rows of each test are d + 1 (2), d + 2 (4) or d + 4
+# (8) elements, the base 2, 4 or 8 bytes past a 16-byte boundary
+OWN_LOADS = [(d, u, whole) for d in (37, 40, 72, 100, 330)
+             for u in (2, 4, 8) if (2 * d) % u == 0
+             for whole in ((False, True) if d <= 73 else (False,))]
+
+
+@pytest.mark.parametrize("d,unit,whole", OWN_LOADS)
+def test_own_loads_fill_the_box_tma_would_fill(d, unit, whole):
     """The producer warpgroup's own loads give what TMA gives: the tile's
     elements before d, zeros past d (the padding to 64 columns) and past
-    the last row, each 16-byte unit where the swizzle puts it; the kernel
-    source holds the same swizzle."""
-    stride = d + 3                              # a row TMA cannot step
-    slab = np.random.RandomState(d).randint(1, 2 ** 16, (70, stride)) \
+    the last row, each 16-byte unit where the swizzle puts it, on a stage's
+    first fill and on a later one over it (nothing of the first is left);
+    the realigned loads read only words that hold a byte of the tensor; the
+    kernel source holds the same swizzle and loaders."""
+    stride, base = d + {2: 1, 4: 2, 8: 4}[unit], unit
+    rows_n = 70
+    slab = np.random.RandomState(d).randint(1, 2 ** 16, (rows_n, stride)) \
         .astype(np.uint16)
-    for r0, c0 in ((0, 0), (64, 0), (0, 64)):
-        box = _unswizzle(_own_box(slab, r0, 64, c0, d, unit), 64)
-        want = np.zeros((64, 64), np.uint16)
-        live = slab[r0:r0 + 64, c0:min(d, c0 + 64)]
+    mem = np.zeros(base + slab.nbytes + 64, np.uint8)
+    mem[base:base + slab.nbytes] = slab.view(np.uint8).ravel()
+    span = (base, base + slab.nbytes)
+
+    def tma(r0, c0, rows):
+        want = np.zeros((rows, 64), np.uint16)
+        live = slab[r0:r0 + rows, c0:max(c0, min(d, c0 + 64))]
         want[:live.shape[0], :live.shape[1]] = live
-        np.testing.assert_array_equal(box, want)
+        return want
+
+    for c0 in range(0, -(-d // 64) * 64 + 64, 64):
+        lim = 2 * (d - c0)
+        for rows in (64, 128):
+            fill = lambda r0, box=None: _own_box(  # noqa: E731
+                mem, base + 2 * (r0 * stride + c0), 2 * stride, rows,
+                rows_n - r0, lim, unit, box, span, whole)
+            box = fill(0)
+            np.testing.assert_array_equal(_unswizzle(box, rows),
+                                          tma(0, c0, rows))
+            box = fill(rows_n - 37, box)    # rows past the last
+            np.testing.assert_array_equal(_unswizzle(box, rows),
+                                          tma(rows_n - 37, c0, rows))
     src = (Path(ops.__file__).parents[2] / "csrc"
            / "flash_attention_sm90.cu").read_text()
-    assert "((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15))" in src
+    # store_half's and own_rows_whole's 16-byte stores into the swizzle
+    assert src.count("st_shared4(row + ((u ^ (r & 7)) << 4), o[0], o[1], "
+                     "o[2], o[3]);") == 2
+    assert "__funnelshift_r(L[m], L[m + 1], sh)" in src
+    assert "cp.async.ca" not in src     # one loader for every unit
+    assert "if (j < nw) x = __ldg(w + j);" in src
+    assert "own_fill_realign<C::kPair>(" in src
+    assert "__funnelshift_r(lane_q(L, i, q), lane_q(L, i + 1, q), sh);" in src
+    assert "min(2 * a.d, C::NC * kChunkBytes) <= 146" in src
 
 
 def _strided(d, pad, off=0, dtype=torch.float16):
@@ -395,13 +543,15 @@ def test_flash_block_is_a_bijection_onto_tiles_and_slices(n_qt, n_sl):
     past the end (the grid's rounding) to None, with the heaviest (last) q
     tile first; x is the batch x head. Without a cluster the slice is the
     slow index (a (n_qt, n_sl) grid's order); in clusters of c = min(n_sl,
-    8) (the float32 route past d = 256, n_sl padded to a multiple of c) it
+    8) (the float32 route past d = 256, n_sl padded to a multiple of c) or
+    of c = n_sl <= 16 (the 2-byte route's, ``sm90_wide_plan``) it
     is the fast one, y's extent is a multiple of c, so the cluster dims (1,
     c, 1) divide the grid, and a cluster's CTAs (c consecutive y) are
     consecutive slices of one q tile, each CTA's rank its slice % c. Past
     65,535 tiles (the old limit) the blocks at both ends and a sample
     between are checked, without computing any attention."""
-    for c in sorted({1, min(n_sl, ops.CLUSTER_MAX)}):
+    for c in sorted({1, min(n_sl, ops.CLUSTER_MAX),
+                     n_sl if n_sl <= ops.SM90_CLUSTER_MAX else 1}):
         nsl = -(-n_sl // c) * c
         n = n_qt * nsl
         ny = n if n <= ops.GRID_YZ else ops.GRID_YZ - ops.GRID_YZ % c
@@ -475,8 +625,10 @@ def test_grid_and_slices_follow_the_kernel_sources():
     """The wrapper's grid (``flash_grid``, ``SLICE_COLS``, ``GRID_YZ``) is
     what both sources launch (their ``grid_of``): x = B Hq, the (q tile,
     slice) indices over y and z, q tiles of 128 rows (64 on the float32
-    route at 128 < d <= 256); on the 2-byte route slices of 256 output
-    columns past d = 256; on the float32 route past d = 256 slices of
+    route at 128 < d <= 256); on the 2-byte route slices of 256 columns
+    past d = 256, one cluster of up to ``SM90_CLUSTER_MAX`` CTAs along y
+    (``sm90_wide_plan``, the source's ``route_of``; past that reach no
+    cluster); on the float32 route past d = 256 slices of
     ``F32_WIDE_COLS`` columns, or twice as wide where only then
     ``CLUSTER_MAX`` of them cover d (``f32_wide_cols``, the source's
     ``wide_cols``), in
@@ -510,7 +662,19 @@ def test_grid_and_slices_follow_the_kernel_sources():
     assert ops.f32_wide_plan(2304) == (18, 8, 24)
     assert ops.flash_cluster(torch.float32, 512) == 4
     assert ops.flash_cluster(torch.float32, 256) == 1
-    assert ops.flash_cluster(torch.bfloat16, 512) == 1
+    assert ops.flash_cluster(torch.bfloat16, 512) == 2
+    assert ops.flash_cluster(torch.float16, 2304) == 9
+    assert ops.flash_cluster(torch.bfloat16, 256) == 1
+    assert ops.flash_cluster(torch.bfloat16, 4097) == 1
+    assert f"constexpr int kMaxCluster = {ops.SM90_CLUSTER_MAX};" in two
+    assert (f"n_lin < {ops.GRID_YZ} ? n_lin : {ops.GRID_YZ} - "
+            f"{ops.GRID_YZ} % step") in two
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in two
+    # past 65,535 (tile, slice) indices y is a whole number of clusters
+    assert ops.flash_grid(torch.bfloat16, 1, 1, 128 * 20000, 1280) == (
+        (1, 65535, 2), 20000, 5)
+    assert ops.flash_grid(torch.float16, 1, 1, 128 * 20000, 2304) == (
+        (1, 65529, 3), 20000, 9)
     assert ops.flash_grid(torch.float16, 1, 1, 8388736, 64) == (
         (1, 65535, 2), 65537, 1)
     assert ops.flash_grid(torch.float32, 1, 1, 4194368, 256) == (
@@ -522,6 +686,42 @@ def test_grid_and_slices_follow_the_kernel_sources():
         (1, 65528, 8), 20000, 24)
     assert ops.flash_grid(torch.float32, 1, 1, 128 * 20000, 1000) == (
         (1, 65528, 3), 20000, 8)
+
+
+@pytest.mark.parametrize("d,route,cluster", [
+    (256, "plain", 1), (257, "cluster", 2), (512, "cluster", 2),
+    (1280, "cluster", 5), (2304, "cluster", 9), (4096, "cluster", 16),
+    (4097, "stream", 1), (8192, "stream", 1)])
+def test_sm90_wide_plan_follows_the_kernel_source(d, route, cluster):
+    """The 2-byte route past d = 256 (``sm90_wide_plan``): 256 columns a
+    CTA (``SLICE_COLS``), one cluster of a CTA a slice up to
+    ``SM90_CLUSTER_MAX`` slices, so S is computed once per q tile (no
+    group, no padding); past that the streaming route (no cluster), as the
+    source's ``route_of`` chooses; the grid then holds whole clusters of
+    consecutive y, each the slices of one q tile."""
+    from repro_torch.kernels import _build
+    assert ops.sm90_route(d) == route
+    assert ops.flash_cluster(torch.bfloat16, d) == cluster
+    if d > 256:
+        plan = ops.sm90_wide_plan(d)
+        assert plan == {"route": route, "cols": 256, "slices": -(-d // 256),
+                        "cluster": cluster}
+        if route == "cluster":
+            assert plan["slices"] == cluster <= ops.SM90_CLUSTER_MAX
+        (gx, gy, gz), n_qt, n_sl = ops.flash_grid(torch.bfloat16, 1, 3, 1000,
+                                                  d)
+        assert (gx, n_qt, n_sl) == (3, 8, plan["slices"])
+        assert gy % cluster == 0 and gy * gz >= n_qt * n_sl
+        for y in range(0, gy, cluster):
+            blocks = [ops.flash_block(0, y + r, 0, gy, n_qt, n_sl, cluster)
+                      for r in range(cluster)]
+            if cluster > 1:
+                assert {b[1] for b in blocks} == {blocks[0][1]}
+                assert [b[2] for b in blocks] == list(range(cluster))
+    src = (_build.CSRC / f"{ops.SOURCES[torch.bfloat16]}.cu").read_text()
+    assert ("return d <= kSlice ? kPlain : d <= kSlice * kMaxCluster ? "
+            "kCluster : kStream;") in src
+    assert f"constexpr int kSlice = {ops.SLICE_COLS};" in src
 
 
 def test_launch_arguments_follow_the_c_entries(monkeypatch):

@@ -1069,15 +1069,15 @@ def test_paged_variants_refuses_to_run_without_a_card(monkeypatch):
 
 
 def test_wide_variants_edits_match_the_kernel_sources(monkeypatch):
-    """benchmarks_torch/wide_variants.py's variants of the two cluster
-    routes (K2's float32 route past d = 256, K1's wide route and its
-    combine grid) still apply to the kernel sources as they are
-    (build-free): each edit matches, each variant differs from its source,
-    and a stale edit raises."""
+    """benchmarks_torch/wide_variants.py's variants of the cluster routes
+    (K2's float32 and 2-byte routes past d = 256, K1's wide route and its
+    combine grid) and of K2's 2-byte own loads still apply to the kernel
+    sources as they are (build-free): each edit matches, each variant
+    differs from its source, and a stale edit raises."""
     from benchmarks_torch import wide_variants
     texts = wide_variants.variant_sources(list(wide_variants.VARIANTS))
-    assert set(texts) == {"flash_attention_f32_sm90", "paged_attention_sm90",
-                          *wide_variants.VARIANTS}
+    assert set(texts) == {"flash_attention_f32_sm90", "flash_attention_sm90",
+                          "paged_attention_sm90", *wide_variants.VARIANTS}
     for name, (src, text) in texts.items():
         if name in wide_variants.VARIANTS:
             assert text != texts[src][1], name
